@@ -1,0 +1,125 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into ONE shared library with a plain C interface, which is loaded with
+``ctypes``. The build happens at first use, when a CUDA tensor first reaches
+a kernel, into ``egg_fluid_simulation_tpu_torch/_build/`` (git-ignored); the
+file name carries a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once. Nothing here is imported or
+run for CPU tensors, so the package imports on machines without ``nvcc``.
+
+There is no fallback: a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+__all__ = ["load", "build", "check", "stream_handle", "ptr"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# Route (b) of a hand-built Hopper library. --fmad=false keeps every multiply
+# and add rounded on its own, as the plain PyTorch versions' separate
+# elementwise ops are; --use_fast_math is deliberately absent (expf, rsqrtf
+# and '/' stay the accurate ones).
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false"]
+
+_C_INT = ctypes.c_int
+_C_PTR = ctypes.c_void_p
+_SIGNATURES = {
+    "egg_place_planes": [_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_INT,
+                         _C_INT, _C_INT, _C_PTR],
+    "egg_substep_pass": [_C_PTR] * 9 + [_C_INT] * 7 + [_C_PTR],
+    "egg_splat": [_C_PTR] * 4 + [_C_INT] * 12 + [_C_PTR],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+last_build_seconds: Optional[float] = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "egg_fluid_simulation_tpu_torch cannot be built")
+    return found
+
+
+def build() -> Path:
+    """Compile the library if this exact source set is not built yet."""
+    global last_build_seconds
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"libegg_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s"
+                           % (proc.returncode, proc.stdout, proc.stderr))
+    os.replace(tmp, out)
+    last_build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _C_INT
+            _lib = lib
+    return _lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error (launch refused etc.)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
