@@ -5,10 +5,22 @@
 
 Builds the hand-written CUDA kernels from ``egg_fluid_simulation_tpu_torch/
 csrc/``, checks each kernel against its plain PyTorch version at the shapes
-of the main path, then drives the main path through the public API: the
-1M-white / 100k-yolk scene of ``bench.py`` (``build_handler``), a few
-``update(1/60)`` calls and a 2560 px ``draw``, and last a small spawn
-explosion with the constructor-default solver options (the wide sweep).
+of the paths that run it, then drives the paths through the public API:
+
+- ``main_path``: the 1M-white / 100k-yolk scene of ``bench.py``
+  (``build_handler``) with the budget off (the fused path: kernels A, B),
+  a few ``update(1/60)`` calls and a 2560 px ``draw`` (kernel C);
+- ``default_options``: a small spawn explosion with the constructor-default
+  solver options of an automatic handler (the wide sweep);
+- ``plane_path``: the same 1M scene with the ordered budget and the default
+  violence gate (the plane-resident step: kernels F, D), 3 updates and a
+  draw;
+- ``plane_modes``: a 65k-white scene under the symmetric sweep (kernel E),
+  per-substep and per-pass rebinning, the stale-hash pass count and the
+  literal cohesion mode;
+- ``plane_reference``: a small scene stepped once on the card and on the
+  CPU (plain versions): the ordered plane path, the symmetric sweep and, as
+  a control, the fused path; positions held together.
 
 Every phase prints its own line; any failure raises, so the script exits
 non-zero. Without a CUDA card it exits non-zero before doing anything. The
@@ -29,8 +41,19 @@ SEED = 0
 SPAWN_AREA = 20.0           # px^2 per white particle at spawn (bench.py)
 N_WHITE = 1_000_000
 MAIN_UPDATES = 3
+N_WHITE_MODES = 65_536
+MODE_STEPS = 2
+N_WHITE_REF = 4096
+REF_STEPS = 1               # card vs CPU: one step (a spawn explosion
+                            # amplifies the ulp-level rounding
+                            # differences of the two devices)
 PLACE_TOL = 0.0             # bit-exact
 SUBSTEP_TOL = 1e-4          # px
+SWEEP_TOL = 1e-4            # px: D in its plain version's order; E adds
+                            # with atomics in a run-dependent order
+COUNT_TOL = 0.0             # bit-exact: small integers
+REF_TOL = 1e-3              # px after a few steps, card vs CPU (the CPU
+                            # tests' tolerance against the JAX package)
 SPLAT_TOL = 1e-4            # alpha: products taken in another order
 
 
@@ -67,9 +90,11 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def build_handler(n_target: int, device, wide_default: bool = False):
+def build_handler(n_target: int, device, wide_default: bool = False,
+                  **overrides):
     """The bench.py scene (build_handler) through the port's API: 2000-white
-    batches tiled alias-free, per-population grids, dense engine."""
+    batches tiled alias-free, per-population grids, dense engine, budget
+    off; ``overrides`` replace solver options."""
     from egg_fluid_simulation_tpu_torch import (SimulationHandler,
                                                 SolverOptions,
                                                 default_white_config,
@@ -93,10 +118,11 @@ def build_handler(n_target: int, device, wide_default: bool = False):
 
     g_w = pick_grid(8.0, per_batch_w * n_batches)
     g_y = pick_grid(12.0, per_batch_y * n_batches)
-    kw = {} if wide_default else {"wide_budget_substeps": 0}
-    options = SolverOptions(engine="dense", budget_mode="off",
-                            dense_rebin="step", dense_grid_dim=(g_w, g_y),
-                            dense_slots=4, pop_caps=(cap_w, cap_y), **kw)
+    kw = dict(engine="dense", budget_mode="off", dense_rebin="step",
+              dense_grid_dim=(g_w, g_y), dense_slots=4, pop_caps=(cap_w, cap_y))
+    if not wide_default:
+        kw["wide_budget_substeps"] = 0
+    options = SolverOptions(**{**kw, **overrides})
     h = SimulationHandler(default_white_config(), default_yolk_config(),
                           capacity=max(cap_w, cap_y),
                           max_batches=max(n_batches, 4), options=options,
@@ -132,7 +158,7 @@ def population_inputs(h, pop: int, vel_seed: int):
     sub_dt = torch.tensor((1 / 60) / opts.n_substeps, dtype=torch.float32,
                           device=dev)
     cell_size, params = S._dense_params(
-        cfg, S.strength_to_compliance(cfg.collision_strength, sub_dt),
+        cfg, act, S.strength_to_compliance(cfg.collision_strength, sub_dt),
         S.strength_to_compliance(cfg.cohesion_strength, sub_dt), opts)
     table = torch.cat([st.batch_target,
                        torch.sqrt(torch.clamp(st.batch_radius[pop], min=0.0))[:, None]], 1)
@@ -160,7 +186,7 @@ def check_place(h, results) -> None:
         slot_sorted, pidx_sorted, _, pack = D.sort_bin(
             p["pos"], p["inv_mass"], p["radius"], p["batch"], p["act"],
             p["cell_size"], grid_dim=p["g"], slots_per_cell=p["k"],
-            aux_cols=aux_cols)
+            aux_cols=aux_cols, rotate=True)
         pack_sorted = pack[pidx_sorted]
         got = PK.place_planes(slot_sorted, pack_sorted, p["g"], p["k"])
         want = PK.place_planes_plain(slot_sorted, pack_sorted, p["g"], p["k"])
@@ -286,6 +312,161 @@ def check_splat(h, results) -> None:
                 r.update(ms=ms, plain_ms=plain_ms)
 
 
+def check_count(h, results):
+    """Kernel F on the ordered-layout planes of both populations, bit-exact.
+    Returns per population (inputs, planes with the examined-pair prefix and
+    positions drifted by up to 0.4 cell, as a substep's passes leave them)."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import dense as D
+    from egg_fluid_simulation_tpu_torch.ops import solver as S
+    from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
+    out = []
+    for pop, name in ((0, "white"), (1, "yolk")):
+        p = population_inputs(h, pop, SEED + pop)
+        g, k = p["g"], p["k"]
+        b = D.bin_to_planes(p["pos"], p["inv_mass"], p["radius"], p["batch"],
+                            p["act"], p["cell_size"], grid_dim=g,
+                            slots_per_cell=k)
+        got = SK.count_planes(b.planes, k)
+        want = SK.count_planes_plain(b.planes, k)
+        err = float((got - want).abs().max())
+        exact = bool(torch.equal(got, want))
+        ms = cuda_ms(lambda: SK.count_planes(b.planes, k), 20)
+        plain_ms = cuda_ms(lambda: SK.count_planes_plain(b.planes, k), 3)
+        b = S._dense_add_cum(b, k)
+        cum_max = float(b.planes[D.FIELD_CUM].max())
+        rp = D.ROW_PAD
+        log("check.count_planes", pop=name, G=g, K=k,
+            occupied=int((b.planes[D.FIELD_OCC, rp:rp + g] > 0).sum()),
+            total=int(got.to(torch.float64).sum()), cum_max=cum_max,
+            cum_exact_in_f32=cum_max < 2.0 ** 24, max_abs_err=err,
+            bit_exact=exact, ms=round(ms, 4), plain_ms=round(plain_ms, 4))
+        if not (exact and err <= COUNT_TOL):
+            raise AssertionError(f"count_planes not bit-exact ({name})")
+        r = results.setdefault("count_planes", dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if pop == 0:
+            r.update(ms=ms, plain_ms=plain_ms)
+        planes = b.planes.clone()
+        occ = planes[D.FIELD_OCC] > 0.0
+        gen = torch.Generator(device=planes.device).manual_seed(SEED + 10 + pop)
+        drift = (torch.rand((2,) + occ.shape, generator=gen,
+                            device=planes.device) * 0.8 - 0.4) * p["cell_size"]
+        planes[:2] = torch.where(occ, planes[:2] + drift, planes[:2])
+        out.append((p, D.refresh_halo_xy(planes), cum_max))
+    return out
+
+
+def check_sweep(ordered_planes, results) -> None:
+    """Kernels D and E against their plain versions (and E against D) on the
+    1M scene's drifted ordered planes; the ordered cutoff set to bind for
+    about half the slots."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
+    for pop, (p, planes, cum_max) in enumerate(ordered_planes):
+        name = ("white", "yolk")[pop]
+        k = p["k"]
+        params = p["params"].clone()
+        params[4] = 0.5 * cum_max              # max_pairs: binds
+        dev = planes.device
+        for window in (1, 3):
+            flag = torch.tensor(window == 3, device=dev)
+            for ordered in (False, True):
+                kw = dict(cohesion=True, ordered_budget=ordered)
+                static = dict(kw, window=window, fresh_mask=window == 3)
+                got = SK.sweep_planes(planes, params, k, **static)
+                want = SK.sweep_planes_plain(planes, params, k, **static)
+                err = float((got - want).abs().max())
+                same_flag = bool(torch.equal(
+                    got, SK.sweep_planes(planes, params, k, wide=flag, **kw)))
+                timed = pop == 0
+                ms = cuda_ms(lambda: SK.sweep_planes(planes, params, k,
+                                                     **static), 10) \
+                    if timed else float("nan")
+                plain_ms = cuda_ms(lambda: SK.sweep_planes_plain(
+                    planes, params, k, **static), 2) if timed else float("nan")
+                log("check.sweep_planes", pop=name, G=p["g"], K=k, window=window,
+                    fresh_mask=window == 3, ordered_budget=ordered,
+                    max_pairs=float(params[4]) if ordered else "off",
+                    corr_max=round(float(want.abs().max()), 4),
+                    max_abs_err=err, tol=SWEEP_TOL,
+                    device_flag_same=same_flag, ms=round(ms, 4),
+                    plain_ms=round(plain_ms, 4))
+                if not (err <= SWEEP_TOL and same_flag
+                        and float(want.abs().max()) > 0.0):
+                    raise AssertionError("sweep_planes disagrees with its "
+                                         "plain version")
+                r = results.setdefault("sweep_planes", dict(max_abs_err=0.0))
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                if timed and (window, ordered) == (1, True):
+                    r.update(ms=ms, plain_ms=plain_ms)
+            # kernel E: each unordered pair once, ordered budget, cohesion
+            static = dict(cohesion=True, ordered_budget=True, window=window,
+                          fresh_mask=window == 3)
+            got = SK.sweep_planes(planes, params, k, symmetric=True, **static)
+            want = SK.sweep_planes_sym_plain(planes, params, k, **static)
+            one_sided = SK.sweep_planes(planes, params, k, **static)
+            err = float((got - want).abs().max())
+            err_d = float((got - one_sided).abs().max())
+            err_flag = float((got - SK.sweep_planes(
+                planes, params, k, symmetric=True, wide=flag, cohesion=True,
+                ordered_budget=True)).abs().max())
+            timed = pop == 0
+            ms = cuda_ms(lambda: SK.sweep_planes(planes, params, k,
+                                                 symmetric=True, **static),
+                         10) if timed else float("nan")
+            plain_ms = cuda_ms(lambda: SK.sweep_planes_sym_plain(
+                planes, params, k, **static), 2) if timed else float("nan")
+            log("check.sweep_planes_sym", pop=name, G=p["g"], K=k, window=window,
+                fresh_mask=window == 3, max_abs_err=err, vs_one_sided=err_d,
+                device_flag_err=err_flag, tol=SWEEP_TOL, ms=round(ms, 4),
+                plain_ms=round(plain_ms, 4))
+            if not max(err, err_d, err_flag) <= SWEEP_TOL:
+                raise AssertionError("sweep_planes_sym disagrees with its "
+                                     "plain version or with kernel D")
+            r = results.setdefault("sweep_planes_sym", dict(max_abs_err=0.0))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if timed and window == 1:
+                r.update(ms=ms, plain_ms=plain_ms)
+
+
+def reset_counters() -> None:
+    from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
+    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
+    from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
+    PK.launches = SPK.launches = 0
+    SK.launches = SK.sweep_launches = SK.sweep_sym_launches = 0
+    SK.count_launches = 0
+
+
+def read_counters() -> dict:
+    from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
+    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
+    from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
+    return {"place_planes": PK.launches, "substep_pass": SK.launches,
+            "splat": SPK.launches, "count_planes": SK.count_launches,
+            "sweep_planes": SK.sweep_launches,
+            "sweep_planes_sym": SK.sweep_sym_launches}
+
+
+def plane_launches(opts, n_steps: int) -> dict:
+    """Expected launches of the plane-resident step and the per-pass route
+    over ``n_steps`` steps of both populations (no draw)."""
+    n_sub, n_pass = opts.n_substeps, opts.n_collision_steps
+    passes = n_sub * n_pass
+    if opts.stale_hash_compat:
+        passes -= n_sub - 1                 # one pass fewer after the first
+    bins = {"step": 1, "substep": n_sub, "pass": n_sub * n_pass}[
+        opts.dense_rebin]
+    sweep = 2 * n_steps * passes
+    ordered = opts.budget_mode == "ordered"
+    return {"place_planes": 0 if ordered else 2 * n_steps * bins,
+            "substep_pass": 0, "splat": 0,
+            "count_planes": 2 * n_steps * bins if ordered else 0,
+            "sweep_planes": 0 if opts.sweep_symmetric else sweep,
+            "sweep_planes_sym": sweep if opts.sweep_symmetric else 0}
+
+
 def main() -> int:
     import torch
     card = nvidia_smi()
@@ -297,8 +478,6 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from egg_fluid_simulation_tpu_torch.ops.kernels import library
-    from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
-    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
     from egg_fluid_simulation_tpu_torch.utils.profiling import (
         collision_drop_stats, validate_state)
@@ -314,14 +493,23 @@ def main() -> int:
     log("scene", particles=h.get_n_particles(), grids=h._options.dense_grid_dim,
         caps=h._options.pop_caps, seconds=round(time.perf_counter() - t0, 2))
     h.seed_render_budget()
+    t0 = time.perf_counter()
+    hp = build_handler(N_WHITE, dev, wide_default=True, budget_mode="ordered")
+    torch.cuda.synchronize()
+    log("scene.ordered", particles=hp.get_n_particles(),
+        budget_mode=hp._options.budget_mode,
+        wide_budget_substeps=hp._options.wide_budget_substeps,
+        seconds=round(time.perf_counter() - t0, 2))
+    hp.seed_render_budget()
 
     results = {}
     check_place(h, results)
     check_substep(h, results)
     check_splat(h, results)
+    check_sweep(check_count(hp, results), results)
 
     # ---- main path: update(1/60) x N + draw, counters from zero ----
-    PK.launches = SK.launches = SPK.launches = 0
+    reset_counters()
     step_ms, frame_ms = [], []
     viewport = (0, 0, 2560, 2560)
     for i in range(MAIN_UPDATES):
@@ -337,8 +525,7 @@ def main() -> int:
         torch.cuda.synchronize()
         step_ms.append(t_start.elapsed_time(t_step))
         frame_ms.append(t_start.elapsed_time(t_draw))
-    launches = {"place_planes": PK.launches, "substep_pass": SK.launches,
-                "splat": SPK.launches}
+    launches = read_counters()
     validate_state(h)
     audit = h.render_audit
     drops = collision_drop_stats(h)
@@ -360,7 +547,9 @@ def main() -> int:
     per = h._options.n_substeps * h._options.n_collision_steps * 2
     if not (launches["place_planes"] == 2 * n_steps
             and launches["substep_pass"] == per * n_steps
-            and launches["splat"] >= 2 * n_steps):
+            and launches["splat"] >= 2 * n_steps
+            and launches["count_planes"] == launches["sweep_planes"]
+            == launches["sweep_planes_sym"] == 0):
         raise AssertionError(f"unexpected kernel launch counts {launches}")
 
     # ---- default options: the violence-gated wide sweep on a spawn explosion ----
@@ -391,11 +580,111 @@ def main() -> int:
     if sum(wide_substeps) == 0:
         raise AssertionError("the wide sweep never ran on a spawn explosion")
 
+    # ---- plane path: the ordered budget at 1M, default gate, 3 updates +
+    # one draw, counters from zero ----
+    reset_counters()
+    plane_ms = []
+    for _ in range(MAIN_UPDATES):
+        torch.cuda.synchronize()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_step = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        hp.update(1 / 60)
+        t_step.record()
+        torch.cuda.synchronize()
+        plane_ms.append(t_start.elapsed_time(t_step))
+    frame_p = hp.draw(viewport=viewport)
+    torch.cuda.synchronize()
+    plane_launches_run = read_counters()
+    validate_state(hp)
+    audit_p = hp.render_audit
+    want = plane_launches(hp._options, MAIN_UPDATES)
+    log("plane_path", updates=MAIN_UPDATES,
+        step_ms=[round(x, 3) for x in plane_ms],
+        fused_step_ms=[round(x, 3) for x in step_ms],
+        wide_state=[[int(v) for v in w] for w in hp._wide_state],
+        frame_finite=bool(torch.isfinite(frame_p).all()),
+        alpha_max=round(float(frame_p[..., 3].max()), 4),
+        render_dropped=audit_p[:, 0].tolist(), launches=plane_launches_run)
+    if int(audit_p[:, 0].sum()) != 0:
+        raise AssertionError("plane path: render overflow dropped particles")
+    if not (bool(torch.isfinite(frame_p).all())
+            and float(frame_p[..., 3].max()) > 0.5):
+        raise AssertionError("plane path: frame is not finite or empty")
+    if ({n: v for n, v in plane_launches_run.items() if n != "splat"}
+            != {n: v for n, v in want.items() if n != "splat"}
+            or plane_launches_run["splat"] < 2):
+        raise AssertionError(f"plane path: launch counts {plane_launches_run}"
+                             f", expected {want} and >= 2 splats")
+    del hp, h
+
+    # ---- plane modes at 65k white: each mode's own launch counts ----
+    modes = [dict(sweep_symmetric=True), dict(dense_rebin="substep"),
+             dict(dense_rebin="pass"), dict(stale_hash_compat=True),
+             dict(cohesion_mode="literal")]
+    mode_launches = {}
+    for mode in modes:
+        hm = build_handler(N_WHITE_MODES, dev, wide_default=True,
+                           budget_mode="ordered", **mode)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        for _ in range(MODE_STEPS):
+            hm.step_once()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MODE_STEPS
+        got = read_counters()
+        validate_state(hm)
+        want = plane_launches(hm._options, MODE_STEPS)
+        name = ",".join(f"{k_}={v}" for k_, v in mode.items())
+        mode_launches[name] = got
+        log("plane_modes", mode=name, particles=hm.get_n_particles(),
+            grids=hm._options.dense_grid_dim, steps=MODE_STEPS,
+            host_ms_per_step=round(ms, 3), launches=got)
+        if got != want:
+            raise AssertionError(f"plane mode {name}: launch counts {got}, "
+                                 f"expected {want}")
+        del hm
+
+    # ---- small scene, card vs CPU (plain versions): the plane path and the
+    # symmetric sweep agree with the plain reference, as the fused path
+    # (budget off) does ----
+    from egg_fluid_simulation_tpu_torch.interop import state_to_numpy
+    for mode in (dict(budget_mode="ordered"),
+                 dict(budget_mode="ordered", sweep_symmetric=True),
+                 dict(budget_mode="off")):
+        out = []
+        for device in (dev, torch.device("cpu")):
+            hr = build_handler(N_WHITE_REF, device, wide_default=True, **mode)
+            for _ in range(REF_STEPS):
+                hr.step_once()
+            validate_state(hr)
+            out.append(state_to_numpy(hr.state))
+        a, b = out
+        err = {f: float(np.abs(a[f] - b[f]).max())
+               for f in ("pos", "prev", "vel")}
+        moved = float(np.abs(a["pos"] - a["last_pos"]).max())
+        log("plane_reference", mode=mode, particles=int(a["count"].sum()),
+            steps=REF_STEPS, max_abs_err=err,
+            tol=f"pos/prev {REF_TOL} px, vel 0.2 px/s", moved_px=moved)
+        if not (err["pos"] <= REF_TOL and err["prev"] <= REF_TOL
+                and err["vel"] <= 0.2 and moved > 0.0):
+            raise AssertionError(f"plane path on the card disagrees with the "
+                                 f"plain reference ({mode})")
+
+    launches.update(count_planes=plane_launches_run["count_planes"],
+                    sweep_planes=plane_launches_run["sweep_planes"],
+                    sweep_planes_sym=mode_launches[
+                        "sweep_symmetric=True"]["sweep_planes_sym"])
     src = "egg_fluid_simulation_tpu_torch/csrc/"
     tpu = "egg_fluid_simulation_tpu/ops/pallas/"
     table = [("place_planes", src + "place_planes.cu", tpu + "place_kernel.py:124"),
              ("substep_pass", src + "substep_pass.cu", tpu + "sweep_kernel.py:771"),
-             ("splat", src + "splat.cu", tpu + "splat_kernel.py:400")]
+             ("splat", src + "splat.cu", tpu + "splat_kernel.py:400"),
+             ("count_planes", src + "count_planes.cu", tpu + "sweep_kernel.py:572"),
+             ("sweep_planes", src + "sweep_planes.cu", tpu + "sweep_kernel.py:455"),
+             ("sweep_planes_sym", src + "sweep_planes.cu",
+              tpu + "sweep_kernel.py:526")]
     kernels = [dict(name=n, route="cuda", source=s, replaces=r,
                     launches=launches[n], max_abs_err=results[n]["max_abs_err"],
                     ms=results[n]["ms"], plain_ms=results[n]["plain_ms"])

@@ -34,38 +34,16 @@
 // (a skipped term would add exactly zero).
 //
 // Numerics: no --use_fast_math, and the library is built with --fmad=false.
-// rsqrtf, sqrtf, expf and '/' stay as written, and no multiply-add is
-// contracted, so every operation rounds as the plain PyTorch version's
-// separate elementwise ops do.
+// rsqrtf, sqrtf and '/' stay as written, and no multiply-add is contracted,
+// so every operation rounds as the plain PyTorch version's separate
+// elementwise ops do. The pair math is pair_terms.cuh's, shared with the
+// plane sweeps (sweep_planes.cu).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "pair_terms.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-8f;     // utils.mathx.EPS as float32
-constexpr float kEps2 = 1e-16f;   // EPS * EPS rounded once to float32
-constexpr float kTieX = 0.5403023f;  // ops.dense.TIE_X
-constexpr float kTieY = 0.8414710f;  // ops.dense.TIE_Y
-
-// jnp.mod / torch.remainder for floats: fmod, then the divisor's sign
-__device__ __forceinline__ float mod_floor(float a, float m) {
-  float r = fmodf(a, m);
-  if (r != 0.0f && ((r < 0.0f) != (m < 0.0f))) r += m;
-  return r;
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  int q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
-  return q;
-}
-
-__device__ __forceinline__ bool torus_adjacent(float a, float b, float fm) {
-  const float half = 0.5f * fm;
-  const float dd = mod_floor(a - b + half, fm) - half;
-  return fabsf(dd) <= 1.0f;
-}
+using namespace egg;
 
 // damped integration + XPBD follow (solver._follow_delta)
 __device__ __forceinline__ void prologue(const float* __restrict__ xy,
@@ -126,10 +104,7 @@ __global__ void substep_pass_kernel(
   const float damp = aux[0];
   const float follow_c = aux[1];
   const float relax = aux[2];
-  const float collision_c = params[0];
-  const float cohesion_c = params[1];
-  const float overlap_f = params[2];
-  const float cohesion_f = params[3];
+  const PairConsts pc = pair_consts(params);
   const float cell_size = params[5];
   const float fresh_mod = params[6];
 
@@ -146,8 +121,8 @@ __global__ void substep_pass_kernel(
   const float fm = fresh_mod > 0.0f ? fresh_mod : static_cast<float>(g);
   float sfx = 0.0f, sfy = 0.0f;
   if (fresh_mask) {
-    sfx = mod_floor(floorf(sx / cell_size), fm);
-    sfy = mod_floor(floorf(sy / cell_size), fm);
+    sfx = fresh_cell(sx, cell_size, fm);
+    sfy = fresh_cell(sy, cell_size, fm);
   }
 
   float tx = 0.0f, ty = 0.0f;
@@ -155,22 +130,11 @@ __global__ void substep_pass_kernel(
   const int d_hi = (w + 1) * k;
   const int s_lane = l % k;
   for (int d = -(d_hi - 1); d < d_hi; ++d) {
-    const int cell_diff = -floor_div(s_lane - d, k);  // dense.lane_mask
-    if (cell_diff > w || cell_diff < -w) continue;
-    int ol = l - d;
-    if (ol < 0) {
-      ol += lanes;
-    } else if (ol >= lanes) {
-      ol -= lanes;
-    }
+    if (!lane_ok(s_lane, d, k, w)) continue;
+    const int ol = wrap(l - d, lanes);
     for (int dy = -w; dy <= w; ++dy) {
       if (dy == 0 && d == 0) continue;
-      int orow = r + dy;
-      if (orow < 0) {
-        orow += g;
-      } else if (orow >= g) {
-        orow -= g;
-      }
+      const int orow = wrap(r + dy, g);
       const long long o = static_cast<long long>(orow) * lanes + ol;
       const float oocc = stat[3 * plane + o];
       if (!(oocc > 0.0f)) continue;
@@ -182,40 +146,21 @@ __global__ void substep_pass_kernel(
         oy = xy[plane + o];
       }
       if (fresh_mask) {
-        const float ofx = mod_floor(floorf(ox / cell_size), fm);
-        const float ofy = mod_floor(floorf(oy / cell_size), fm);
+        const float ofx = fresh_cell(ox, cell_size, fm);
+        const float ofy = fresh_cell(oy, cell_size, fm);
         if (!(torus_adjacent(sfx, ofx, fm) && torus_adjacent(sfy, ofy, fm)))
           continue;
       }
       const float ow = stat[o];
       const float orr = stat[plane + o];
+      const float ob = cohesion ? stat[2 * plane + o] : 0.0f;
       const float ddx = ox - sx;
       const float ddy = oy - sy;
       const float dist2 = ddx * ddx + ddy * ddy;
       const bool deg = dist2 <= kEps2;
-      const float inv_d1 = deg ? 1.0f : rsqrtf(fmaxf(dist2, kEps2));
-      const float nd = deg ? 0.0f : 1.0f;
-      const float w_sum = sw + ow;
-      const bool ok = w_sum >= kEps;
-      const float sum_r = sr + orr;
-      const float min_d = overlap_f * sum_r;
-      const bool hit_l = ok && (dist2 <= min_d * min_d);
-      const float f_l = hit_l ? min_d * inv_d1 - nd : 0.0f;
-      const float dl = fmaxf(w_sum + collision_c, 1.0f);
-      float num, den;
-      if (cohesion) {
-        const float ob = stat[2 * plane + o];
-        const float coh_d = cohesion_f * sum_r;
-        const bool hit_c = ok && (sb == ob) && (dist2 <= coh_d * coh_d);
-        const float f_c = hit_c ? coh_d * inv_d1 - nd : 0.0f;
-        const float dc = fmaxf(w_sum + cohesion_c, 1.0f);
-        num = f_c * dl + f_l * dc;
-        den = dc * dl;
-      } else {
-        num = f_l;
-        den = dl;
-      }
-      const float s_eff = (num / den) * (sw * oocc);
+      const float ratio = pair_ratio(dist2, sw, ow, sr, orr, sb, ob,
+                                     cohesion != 0, pc);
+      const float s_eff = ratio * (sw * oocc);
       const float sgn = (dy > 0 || (dy == 0 && d > 0)) ? 1.0f : -1.0f;
       const float ux = deg ? sgn * kTieX : ddx;
       const float uy = deg ? sgn * kTieY : ddy;

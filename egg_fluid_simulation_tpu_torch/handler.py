@@ -141,9 +141,12 @@ class SimulationHandler:
         """Solver options sized to the live particle counts.
 
         The dense engine at EVERY capacity: the JAX package picks its exact
-        gather engine below capacity 16384, which is not ported yet.
-        Per-population slice caps and grids are powers of two; the grid has
-        ``g^2 >= cap`` cells of K = 4 slots."""
+        gather engine below capacity 16384, which is not ported yet. The
+        ordered budget is off, as the JAX package sets it at dense-engine
+        scale (it costs a counting sweep and only binds below ~360 live
+        particles), so these handlers run the fused path. Per-population
+        slice caps and grids are powers of two; the grid has ``g^2 >= cap``
+        cells of K = 4 slots."""
         caps, grids = [], []
         for pop in (WHITE, YOLK):
             n = max(int(counts[pop]), 1)
@@ -157,12 +160,13 @@ class SimulationHandler:
         kw = {}
         if hasattr(self, "_options"):
             # keep every tuning field; only the capacity-derived ones change
-            derived = {"dense_grid_dim", "dense_slots", "pop_caps"}
+            derived = {"dense_grid_dim", "dense_slots", "pop_caps",
+                       "budget_mode"}
             kw = {f.name: getattr(self._options, f.name)
                   for f in dataclasses.fields(SolverOptions)
                   if f.name not in derived}
         return SolverOptions(dense_grid_dim=tuple(grids), dense_slots=4,
-                             pop_caps=tuple(caps), **kw)
+                             budget_mode="off", pop_caps=tuple(caps), **kw)
 
     def _refresh_auto_options(self) -> None:
         if self._auto_opts:

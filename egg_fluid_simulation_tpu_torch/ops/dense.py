@@ -1,16 +1,21 @@
 """Dense cell-grid binning — the neighbour structure of the dense engine.
 
-The counterpart of ``egg_fluid_simulation_tpu/ops/dense.py``, for the part
-the fused step uses. Particles are binned into field *planes* of shape
-``(F, G + 2*ROW_PAD, L)`` with ``L = G * K`` lanes: plane row = y cell (plus
-``ROW_PAD`` torus halo rows top and bottom), lane = ``x_cell * K + slot``.
-Cells are ``floor(pos / cell) mod G``: the grid is a torus in both axes.
+The counterpart of ``egg_fluid_simulation_tpu/ops/dense.py``. Particles are
+binned into field *planes* of shape ``(F, G + 2*ROW_PAD, L)`` with
+``L = G * K`` lanes: plane row = y cell (plus ``ROW_PAD`` torus halo rows top
+and bottom), lane = ``x_cell * K + slot``. Cells are ``floor(pos / cell) mod
+G``: the grid is a torus in both axes.
 
-Up to ``K`` members of a cell get slots; which ones is decided by a hash of
-their position bits folded into the sort key (the rotating winner order of
-``bin_to_planes(rotate=True)`` in the JAX package), reproduced bit for bit.
-``FIELD_OCC`` carries the cell's true occupancy, over-budget members
-included.
+Two layouts, as in the JAX package:
+
+- ``rotate=True`` (budget off; the fused path): which ``K`` members of a
+  cell get slots is decided by a hash of their position bits folded into the
+  sort key (the rotating winner order), reproduced bit for bit.
+  ``FIELD_OCC`` carries the cell's true occupancy, over-budget members
+  included.
+- ``rotate=False`` (the ordered budget): a stable ``(cell_id, idx)`` sort, so
+  the lowest indices of a cell win; ``FIELD_OCC`` is 1.0 and ``FIELD_CUM``
+  carries the examined-pair prefix (:func:`update_cum_field`).
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .grid import segment_extent
+from .grid import segment_extent, segmented_rank
 
 __all__ = ["DenseBinning", "SweepParams", "bin_to_planes", "sort_bin", "fill_halo",
+           "refresh_halo_xy", "update_cum_field", "lane_mask",
            "torus_cells", "rotate_hash_buckets", "FIELD_X", "FIELD_Y",
            "FIELD_W", "FIELD_R", "FIELD_BATCH", "FIELD_CUM", "FIELD_IDX",
            "FIELD_OCC", "N_FIELDS", "ROW_PAD", "TIE_X", "TIE_Y"]
@@ -39,9 +45,11 @@ FIELD_Y = 1       # position y
 FIELD_W = 2       # inverse mass
 FIELD_R = 3       # radius
 FIELD_BATCH = 4   # batch slot as float (exact below 2^24)
-FIELD_CUM = 5     # ordered-budget prefix (always 0 here: the budget is off)
+FIELD_CUM = 5     # exclusive prefix of examined-pair counts (ordered budget;
+                  # 0 when the budget is off)
 FIELD_IDX = 6     # particle index as float
-FIELD_OCC = 7     # > 0 = occupied slot: the cell's TRUE occupancy
+FIELD_OCC = 7     # > 0 = occupied slot: the cell's TRUE occupancy with
+                  # rotate=True, 1.0 in the ordered layout
 N_FIELDS = 8
 
 ROW_PAD = 8       # halo rows above/below the grid
@@ -86,6 +94,25 @@ def fill_halo(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def refresh_halo_xy(planes: torch.Tensor) -> torch.Tensor:
+    """Re-copy only the X/Y halo rows after an in-plane position update,
+    IN PLACE; returns ``planes``."""
+    fill_halo(planes[:2])
+    return planes
+
+
+def lane_mask(lanes: int, k: int, d: int, window: int = 1,
+              device=None) -> torch.Tensor:
+    """(lanes,) bool — pairs (l, l-d) whose cells are within +-window columns.
+
+    cell(l) - cell(l-d) = -floor((s - d) / k) for s = l mod k. The pattern
+    is k-periodic, so it also holds at the lane wrap, where columns 0 and
+    G-1 are adjacent on the torus."""
+    s = torch.arange(lanes, device=device) % k
+    cell_diff = -torch.div(s - d, k, rounding_mode="floor")
+    return torch.abs(cell_diff) <= window
+
+
 def torus_cells(pos: torch.Tensor, cell_size, grid_dim: int) -> torch.Tensor:
     """(N, 2) int64 torus cell coords ``floor(pos / cell) mod G``.
 
@@ -120,8 +147,9 @@ def _winner_hash(pos: torch.Tensor, hb: int) -> torch.Tensor:
 
 
 def sort_bin(pos, inv_mass, radius, batch_slot, active, cell_size,
-             *, grid_dim: int, slots_per_cell: int, aux_cols=None):
-    """The sort half of :func:`bin_to_planes`.
+             *, grid_dim: int, slots_per_cell: int, cum=None, aux_cols=None,
+             rotate: bool = False):
+    """The sort half of :func:`bin_to_planes` (same keywords).
 
     Returns ``(slot_sorted, pidx_sorted, slot, pack)``: the (N,) int64 slot
     of each cell-sorted entry (``G*L`` = over budget or inactive), the
@@ -138,29 +166,37 @@ def sort_bin(pos, inv_mass, radius, batch_slot, active, cell_size,
     cell_id = cxy[:, 1] * g + cxy[:, 0]
     cell_id = torch.where(active, cell_id, g * g)          # sentinel
 
-    # winner rank within a cell = hash of the position bits, folded into the
-    # low bits of the sort key; the sort is STABLE, as jax.lax.sort is
-    hb = rotate_hash_buckets(g)
-    key = cell_id * hb + _winner_hash(pos, hb)
-    key_sorted, pidx_sorted = torch.sort(key, stable=True)
-    cid_sorted = torch.div(key_sorted, hb, rounding_mode="floor")
-    rank, cnt_sorted = segment_extent(cid_sorted)
+    if rotate:
+        # winner rank within a cell = hash of the position bits, folded into
+        # the low bits of the sort key; the sort is STABLE, as jax.lax.sort is
+        hb = rotate_hash_buckets(g)
+        key = cell_id * hb + _winner_hash(pos, hb)
+        key_sorted, pidx_sorted = torch.sort(key, stable=True)
+        cid_sorted = torch.div(key_sorted, hb, rounding_mode="floor")
+        rank, cnt_sorted = segment_extent(cid_sorted)
+    else:
+        # stable (cell_id, idx) order: the lowest indices of a cell win
+        cid_sorted, pidx_sorted = torch.sort(cell_id, stable=True)
+        rank = segmented_rank(cid_sorted)
     row = torch.div(cid_sorted, g, rounding_mode="floor")
     cx = cid_sorted - row * g
     slot_sorted = torch.where((rank < k) & (cid_sorted < g * g),
                               row * lanes + cx * k + rank, g * lanes)
 
-    # per-particle slot and cell count: the inverse permutation, a scatter
+    # per-particle slot (and cell count): the inverse permutation, a scatter
     slot = torch.empty_like(slot_sorted)
     slot[pidx_sorted] = slot_sorted
-    occ_col = torch.empty((n,), dtype=torch.float32, device=dev)
-    occ_col[pidx_sorted] = cnt_sorted.to(torch.float32)
+    if rotate:
+        occ_col = torch.empty((n,), dtype=torch.float32, device=dev)
+        occ_col[pidx_sorted] = cnt_sorted.to(torch.float32)
+    else:
+        occ_col = torch.ones((n,), dtype=torch.float32, device=dev)
+    if cum is None:
+        cum = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     idx = torch.arange(n, device=dev)
     cols = [pos[:, 0], pos[:, 1], inv_mass, radius,
-            batch_slot.to(torch.float32),
-            torch.zeros((n,), dtype=torch.float32, device=dev),
-            idx.to(torch.float32),
+            batch_slot.to(torch.float32), cum, idx.to(torch.float32),
             torch.where(active, occ_col, 0.0)]
     pack = torch.stack(cols, dim=1)                        # (N, 8)
     if aux_cols is not None:
@@ -169,18 +205,22 @@ def sort_bin(pos, inv_mass, radius, batch_slot, active, cell_size,
 
 
 def bin_to_planes(pos, inv_mass, radius, batch_slot, active, cell_size,
-                  *, grid_dim: int, slots_per_cell: int, aux_cols=None,
-                  use_placement: bool = False) -> DenseBinning:
-    """Sort-bin particles into dense field planes with the rotating winner
-    order.
+                  *, grid_dim: int, slots_per_cell: int, cum=None,
+                  aux_cols=None, use_placement: bool = False,
+                  rotate: bool = False) -> DenseBinning:
+    """Sort-bin particles into dense field planes.
 
-    ``aux_cols`` is an optional (N, A) matrix of extra per-particle fields
-    that ride along in ``aux`` (same layout, not read by the sweep).
+    ``rotate`` selects the rotating winner order (budget off) over the
+    stable index order (ordered budget); ``cum`` is an optional (N,)
+    ordered-budget prefix written to ``FIELD_CUM``. ``aux_cols`` is an
+    optional (N, A) matrix of extra per-particle fields that ride along in
+    ``aux`` (same layout, not read by the sweep).
 
     Two placement backends, bit-identical outputs:
 
     - default: inverse-index scatter + row gather, the golden model (the
-      scatter branch of the JAX package's ``bin_to_planes``);
+      scatter branch of the JAX package's ``bin_to_planes``). It is the one
+      that returns ``pidx_grid``, which :func:`update_cum_field` needs;
     - ``use_placement=True``: the payload is gathered into sorted order and
       placed by :func:`.kernels.place_kernel.place_planes` (kernel A on CUDA,
       its plain version on the CPU).
@@ -189,7 +229,7 @@ def bin_to_planes(pos, inv_mass, radius, batch_slot, active, cell_size,
     lanes = g * k
     slot_sorted, pidx_sorted, slot, pack = sort_bin(
         pos, inv_mass, radius, batch_slot, active, cell_size, grid_dim=g,
-        slots_per_cell=k, aux_cols=aux_cols)
+        slots_per_cell=k, cum=cum, aux_cols=aux_cols, rotate=rotate)
 
     rows = g + 2 * ROW_PAD
     if use_placement:
@@ -207,11 +247,25 @@ def bin_to_planes(pos, inv_mass, radius, batch_slot, active, cell_size,
     pidx_grid[slot_padded] = pidx_sorted                   # last entry dropped
     pidx_grid = pidx_grid[:-1]
 
+    # field-major gather: contiguous (F, rows, L) planes, which the kernels
+    # and the plane path's elementwise updates read row by row
     occupied = pidx_grid >= 0
-    rows_data = pack[torch.clamp(pidx_grid, min=0)]        # (rows*L, F) gather
-    rows_data = torch.where(occupied[:, None], rows_data, 0.0)
-    all_planes = rows_data.T.reshape(pack.shape[1], rows, lanes)
+    cols = pack.T.contiguous()                             # (F, N)
+    all_planes = torch.where(occupied, cols[:, torch.clamp(pidx_grid, min=0)],
+                             0.0).reshape(pack.shape[1], rows, lanes)
     planes = fill_halo(all_planes[:N_FIELDS])
     aux = fill_halo(all_planes[N_FIELDS:]) if aux_cols is not None else None
     return DenseBinning(planes=planes, aux=aux, slot=slot, pidx_grid=pidx_grid,
                         cell_size=cell_size)
+
+
+def update_cum_field(binning: DenseBinning, cum: torch.Tensor) -> DenseBinning:
+    """Write a fresh ordered-budget prefix into ``FIELD_CUM`` (gather by
+    ``pidx_grid``), IN PLACE in ``binning.planes``; returns the binning."""
+    planes = binning.planes
+    rows, lanes = planes.shape[1], planes.shape[2]
+    occupied = binning.pidx_grid >= 0
+    vals = cum[torch.clamp(binning.pidx_grid, min=0)]
+    planes[FIELD_CUM] = torch.where(occupied, vals, 0.0).reshape(rows, lanes)
+    fill_halo(planes[FIELD_CUM:FIELD_CUM + 1])
+    return binning

@@ -1,8 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, which is loaded with
-``ctypes``. The build happens at first use, when a CUDA tensor first reaches
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects are
+linked into ONE shared library with a plain C interface, which is loaded
+with ``ctypes``. The build happens at first use, when a CUDA tensor first reaches
 a kernel, into ``egg_fluid_simulation_tpu_torch/_build/`` (git-ignored); the
 file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once. Nothing here is imported or
@@ -37,7 +38,7 @@ BUILD_DIR = _PKG / "_build"
 # elementwise ops are; --use_fast_math is deliberately absent (expf, rsqrtf
 # and '/' stay the accurate ones).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false"]
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false"]
 
 _C_INT = ctypes.c_int
 _C_PTR = ctypes.c_void_p
@@ -46,6 +47,9 @@ _SIGNATURES = {
                          _C_INT, _C_INT, _C_PTR],
     "egg_substep_pass": [_C_PTR] * 9 + [_C_INT] * 7 + [_C_PTR],
     "egg_splat": [_C_PTR] * 4 + [_C_INT] * 12 + [_C_PTR],
+    "egg_sweep_planes": [_C_PTR] * 4 + [_C_INT] * 7 + [_C_PTR],
+    "egg_sweep_planes_sym": [_C_PTR] * 4 + [_C_INT] * 7 + [_C_PTR],
+    "egg_count_planes": [_C_PTR] * 2 + [_C_INT] * 3 + [_C_PTR],
 }
 
 _lock = threading.Lock()
@@ -82,16 +86,32 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s"
-                           % (proc.returncode, proc.stdout, proc.stderr))
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = os.path.join(work, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        errors = []
+        for src, proc in procs:
+            log_text, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} (exit {proc.returncode}):\n"
+                              f"{log_text}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed (exit %d):\n%s\n%s"
+                               % (link.returncode, link.stdout, link.stderr))
+        os.replace(tmp, out)
     last_build_seconds = time.perf_counter() - t0
     return out
 

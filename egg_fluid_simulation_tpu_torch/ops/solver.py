@@ -1,18 +1,26 @@
-"""XPBD solver core: the dense engine's fused component-layout step.
+"""XPBD solver core: the dense engine.
 
-The counterpart of ``egg_fluid_simulation_tpu/ops/solver.py`` on its main
-path (``_population_step_dense``, fused branch), reference pipeline
-``simulation_handler.lua:1324-1990``:
+The counterpart of ``egg_fluid_simulation_tpu/ops/solver.py``'s dense
+engine, reference pipeline ``simulation_handler.lua:1324-1990``. Three
+routes, chosen by :class:`SolverOptions` as in the JAX package:
 
-  per population, once per step: sort-bin into the torus cell planes
-  (kernel A) -> per substep: n_collision_steps fused passes (kernel B; the
-  first also integrates and applies the follow constraint) -> extract.
+- the fused component path (``budget_mode="off"``, ``dense_rebin="step"``,
+  the handler's automatic options): per population, once per step,
+  sort-bin into the torus cell planes (kernel A) -> per substep:
+  ``n_collision_steps`` fused passes (kernel B; the first also integrates
+  and applies the follow constraint) -> extract;
+- the plane-resident path (the ordered budget, the symmetric sweep, or
+  ``dense_rebin="substep"``): bin into halo-padded planes (with the ordered
+  budget's examined-pair prefix, kernel F) -> per substep: integration and
+  follow in plane layout, then ``n_collision_steps`` sweeps (kernel D, or E
+  when symmetric) whose corrections apply in place -> extract;
+- the per-pass route (``dense_rebin="pass"``): the particle-layout
+  ``substep`` with a fresh binning and sweep per collision pass.
 
-Positions live in an unpadded (2, G, L) tensor, the step-static pair fields
-(W, R, BATCH, boost) in (4, G, L), the follow targets in (3, G, L).
-Velocity is encoded by ``prev``: ``v = (x - prev) / sub_dt``. Particles
-over the per-cell budget K integrate without collision (the fallback
-substep), as reference particles past the 0.05 n^2 cutoff do (:1656-1658).
+Velocity is encoded by ``prev`` on the fused path (``v = (x - prev) /
+sub_dt``). Particles over the per-cell budget K integrate without collision
+(the fallback substep), as reference particles past the 0.05 n^2 cutoff do
+(:1656-1658).
 
 The two populations run as one Python loop. Everything dynamic (configs,
 dt, the violence gate) stays in device tensors, so a step never waits on
@@ -32,10 +40,20 @@ from ..utils.mathx import EPS, torch_mix
 from . import dense as dense_ops
 from .kernels import sweep_kernel
 
-__all__ = ["SolverOptions", "step", "strength_to_compliance",
-           "take_batch_rows", "batch_segment_sums", "wide_state_init"]
+__all__ = ["SolverOptions", "step", "substep", "pre_solve", "solve_follow",
+           "solve_pairs_dense", "strength_to_compliance", "take_batch_rows",
+           "batch_segment_sums", "wide_state_init"]
 
 _BIG = 3.4e38
+
+# aux plane field layout (ride-along fields of the plane-resident step)
+AUX_PX = 0   # previous x (start of the current substep)
+AUX_PY = 1
+AUX_VX = 2   # velocity
+AUX_VY = 3
+AUX_TX = 4   # follow target x (static within a step)
+AUX_TY = 5
+AUX_TD = 6   # follow dead-zone distance (2 * sqrt(batch_radius))
 
 
 def _per_pop(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
@@ -46,17 +64,19 @@ def _per_pop(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
 class SolverOptions:
     """Static solver configuration.
 
-    Field names and meanings are the JAX package's, so one constructor call
-    configures both packages. Only the dense engine's fused path is ported:
-    ``engine="dense"``, ``budget_mode="off"``, ``dense_rebin="step"`` and
-    ``cohesion_mode="spacing"`` are the only accepted values (they are the
-    defaults here). ``dense_grid_dim`` / ``dense_slots`` / ``pop_caps`` take
-    one int for both populations or a (white, yolk) tuple.
+    Field names, meanings and defaults are the JAX package's, so one
+    constructor call configures both packages, with one exception: the
+    default ``engine`` is ``"dense"`` here, because the gather engine is not
+    ported yet (``engine="gather"`` raises ``NotImplementedError``).
+    ``dense_grid_dim`` / ``dense_slots`` / ``pop_caps`` take one int for
+    both populations or a (white, yolk) tuple.
     """
     engine: str = "dense"
-    budget_mode: str = "off"
-    dense_rebin: str = "step"
-    cohesion_mode: str = "spacing"
+    budget_mode: str = "ordered"    # "ordered" (reference 0.05 n^2 cutoff) | "off"
+    dense_rebin: str = "step"       # "step" (one binning per step) |
+                                    # "substep" (per substep) | "pass" (per
+                                    # collision pass, strict)
+    cohesion_mode: str = "spacing"  # "spacing" (documented intent) | "literal"
     dense_grid_dim: Union[int, Tuple[int, int]] = 512  # G per population
     dense_slots: Union[int, Tuple[int, int]] = 4       # K per population
     n_substeps: int = 2             # reference default, simulation_handler.lua:170
@@ -71,15 +91,26 @@ class SolverOptions:
                                     # 0 disables the gate statically
     wide_rearm_substeps: int = 12   # calm substeps that end an episode
     occ_pressure_cap: float = 8.0   # occupancy-pressure boost cap
+    sweep_symmetric: bool = False   # plane sweeps evaluate each unordered
+                                    # pair once (kernel E)
+    stale_hash_compat: bool = False # the reference's substep-stale pair set:
+                                    # substeps after a step's first run one
+                                    # collision pass fewer (reference
+                                    # :1905-1912)
 
     def __post_init__(self):
-        for name, only in (("engine", "dense"), ("budget_mode", "off"),
-                           ("dense_rebin", "step"),
-                           ("cohesion_mode", "spacing")):
-            if getattr(self, name) != only:
-                raise NotImplementedError(
-                    f"SolverOptions.{name}={getattr(self, name)!r}: only "
-                    f"{only!r} is ported to egg_fluid_simulation_tpu_torch")
+        if self.engine == "gather":
+            raise NotImplementedError(
+                "SolverOptions.engine='gather': the gather engine is not "
+                "ported to egg_fluid_simulation_tpu_torch")
+        for name, allowed in (("engine", ("dense",)),
+                              ("budget_mode", ("ordered", "off")),
+                              ("dense_rebin", ("step", "substep", "pass")),
+                              ("cohesion_mode", ("spacing", "literal"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"SolverOptions.{name}="
+                                 f"{getattr(self, name)!r}: expected one of "
+                                 f"{allowed}")
         if self.n_collision_steps < 1:
             raise ValueError("n_collision_steps must be >= 1")
         object.__setattr__(self, "dense_grid_dim", _per_pop(self.dense_grid_dim))
@@ -132,18 +163,26 @@ def _follow_delta(x, y, inv_mass, apply_mask, tx, ty, td, compliance):
     return dx * scale, dy * scale
 
 
-def _dense_params(cfg: DeviceConfig, collision_compliance,
+def _dense_params(cfg: DeviceConfig, active, collision_compliance,
                   cohesion_compliance, options: SolverOptions):
-    """Cell size + packed sweep params; the torus grid never coarsens."""
+    """Cell size + sweep params; the torus grid never coarsens. Under the
+    ordered budget ``max_pairs`` is the reference's 0.05 n_live^2 examined-
+    pair cutoff (:1749-1753)."""
     max_factor = torch.maximum(cfg.collision_overlap_factor,
                                cfg.cohesion_interaction_distance_factor)
     cell_size = torch.clamp(cfg.max_radius * max_factor, min=1.0)  # :1756-1760
+    if options.budget_mode == "ordered":
+        n_live = torch.sum(active).to(torch.float32)
+        max_pairs = torch.tensor(0.05, dtype=torch.float32,
+                                 device=n_live.device) * n_live * n_live
+    else:
+        max_pairs = _BIG
     params = dense_ops.SweepParams(
         collision_compliance=collision_compliance,
         cohesion_compliance=cohesion_compliance,
         collision_overlap_factor=cfg.collision_overlap_factor,
         cohesion_factor=cfg.cohesion_interaction_distance_factor,
-        max_pairs=_BIG,
+        max_pairs=max_pairs,
         cell_size=cell_size,
         occ_boost_cap=options.occ_pressure_cap)
     return cell_size, params
@@ -166,7 +205,7 @@ def _bin_components(p, v, inv_mass, radius, batch_slot, act, cell_size,
     binning = dense_ops.bin_to_planes(
         p, inv_mass, radius, batch_slot, act, cell_size,
         grid_dim=g, slots_per_cell=k, aux_cols=aux_cols,
-        use_placement=use_placement)
+        use_placement=use_placement, rotate=True)
     rp = dense_ops.ROW_PAD
     core = binning.planes[:, rp:rp + g]
     a = binning.aux[:, rp:rp + g]
@@ -181,10 +220,16 @@ def _bin_components(p, v, inv_mass, radius, batch_slot, act, cell_size,
 
 
 def _fused_run(xy, prev, stat, follow, params_packed, aux_packed, k: int,
-               n_collision_steps: int, *, cohesion: bool, wide):
-    """One substep in component layout: the integrating pass, then
-    ``n_collision_steps - 1`` plain passes. ``wide`` is a bool (static
-    window) or a 0-dim device tensor (the violence gate)."""
+               options: SolverOptions, *, cohesion: bool, wide,
+               first_substep: bool = True):
+    """One substep in component layout: the integrating pass, then the plain
+    passes. ``wide`` is a bool (static window) or a 0-dim device tensor (the
+    violence gate). With ``options.stale_hash_compat`` a substep that is not
+    the step's first runs one collision pass fewer (the reference's
+    substep-stale pair set, :1905-1912)."""
+    n_passes = options.n_collision_steps
+    if options.stale_hash_compat and not first_substep:
+        n_passes -= 1
     kw = dict(cohesion=cohesion)
     if isinstance(wide, torch.Tensor):
         kw["wide"] = wide
@@ -193,7 +238,7 @@ def _fused_run(xy, prev, stat, follow, params_packed, aux_packed, k: int,
     xy, prev = sweep_kernel.substep_pass(xy, stat, params_packed, aux_packed,
                                          k, prev=prev, follow=follow,
                                          integrate=True, **kw)
-    for _ in range(n_collision_steps - 1):
+    for _ in range(n_passes - 1):
         xy = sweep_kernel.substep_pass(xy, stat, params_packed, aux_packed,
                                        k, **kw)
     return xy, prev
@@ -211,18 +256,19 @@ def _comp_extract(xy, prev, stat, slot, g: int, lanes: int, sub_dt):
     return p, pr, (p - pr) / sub_dt, in_grid
 
 
-def _comp_drift_over(xy, occ, ref_xy, thresh2):
-    """Count of occupied slots whose drift RELATIVE to the population-mean
-    displacement exceeds ``thresh2`` (uniform translation keeps every pair
-    window valid; only differential motion invalidates it)."""
+def _count_over(disp, occ, thresh2):
+    """Count of occupied slots whose displacement ``disp`` (2, G, L) RELATIVE
+    to the population-mean displacement exceeds ``thresh2`` (uniform
+    translation keeps every pair window valid; only differential motion
+    invalidates it). ``occ`` > 0 marks occupied slots."""
     occ01 = torch.clamp(occ, max=1.0)
     n_occ = torch.clamp(torch.sum(occ01), min=1.0)
-    dxp = (xy[0] - ref_xy[0]) * occ01
-    dyp = (xy[1] - ref_xy[1]) * occ01
+    dxp = disp[0] * occ01
+    dyp = disp[1] * occ01
     mx = torch.sum(dxp) / n_occ
     my = torch.sum(dyp) / n_occ
     rel2 = (dxp - mx * occ01) ** 2 + (dyp - my * occ01) ** 2
-    return torch.sum(rel2 > thresh2), n_occ, torch.stack([mx, my])
+    return torch.sum(rel2 > thresh2)
 
 
 def wide_state_init(options: SolverOptions, device="cpu"):
@@ -234,64 +280,173 @@ def wide_state_init(options: SolverOptions, device="cpu"):
             torch.tensor(0, dtype=torch.int32, device=device))
 
 
-def _fused_adaptive_run(xy, prev, stat, follow, fb_p, fb_prev, fb_v,
-                        fallback_substep, act, cell_size, params_packed,
-                        aux_packed, options: SolverOptions, k: int, n_sub: int,
-                        *, cohesion: bool, wide=None):
-    """Violence-gated substep runner: a substep whose relative motion tripped
-    the drift metric runs the NEXT substep with window 3 + the fresh-cell
-    mask, for up to ``wide_budget_substeps`` substeps per episode;
-    ``wide_rearm_substeps`` calm substeps end the episode. The gate state
-    ``(trip, budget, calm)`` stays on the device."""
+def _gated_substeps(run, positions, occ, pred_disp, fb, fallback_substep,
+                    act, cell_size, options: SolverOptions, n_sub: int,
+                    wide=None):
+    """``n_sub`` substeps under the violence gate of the wide sweep.
+
+    A substep whose relative motion tripped the drift metric runs the NEXT
+    substep with window 3 + the fresh-cell mask, for up to
+    ``wide_budget_substeps`` substeps per episode; ``wide_rearm_substeps``
+    calm substeps end the episode. The first substep is widened too when the
+    velocity-predicted displacement trips the metric. The gate state
+    ``(trip, budget, calm)`` stays on the device.
+
+    ``run(wide, first_substep)`` advances the layout (fused components or
+    planes) by one substep; ``wide`` is a 0-dim bool tensor, or False when
+    ``wide_budget_substeps == 0`` turns the gate off statically.
+    ``positions()`` gives the (2, G, L) positions of the real slots, ``occ``
+    their occupancy, ``pred_disp()`` the velocity-predicted displacement of
+    the first substep. ``fb`` = (pos, prev, vel) of the particle-layout
+    fallback, advanced once per substep. Returns ``(fb, wide_state)``."""
+    fb_p, fb_prev, fb_v = fb
     if wide is None:
-        wide = wide_state_init(options, xy.device)
+        wide = wide_state_init(options, occ.device)
     if options.wide_budget_substeps == 0:
-        for _ in range(n_sub):
-            xy, prev = _fused_run(xy, prev, stat, follow, params_packed,
-                                  aux_packed, k, options.n_collision_steps,
-                                  cohesion=cohesion, wide=False)
+        for s in range(n_sub):
+            run(False, s == 0)
             fb_p, fb_prev, fb_v = fallback_substep(fb_p, fb_v)
-        return xy, prev, fb_p, fb_prev, fb_v, wide
+        return (fb_p, fb_prev, fb_v), wide
 
     thresh2 = (options.wide_threshold_cells * cell_size) ** 2
     wide_tol = options.wide_tolerance
     n_live = torch.clamp(torch.sum(act), min=1)
-    occ01 = torch.clamp(stat[3], max=1.0)
-    n_occ = torch.clamp(torch.sum(occ01), min=1.0)
-    # velocity-predicted first-substep trip: (x - prev) == vel * sub_dt
-    pdx = (xy[0] - prev[0]) * occ01
-    pdy = (xy[1] - prev[1]) * occ01
-    mx = torch.sum(pdx) / n_occ
-    my = torch.sum(pdy) / n_occ
-    rel2 = (pdx - mx * occ01) ** 2 + (pdy - my * occ01) ** 2
-    pred_trip = torch.sum(rel2 > thresh2) > wide_tol * n_live
+    pred_trip = _count_over(pred_disp(), occ, thresh2) > wide_tol * n_live
     trip, budget, calm = wide
     trip = trip | pred_trip
-    move_ref = xy
-    for _ in range(n_sub):
+    move_ref = positions().clone()
+    for s in range(n_sub):
         wide_now = trip & (budget > 0)
-        xy, prev = _fused_run(xy, prev, stat, follow, params_packed,
-                              aux_packed, k, options.n_collision_steps,
-                              cohesion=cohesion, wide=wide_now)
+        run(wide_now, s == 0)
         budget = torch.where(wide_now, budget - 1, budget)
         fb_p, fb_prev, fb_v = fallback_substep(fb_p, fb_v)
-        n_over, _, _ = _comp_drift_over(xy, stat[3], move_ref, thresh2)
-        move_ref = xy
+        xy = positions()
+        n_over = _count_over(xy - move_ref, occ, thresh2)
+        move_ref = xy.clone()
         trip = n_over > wide_tol * n_live
         calm = torch.where(trip, 0, calm + 1).to(torch.int32)
         budget = torch.where(calm >= options.wide_rearm_substeps,
                              options.wide_budget_substeps, budget
                              ).to(torch.int32)
-    return xy, prev, fb_p, fb_prev, fb_v, (trip, budget, calm)
+    return (fb_p, fb_prev, fb_v), (trip, budget, calm)
+
+
+# ------------------------------------------ dense engine (plane-resident) --
+
+def _dense_add_cum(binning, k: int):
+    """Ordered-budget prefix (reference :1656-1658) in grid layout: each
+    slot's examined-pair count (kernel F), its exclusive prefix in particle
+    order, written to ``FIELD_CUM``."""
+    planes = binning.planes
+    g_lanes = planes.shape[2] * (planes.shape[1] - 2 * dense_ops.ROW_PAD)
+    counts = sweep_kernel.count_planes(planes, k)
+    safe = torch.clamp(binning.slot, max=g_lanes - 1)
+    c_p = torch.where(binning.slot < g_lanes, counts.reshape(-1)[safe], 0.0)
+    cum = torch.cumsum(c_p, 0) - c_p
+    return dense_ops.update_cum_field(binning, cum)
+
+
+def _bin_dense(pos, inv_mass, radius, batch_slot, act, cell_size, g: int,
+               k: int, options: SolverOptions, aux_cols=None):
+    """Bin one population into halo-padded planes. Budget off: the rotating
+    winners, placed by kernel A; ordered budget: the stable index order
+    through the scatter binning (``update_cum_field`` needs ``pidx_grid``)
+    plus the examined-pair prefix."""
+    ordered = options.budget_mode == "ordered"
+    binning = dense_ops.bin_to_planes(
+        pos, inv_mass, radius, batch_slot, act, cell_size, grid_dim=g,
+        slots_per_cell=k, aux_cols=aux_cols, use_placement=not ordered,
+        rotate=not ordered)
+    if ordered:
+        binning = _dense_add_cum(binning, k)
+    return binning
+
+
+def _plane_substep(planes, aux, damp, follow_c, params_packed, sub_dt,
+                   relaxation, options: SolverOptions, g: int, k: int, *,
+                   wide=False, first_substep: bool = True) -> None:
+    """One substep of the whole pipeline in plane layout, IN PLACE on
+    ``planes`` and ``aux`` (fresh tensors of this step's binning).
+
+    Empty slots hold all-zero fields and every elementwise update maps zeros
+    to zeros; the halo rows stay copies of their source rows under
+    elementwise updates, so only the sweep's correction (real rows) needs a
+    halo refresh. ``wide`` is a bool (static window) or a 0-dim device
+    tensor (the violence gate, read by kernel D/E itself). With
+    ``options.stale_hash_compat`` a substep that is not the step's first
+    runs one collision pass fewer (reference :1905-1912)."""
+    rp = dense_ops.ROW_PAD
+    X, Y = dense_ops.FIELD_X, dense_ops.FIELD_Y
+    kw = dict(cohesion=options.cohesion_mode == "spacing",
+              ordered_budget=options.budget_mode == "ordered",
+              symmetric=options.sweep_symmetric)
+    if isinstance(wide, torch.Tensor):
+        kw["wide"] = wide
+    else:
+        kw.update(window=3 if wide else 1, fresh_mask=bool(wide))
+    # pre-solve (:1393-1432): damped integration; mass/radius derived once
+    # per step
+    aux[AUX_VX:AUX_VY + 1] *= damp
+    aux[AUX_PX:AUX_PY + 1] = planes[X:Y + 1]
+    x = aux[AUX_PX] + sub_dt * aux[AUX_VX]
+    y = aux[AUX_PY] + sub_dt * aux[AUX_VY]
+    # follow constraint (:1435-1471), targets plane-resident
+    dx, dy = _follow_delta(x, y, planes[dense_ops.FIELD_W],
+                           planes[dense_ops.FIELD_OCC] > 0.0,
+                           aux[AUX_TX], aux[AUX_TY], aux[AUX_TD], follow_c)
+    planes[X] = x + dx
+    planes[Y] = y + dy
+    # collision passes (:1866-1913)
+    n_passes = options.n_collision_steps
+    if options.stale_hash_compat and not first_substep:
+        n_passes -= 1
+    for _ in range(n_passes):
+        corr = sweep_kernel.sweep_planes(planes, params_packed, k, **kw)
+        planes[X, rp:rp + g] += relaxation * corr[0]
+        planes[Y, rp:rp + g] += relaxation * corr[1]
+        dense_ops.refresh_halo_xy(planes)
+    # post-solve velocity (:1690-1693)
+    aux[AUX_VX:AUX_VY + 1] = (planes[X:Y + 1] - aux[AUX_PX:AUX_PY + 1]) / sub_dt
+
+
+def _plane_extract(planes, aux, slot, g: int, lanes: int, sub_dt):
+    """One gather pulling (pos, prev, vel) per particle out of plane layout;
+    the velocity is derived, ``(pos - prev) / sub_dt`` (at least one substep
+    has run). ``in_grid`` also requires the slot's ``FIELD_OCC``: a
+    particle that got no slot falls back to integration without
+    collision."""
+    rp = dense_ops.ROW_PAD
+    ext = torch.stack([planes[dense_ops.FIELD_X], planes[dense_ops.FIELD_Y],
+                       aux[AUX_PX], aux[AUX_PY],
+                       planes[dense_ops.FIELD_OCC]], dim=-1).reshape(-1, 5)
+    got = ext[torch.clamp(slot + rp * lanes, max=ext.shape[0] - 1)]
+    in_grid = (slot < g * lanes) & (got[:, 4] > 0.0)
+    p, prev = got[:, 0:2], got[:, 2:4]
+    return p, prev, (p - prev) / sub_dt, in_grid
+
+
+def _plane_aux_cols(pos, vel, tx, ty, td):
+    return torch.stack([pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1],
+                        tx, ty, td], dim=1)
+
+
+def _fused_component_path(options: SolverOptions) -> bool:
+    """Whether the fused component-layout path applies (the JAX package's
+    test without its TPU condition: the port runs it on every device)."""
+    return (options.budget_mode == "off"
+            and not options.sweep_symmetric
+            and not (options.stale_hash_compat
+                     and options.n_collision_steps < 2))
 
 
 def _population_step_dense(pos, vel, mass_t, batch_slot, act,
                            cfg: DeviceConfig, batch_target, follow_radius,
                            sub_dt, relaxation, options: SolverOptions,
                            g: int, k: int, wide_state=None):
-    """Whole-step dense path of one population: one binning per step, all
-    substeps in the fused component layout; budget-dropped particles fall
-    back to integration without collision (reference :1656-1658)."""
+    """Whole-step dense path of one population: one binning per step (or per
+    substep), all substep math in the fused component layout or in plane
+    layout; budget-dropped particles fall back to integration without
+    collision (reference :1656-1658)."""
     damp = 1.0 - torch.clamp(cfg.damping, 0.0, 1.0)         # :1768
     mass = torch_mix(cfg.min_mass, cfg.max_mass, mass_t)
     inv_mass = torch.where(act, 1.0 / torch.clamp(mass, min=1e-12), 0.0)
@@ -301,7 +456,9 @@ def _population_step_dense(pos, vel, mass_t, batch_slot, act,
     follow_c = strength_to_compliance(cfg.follow_strength, sub_dt)
     collision_c = strength_to_compliance(cfg.collision_strength, sub_dt)
     cohesion_c = strength_to_compliance(cfg.cohesion_strength, sub_dt)
-    cell_size, params = _dense_params(cfg, collision_c, cohesion_c, options)
+    cell_size, params = _dense_params(cfg, act, collision_c, cohesion_c,
+                                      options)
+    params_packed = params.pack(pos.device)
 
     # follow target per particle, once per step (static within a step)
     table = torch.cat([batch_target, follow_radius[:, None]], dim=1)
@@ -318,28 +475,155 @@ def _population_step_dense(pos, vel, mass_t, batch_slot, act,
         p = p + torch.stack([fdx, fdy], dim=1)
         return p, prev, (p - prev) / sub_dt
 
+    def merge(p_pl, prev_pl, v_pl, in_grid, fb, pos, prev, vel):
+        fb_p, fb_prev, fb_v = fb
+        sel = (in_grid & act)[:, None]
+        keep = act[:, None]
+        return (torch.where(sel, p_pl, torch.where(keep, fb_p, pos)),
+                torch.where(sel, prev_pl, torch.where(keep, fb_prev, prev)),
+                torch.where(sel, v_pl, torch.where(keep, fb_v, vel)))
+
     lanes = g * k
-    xy, prev_c, stat_c, follow3, slot = _bin_components(
-        pos, vel, inv_mass, radius, batch_slot, act, cell_size,
-        tx, ty, td, sub_dt, g, k, occ_cap=options.occ_pressure_cap)
-    params_packed = params.pack(pos.device)
-    aux_packed = torch.stack([damp, follow_c,
-                              torch.as_tensor(relaxation, dtype=torch.float32,
-                                              device=pos.device),
-                              torch.zeros((), device=pos.device)])
-    xy, prev_c, fb_p, fb_prev, fb_v, ws = _fused_adaptive_run(
-        xy, prev_c, stat_c, follow3, pos, pos, vel, fallback_substep, act,
-        cell_size, params_packed, aux_packed, options, k,
-        options.n_substeps, cohesion=options.cohesion_mode == "spacing",
-        wide=wide_state)
-    p_pl, prev_pl, v_pl, in_grid = _comp_extract(xy, prev_c, stat_c, slot, g,
-                                                 lanes, sub_dt)
-    sel = (in_grid & act)[:, None]
-    keep = act[:, None]
-    new_pos = torch.where(sel, p_pl, torch.where(keep, fb_p, pos))
-    new_prev = torch.where(sel, prev_pl, torch.where(keep, fb_prev, pos))
-    new_vel = torch.where(sel, v_pl, torch.where(keep, fb_v, vel))
-    return new_pos, new_prev, new_vel, inv_mass, radius, ws
+    rp = dense_ops.ROW_PAD
+    n_sub = options.n_substeps
+    if options.dense_rebin == "substep":
+        # strict rebuild before every substep; no wide machinery, the
+        # episode state passes through untouched
+        new_pos, new_prev, new_vel = pos, pos, vel
+        for s in range(n_sub):
+            binning = _bin_dense(new_pos, inv_mass, radius, batch_slot, act,
+                                 cell_size, g, k, options,
+                                 _plane_aux_cols(new_pos, new_vel, tx, ty, td))
+            _plane_substep(binning.planes, binning.aux, damp, follow_c,
+                           params_packed, sub_dt, relaxation, options, g, k,
+                           first_substep=s == 0)
+            fb = fallback_substep(new_pos, new_vel)
+            new_pos, new_prev, new_vel = merge(
+                *_plane_extract(binning.planes, binning.aux, binning.slot, g,
+                                lanes, sub_dt), fb, new_pos, new_prev,
+                new_vel)
+        ws = wide_state if wide_state is not None else \
+            wide_state_init(options, pos.device)
+        return new_pos, new_prev, new_vel, inv_mass, radius, ws
+
+    if _fused_component_path(options):
+        xy, prev_c, stat_c, follow3, slot = _bin_components(
+            pos, vel, inv_mass, radius, batch_slot, act, cell_size,
+            tx, ty, td, sub_dt, g, k, occ_cap=options.occ_pressure_cap)
+        aux_packed = torch.stack([
+            damp, follow_c,
+            torch.as_tensor(relaxation, dtype=torch.float32,
+                            device=pos.device),
+            torch.zeros((), device=pos.device)])
+        comp = [xy, prev_c]
+
+        def run(wide, first):
+            comp[0], comp[1] = _fused_run(
+                comp[0], comp[1], stat_c, follow3, params_packed, aux_packed,
+                k, options, cohesion=options.cohesion_mode == "spacing",
+                wide=wide, first_substep=first)
+
+        # velocity-predicted displacement: x - prev == vel * sub_dt
+        fb, ws = _gated_substeps(run, lambda: comp[0], stat_c[3],
+                                 lambda: xy - prev_c, (pos, pos, vel),
+                                 fallback_substep, act, cell_size, options,
+                                 n_sub, wide_state)
+        extracted = _comp_extract(comp[0], comp[1], stat_c, slot, g, lanes,
+                                  sub_dt)
+    else:
+        binning = _bin_dense(pos, inv_mass, radius, batch_slot, act,
+                             cell_size, g, k, options,
+                             _plane_aux_cols(pos, vel, tx, ty, td))
+        planes, aux = binning.planes, binning.aux
+
+        def run(wide, first):
+            _plane_substep(planes, aux, damp, follow_c, params_packed, sub_dt,
+                           relaxation, options, g, k, wide=wide,
+                           first_substep=first)
+
+        fb, ws = _gated_substeps(
+            run, lambda: planes[:2, rp:rp + g],
+            planes[dense_ops.FIELD_OCC, rp:rp + g],
+            lambda: aux[AUX_VX:AUX_VY + 1, rp:rp + g] * sub_dt,
+            (pos, pos, vel), fallback_substep, act, cell_size, options,
+            n_sub, wide_state)
+        extracted = _plane_extract(planes, aux, binning.slot, g, lanes,
+                                   sub_dt)
+    return (*merge(*extracted, fb, pos, pos, vel), inv_mass, radius, ws)
+
+
+# ----------------------------------------------- dense engine (per pass) --
+
+def pre_solve(pos, prev, vel, mass_t, active, cfg: DeviceConfig, sub_dt):
+    """Damped velocity integration + mass/radius derivation (reference
+    :1393-1432)."""
+    damping_mult = 1.0 - torch.clamp(cfg.damping, 0.0, 1.0)  # :1768
+    new_vel = vel * damping_mult
+    new_pos = pos + sub_dt * new_vel
+    mass = torch_mix(cfg.min_mass, cfg.max_mass, mass_t)
+    inv_mass = 1.0 / torch.clamp(mass, min=1e-12)
+    radius = torch_mix(cfg.min_radius, cfg.max_radius, mass_t)
+    keep = active[:, None]
+    return (torch.where(keep, new_pos, pos), torch.where(keep, pos, prev),
+            torch.where(keep, new_vel, vel), torch.where(active, inv_mass, 0.0),
+            torch.where(active, radius, 0.0))
+
+
+def solve_follow(pos, inv_mass, batch_slot, active, batch_target,
+                 follow_radius, compliance):
+    """Pull particles toward their batch target (reference :1435-1471);
+    ``follow_radius`` is ``sqrt(batch_radius)`` per slot, a ``2*sqrt(r)`` px
+    dead zone (:1789-1792)."""
+    table = torch.cat([batch_target, follow_radius[:, None]], dim=1)
+    rows = take_batch_rows(table, batch_slot)
+    dx, dy = _follow_delta(pos[:, 0], pos[:, 1], inv_mass, active,
+                           rows[:, 0], rows[:, 1], 2.0 * rows[:, 2],
+                           compliance)
+    return pos + torch.stack([dx, dy], dim=1)
+
+
+def solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
+                      cfg: DeviceConfig, collision_compliance,
+                      cohesion_compliance, relaxation,
+                      options: SolverOptions, g: int, k: int):
+    """One collision pass with a fresh binning (``dense_rebin="pass"``, the
+    strict per-pass rebuild of reference :1866-1879)."""
+    lanes = g * k
+    cell_size, params = _dense_params(cfg, active, collision_compliance,
+                                      cohesion_compliance, options)
+    binning = _bin_dense(pos, inv_mass, radius, batch_slot, active, cell_size,
+                         g, k, options)
+    corr = sweep_kernel.sweep_planes(
+        binning.planes, params.pack(pos.device), k,
+        cohesion=options.cohesion_mode == "spacing",
+        ordered_budget=options.budget_mode == "ordered",
+        symmetric=options.sweep_symmetric).reshape(2, -1)
+    slot = binning.slot
+    safe = torch.clamp(slot, max=lanes * g - 1)
+    dx = torch.where(slot < lanes * g, corr[0][safe], 0.0)
+    dy = torch.where(slot < lanes * g, corr[1][safe], 0.0)
+    delta = torch.stack([dx, dy], dim=1)
+    return pos + torch.where(active[:, None], relaxation * delta, 0.0)
+
+
+def substep(pos, prev, vel, inv_mass, radius, mass_t, batch_slot, active,
+            cfg: DeviceConfig, batch_target, follow_radius, sub_dt,
+            relaxation, options: SolverOptions, g: int, k: int):
+    """One solver substep of one population in particle layout (reference
+    :1821-1932), the per-pass dense route."""
+    follow_c = strength_to_compliance(cfg.follow_strength, sub_dt)
+    collision_c = strength_to_compliance(cfg.collision_strength, sub_dt)
+    cohesion_c = strength_to_compliance(cfg.cohesion_strength, sub_dt)
+    pos, prev, vel, inv_mass, radius = pre_solve(pos, prev, vel, mass_t,
+                                                 active, cfg, sub_dt)
+    pos = solve_follow(pos, inv_mass, batch_slot, active, batch_target,
+                       follow_radius, follow_c)
+    for _ in range(options.n_collision_steps):
+        pos = solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
+                                cfg, collision_c, cohesion_c, relaxation,
+                                options, g, k)
+    vel = torch.where(active[:, None], (pos - prev) / sub_dt, 0.0)
+    return pos, prev, vel, inv_mass, radius
 
 
 def _aabb(pos, radius, active):
@@ -384,12 +668,28 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
     for i in range(2):
         cap = caps[i]
         act = active_full[i, :cap]
-        pos, prev, vel, inv_mass, radius, ws_out[i] = _population_step_dense(
-            state.pos[i, :cap], state.vel[i, :cap], state.mass_t[i, :cap],
-            state.batch_slot[i, :cap], act, population_config(cfg2, i),
-            state.batch_target, follow_radius[i], sub_dt, relaxation,
-            options, options.dense_grid_dim[i], options.dense_slots[i],
-            wide_state=wide_state[i] if thread_wide else None)
+        cfg = population_config(cfg2, i)
+        g, k = options.dense_grid_dim[i], options.dense_slots[i]
+        if options.dense_rebin in ("step", "substep"):
+            pos, prev, vel, inv_mass, radius, ws_out[i] = \
+                _population_step_dense(
+                    state.pos[i, :cap], state.vel[i, :cap],
+                    state.mass_t[i, :cap], state.batch_slot[i, :cap], act,
+                    cfg, state.batch_target, follow_radius[i], sub_dt,
+                    relaxation, options, g, k,
+                    wide_state=wide_state[i] if thread_wide else None)
+        else:
+            # the per-pass route has no wide machinery: the episode state
+            # passes through untouched
+            ws_out[i] = wide_state[i] if thread_wide else None
+            pos, prev, vel = (state.pos[i, :cap], state.prev[i, :cap],
+                              state.vel[i, :cap])
+            inv_mass, radius = state.inv_mass[i, :cap], state.radius[i, :cap]
+            for _ in range(options.n_substeps):
+                pos, prev, vel, inv_mass, radius = substep(
+                    pos, prev, vel, inv_mass, radius, state.mass_t[i, :cap],
+                    state.batch_slot[i, :cap], act, cfg, state.batch_target,
+                    follow_radius[i], sub_dt, relaxation, options, g, k)
 
         if with_stats:
             n_a = torch.clamp(torch.sum(act), min=1)

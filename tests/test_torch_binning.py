@@ -72,7 +72,7 @@ def test_bin_to_planes_bit_identical(g, n, seed, use_placement):
         torch.from_numpy(pos), torch.from_numpy(inv), torch.from_numpy(rad),
         torch.from_numpy(batch), torch.from_numpy(act), torch.tensor(cell),
         grid_dim=g, slots_per_cell=4, aux_cols=torch.from_numpy(aux),
-        use_placement=use_placement)
+        use_placement=use_placement, rotate=True)
     j_slot = _np(jb.slot)
     np.testing.assert_array_equal(tb.slot.numpy(), j_slot)
     np.testing.assert_array_equal(tb.planes.numpy(), _np(jb.planes))
@@ -97,7 +97,8 @@ def test_place_planes_plain_matches_jax_kernel(g):
     slot_sorted, pidx_sorted, _, pack = tdense.sort_bin(
         torch.from_numpy(pos), torch.from_numpy(inv), torch.from_numpy(rad),
         torch.from_numpy(batch), torch.from_numpy(act), torch.tensor(8.0),
-        grid_dim=g, slots_per_cell=k, aux_cols=torch.from_numpy(aux))
+        grid_dim=g, slots_per_cell=k, aux_cols=torch.from_numpy(aux),
+        rotate=True)
     order = torch.sort(slot_sorted, stable=True).indices    # compact
     slots = slot_sorted[order]
     pack_sorted = pack[pidx_sorted][order]

@@ -131,15 +131,36 @@ def test_update_and_draw_end_to_end_match_jax():
     np.testing.assert_allclose(fb.numpy(), fjb, rtol=0, atol=2e-4)
 
 
+def _launch_counts():
+    return (place_kernel.launches, sweep_kernel.launches,
+            sweep_kernel.sweep_launches, sweep_kernel.sweep_sym_launches,
+            sweep_kernel.count_launches, splat_kernel.launches)
+
+
 def test_cpu_run_launches_no_kernel():
     _, ht = _pair()
     ht.add_many(SPECS[:1])
-    before = (place_kernel.launches, sweep_kernel.launches,
-              splat_kernel.launches)
+    before = _launch_counts()
     ht.step_once()
     ht.draw(viewport=(0, 0, 320, 240))
-    assert (place_kernel.launches, sweep_kernel.launches,
-            splat_kernel.launches) == before
+    assert _launch_counts() == before
+
+
+def test_auto_options_turn_the_budget_off_at_dense_scale():
+    """A handler with automatic options at capacity >= 16384 gets
+    ``budget_mode="off"`` in both packages (the dense engine's fused path);
+    a refresh after ``add`` keeps it off."""
+    hj = J.SimulationHandler(J.default_white_config(), J.default_yolk_config(),
+                             capacity=16384, max_batches=4)
+    ht = T.SimulationHandler(T.default_white_config(), T.default_yolk_config(),
+                             capacity=16384, max_batches=4, device="cpu")
+    for h in (hj, ht):
+        assert h._options.engine == "dense"
+        assert h._options.budget_mode == "off"
+        h.add(100.0, 100.0)
+        assert h._options.budget_mode == "off"
+    assert ht._options.pop_caps == hj._options.pop_caps
+    assert ht._options.dense_grid_dim == hj._options.dense_grid_dim
 
 
 def _warnings(fn):

@@ -159,7 +159,37 @@ def test_take_batch_rows_and_segment_sums():
 
 
 def test_unported_options_raise():
-    for kw in (dict(engine="gather"), dict(budget_mode="ordered"),
-               dict(dense_rebin="substep"), dict(cohesion_mode="literal")):
-        with pytest.raises(NotImplementedError):
+    """The gather engine is the one mode still unported; every dense-engine
+    mode of the JAX package builds, and unknown values are refused."""
+    with pytest.raises(NotImplementedError):
+        tsolver.SolverOptions(engine="gather")
+    for kw in (dict(budget_mode="ordered"), dict(budget_mode="off"),
+               dict(dense_rebin="substep"), dict(dense_rebin="pass"),
+               dict(cohesion_mode="literal"), dict(sweep_symmetric=True),
+               dict(stale_hash_compat=True)):
+        opts = tsolver.SolverOptions(**kw)
+        assert all(getattr(opts, f) == v for f, v in kw.items())
+    for kw in (dict(engine="grid"), dict(budget_mode="none"),
+               dict(dense_rebin="frame"), dict(cohesion_mode="off"),
+               dict(n_collision_steps=0)):
+        with pytest.raises(ValueError):
             tsolver.SolverOptions(**kw)
+
+
+def test_shared_option_defaults_match_jax():
+    """One constructor call builds the same solver in both packages: every
+    field the two SolverOptions share has the same default, except
+    ``engine`` (the JAX default is its gather engine, which the port does
+    not have yet; the port's default is the dense engine)."""
+    import dataclasses
+    jd = {f.name: f.default for f in dataclasses.fields(jsolver.SolverOptions)}
+    td = {f.name: f.default for f in dataclasses.fields(tsolver.SolverOptions)}
+    shared = sorted(set(jd) & set(td))
+    assert {"budget_mode", "dense_rebin", "cohesion_mode", "sweep_symmetric",
+            "stale_hash_compat", "wide_budget_substeps"} <= set(shared)
+    assert {f: td[f] for f in shared if f != "engine"} == \
+        {f: jd[f] for f in shared if f != "engine"}
+    assert (jd["engine"], td["engine"]) == ("gather", "dense")
+    j, t = jsolver.SolverOptions(engine="dense"), tsolver.SolverOptions()
+    assert {f: getattr(t, f) for f in shared} == \
+        {f: getattr(j, f) for f in shared}
