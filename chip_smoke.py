@@ -10,6 +10,10 @@ of the paths that run it, then drives the paths through the public API:
 - ``main_path``: the 1M-white / 100k-yolk scene of ``bench.py``
   (``build_handler``) with the budget off (the fused path: kernels A, B),
   a few ``update(1/60)`` calls and a 2560 px ``draw`` (kernel C);
+- ``resident_path`` / ``resident_frames``: on the same handler,
+  ``run_steps`` (multi-step residency: kernel A only at the first binning,
+  the final step and each drift-gated rebin) and ``multi_step_frames``
+  with the render as ``frame_fn``;
 - ``default_options``: a small spawn explosion with the constructor-default
   solver options of an automatic handler (the wide sweep);
 - ``plane_path``: the same 1M scene with the ordered budget and the default
@@ -20,7 +24,17 @@ of the paths that run it, then drives the paths through the public API:
   literal cohesion mode;
 - ``plane_reference``: a small scene stepped once on the card and on the
   CPU (plain versions): the ordered plane path, the symmetric sweep and, as
-  a control, the fused path; positions held together.
+  a control, the fused path; positions held together;
+- ``resident_reference``: a calm 4k lattice on the card and on the CPU:
+  4 resident steps on the fused and on the plane-resident (symmetric
+  sweep) variant, and 3 resident frames; ``warmup``: the state is
+  unchanged by it.
+
+Kernel G (``splat_tiles``) has no caller on any path: it is checked alone
+(``check.splat_tiles``) on slot-major candidates built from the 1M scene's
+render payload. The kernel line gives, per kernel, its launches on its
+path, its time and its plain version's, its bound on the card (``bound``)
+and, where one PyTorch call computes the same function, that call's time.
 
 Every phase prints its own line; any failure raises, so the script exits
 non-zero. Without a CUDA card it exits non-zero before doing anything. The
@@ -55,6 +69,24 @@ COUNT_TOL = 0.0             # bit-exact: small integers
 REF_TOL = 1e-3              # px after a few steps, card vs CPU (the CPU
                             # tests' tolerance against the JAX package)
 SPLAT_TOL = 1e-4            # alpha: products taken in another order
+RESIDENT_STEPS = 20         # run_steps on the 1M scene
+RESIDENT_FRAMES = 3         # multi_step_frames on the 1M scene
+RESIDENT_REF_STEPS = 4      # run_steps of the calm 4k lattice, card vs CPU
+RESIDENT_REF_FRAMES = 3     # multi_step_frames of the same, card vs CPU
+
+# Peak rates of one H100 SXM (vendor datasheet): HBM3 bytes/s and
+# FP32 operations/s outside the tensor cores. A kernel's bound is the larger
+# of its bytes (each input read once, each output written once) and its
+# operations (what this run's data needs) over these.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations per unit of work, counted from the kernels' sources:
+PAIR_OPS = 36        # one (self, partner) term of pair_terms.cuh's
+                     # projection with its accumulation (B, D, E)
+PROLOGUE_OPS = 20    # kernel B's integrate + follow prologue, per slot
+COUNT_OPS = 4        # kernel F: one partner's adjacency test and count
+SPLAT_OPS = 28       # kernel C: one candidate at one pixel, exp as one
+TILES_OPS = 26       # kernel G: the same with the normalised box test
 
 
 def log(phase: str, **kw) -> None:
@@ -88,6 +120,29 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def window_pairs(occ, k: int, w: int) -> float:
+    """(self, partner) terms between occupied slots of cells within +-w
+    rows and columns on the torus: what a sweep over the (G, G*K) slots
+    ``occ`` (> 0 = occupied) evaluates on this data."""
+    import torch
+    g = occ.shape[0]
+    n = (occ > 0).reshape(g, -1, k).sum(-1).to(torch.float64)
+    near = sum(torch.roll(n, (dy, dx), (0, 1))
+               for dy in range(-w, w + 1) for dx in range(-w, w + 1))
+    return float((n * near).sum() - n.sum())
 
 
 def build_handler(n_target: int, device, wide_default: bool = False,
@@ -135,6 +190,66 @@ def build_handler(n_target: int, device, wide_default: bool = False,
              for b in range(n_batches)]
     h.add_many(specs)
     return h
+
+
+def lattice_handler(device, **overrides):
+    """A calm 4k scene: 4096 whites on a 17 px hex lattice and 400 yolks on
+    a 25 px grid (collision and cohesion reach 16 px), seeded velocities of
+    up to 120 px/s, the follow pull off (a dead zone wider than the scene).
+    Cells hold at most a few particles, so the rotating winner hash never
+    chooses and the card and the CPU bin alike. ``overrides`` replace
+    solver options."""
+    import torch
+    from egg_fluid_simulation_tpu_torch import (SimulationHandler,
+                                                SolverOptions,
+                                                default_white_config,
+                                                default_yolk_config)
+    options = SolverOptions(**{**dict(
+        engine="dense", budget_mode="off", dense_rebin="step",
+        dense_grid_dim=(160, 64), dense_slots=4, pop_caps=(4096, 1024)),
+        **overrides})
+    h = SimulationHandler(default_white_config(), default_yolk_config(),
+                          capacity=4096, max_batches=4, options=options,
+                          device=device)
+    h.add_many([dict(x=600.0, y=600.0, white_radius=256.0, yolk_radius=16.0,
+                     white_n_particles=2048, yolk_n_particles=200)] * 2)
+    rng = np.random.RandomState(SEED)
+    st = h.state
+    pos, vel = st.pos.cpu().numpy().copy(), st.vel.cpu().numpy().copy()
+    s = 17.0
+    ij = np.stack(np.meshgrid(np.arange(64), np.arange(64)), -1).reshape(-1, 2)
+    pos[0, :4096] = ij * s + 40.0 + (ij[:, 1:2] % 2) * np.array([s / 2, 0.0])
+    ij = np.stack(np.meshgrid(np.arange(20), np.arange(20)), -1).reshape(-1, 2)
+    pos[1, :400] = ij * 25.0 + 150.0
+    vel[0, :4096] = rng.uniform(-120.0, 120.0, (4096, 2))
+    vel[1, :400] = rng.uniform(-120.0, 120.0, (400, 2))
+    p = torch.from_numpy(pos.astype(np.float32)).to(device)
+    h._state = st.replace(
+        pos=p, prev=p.clone(), last_pos=p.clone(),
+        vel=torch.from_numpy(vel.astype(np.float32)).to(device),
+        batch_radius=torch.full_like(st.batch_radius, 65536.0))
+    return h
+
+
+def render_frame_fn(h, viewport, audits=None):
+    """A ``multi_step_frames`` ``frame_fn``: the handler's render of
+    ``viewport`` at its current options and alpha, reduced to a sum; each
+    frame's render audit is appended to ``audits``."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    opts2 = R.frame_options(h)
+    cfg2 = h._device_cfg2()
+    alpha_t, thr, smooth, origin = R._frame_scalars(h, viewport)
+
+    def frame_fn(state, stats):
+        f, _, audit = R._render_frame(
+            state, stats, cfg2, alpha_t, thr, smooth, origin, opts2,
+            bool(h._use_lighting), viewport[2], viewport[3],
+            pop_caps=h._options.pop_caps)
+        if audits is not None:
+            audits.append(audit)
+        return torch.sum(f)
+    return frame_fn
 
 
 def population_inputs(h, pop: int, vel_seed: int):
@@ -214,7 +329,18 @@ def check_place(h, results) -> None:
         r = results.setdefault("place_planes", dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if pop == 0:
-            r.update(ms=ms, plain_ms=plain_ms)
+            # library yardstick: one index_copy_ of the placed entries into
+            # the core rows (no halo fill)
+            lanes = p["g"] * p["k"]
+            ok = (slot_sorted >= 0) & (slot_sorted < p["g"] * lanes)
+            idx = slot_sorted[ok].to(torch.int64) + D.ROW_PAD * lanes
+            src = pack_sorted[ok].T
+            flat = torch.zeros((got.shape[0], got.shape[1] * lanes),
+                               device=got.device)
+            lib_ms = cuda_ms(lambda: flat.index_copy_(1, idx, src), 20)
+            b_ms, b_by = bound(0.0, nbytes(slot_sorted, pack_sorted, got))
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms)
 
 
 def check_substep(h, results) -> None:
@@ -262,7 +388,12 @@ def check_substep(h, results) -> None:
         r = results.setdefault("substep_pass", dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if (window, integrate) == (1, True):
-            r.update(ms=ms, plain_ms=plain_ms)
+            occupied = float((stat[3] > 0).sum())
+            ops = (window_pairs(stat[3], p["k"], 1) * (PAIR_OPS + PROLOGUE_OPS)
+                   + occupied * PROLOGUE_OPS)
+            b_ms, b_by = bound(ops, nbytes(xy, stat, prev, follow, *got))
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None)
 
 
 def check_splat(h, results) -> None:
@@ -309,7 +440,106 @@ def check_splat(h, results) -> None:
             r = results.setdefault("splat", dict(max_abs_err=0.0))
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if (post_mode, use_rgb) == ("coarse", False):
-                r.update(ms=ms, plain_ms=plain_ms)
+                # work: every occupied window candidate at every tile pixel
+                filled = torch.clamp(counts, max=opts.tile_capacity)
+                cand = float(filled[R._tile_bins(opts, dev)].to(torch.float64).sum())
+                ops = cand * opts.tile_h * opts.tile_w * SPLAT_OPS
+                read = float(filled[:-1].sum()) * payload.shape[-1] * 4
+                b_ms, b_by = bound(ops, read + nbytes(counts, got[0]))
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+
+
+def slot_major_candidates(payload, counts, opts):
+    """Kernel G's input from the render payload: per tile, its window
+    candidates stable-compacted (occupied slots first, raster bin order),
+    in chunks of 128 with the fields on the middle axis, (T, n_chunks, 9,
+    128), ``trips = ceil(n_occupied / 128)`` and the occupied count per
+    tile."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    dev = payload.device
+    k = opts.tile_capacity
+    nb = R._tile_bins(opts, dev)                           # (T, W)
+    n_tiles, w_bins = nb.shape
+    n_cand = w_bins * k
+    occ = (torch.arange(k, device=dev)[None, None, :]
+           < counts[nb].to(torch.int64)[..., None]).reshape(n_tiles, n_cand)
+    order = torch.sort((~occ).to(torch.int32), dim=1, stable=True).indices
+    win = payload[:, :, :9][nb].reshape(n_tiles, n_cand, 9)
+    win = torch.gather(win, 1, order[..., None].expand(-1, -1, 9))
+    n_occ = occ.sum(dim=1)
+    live = torch.arange(n_cand, device=dev)[None, :] < n_occ[:, None]
+    win = torch.where(live[..., None], win, 0.0)
+    n_chunks = -(-n_cand // 128)
+    win = torch.cat([win, win.new_zeros((n_tiles, n_chunks * 128 - n_cand,
+                                         9))], dim=1)
+    cand = win.reshape(n_tiles, n_chunks, 128, 9).permute(0, 1, 3, 2)
+    trips = ((n_occ + 127) // 128).to(torch.int32)
+    return cand.contiguous(), trips, n_occ
+
+
+def check_splat_tiles(h, results) -> None:
+    """Kernel G against its plain version on slot-major candidates built
+    from the 1M scene's render payload at the main path's render options;
+    once more with garbage in every chunk past a tile's trips."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.config import population_config
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
+    st = h.state
+    dev = st.device
+    cap = h._options.pop_caps[0]
+    cfg = population_config(h._device_cfg2(), 0)
+    opts = R.frame_options(h)[0]
+    payload, audit, counts = R._splat_payload(
+        st.pos[0, :cap], st.last_pos[0, :cap], st.vel[0, :cap],
+        st.radius[0, :cap], st.color[0, :cap], st.active_mask()[0, :cap],
+        h.stats.centroid[0], torch.tensor(0.5, device=dev),
+        cfg.texture_scale, cfg.motion_blur, opts)
+    cand, trips, n_occ = slot_major_candidates(payload, counts, opts)
+    th, tw = opts.tile_h, opts.tile_w
+    ntx = opts.eff_size // tw
+    msp = int(opts.max_splat_px)
+    SPK.tiles_launches = 0
+    got = SPK.splat_tiles(cand, trips, th, tw, ntx, msp)
+    want = SPK.splat_tiles_plain(cand, trips, th, tw, ntx, msp)
+    err = float((got - want).abs().max())
+    # garbage past trips: never read, so the kernel's output is unchanged
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    chunk_ids = torch.arange(cand.shape[1], device=dev)
+    past = (chunk_ids[None, :] >= trips[:, None].to(torch.int64))[..., None, None]
+    noise = torch.rand(cand.shape, generator=gen, device=dev) * 64.0 - 16.0
+    garbage = torch.where(past, noise, cand)
+    got_g = SPK.splat_tiles(garbage, trips, th, tw, ntx, msp)
+    want_g = SPK.splat_tiles_plain(garbage, trips, th, tw, ntx, msp)
+    err_g = float((got_g - want_g).abs().max())
+    same_g = bool(torch.equal(got_g, got))
+    ms = cuda_ms(lambda: SPK.splat_tiles(cand, trips, th, tw, ntx, msp), 10)
+    plain_ms = cuda_ms(lambda: SPK.splat_tiles_plain(cand, trips, th, tw,
+                                                     ntx, msp), 2)
+    launches = SPK.tiles_launches
+    # work: every occupied candidate of a tile at each of its pixels (the
+    # zero tail of a tile's last chunk is not part of the function)
+    occupied = float(n_occ.to(torch.float64).sum())
+    n_pairs = occupied * th * tw
+    read = occupied * 7 * 4
+    b_ms, b_by = bound(n_pairs * TILES_OPS, read + nbytes(trips, got))
+    log("check.splat_tiles", eff=opts.eff_size, tile=f"{th}x{tw}",
+        tiles=int(cand.shape[0]), n_chunks=int(cand.shape[1]),
+        trips_max=int(trips.max()), trips_mean=round(float(trips.float().mean()), 3),
+        max_abs_err=err, garbage_max_abs_err=err_g,
+        garbage_unchanged=same_g, tol=SPLAT_TOL,
+        alpha_max=round(float(want.max()), 4), ms=round(ms, 4),
+        plain_ms=round(plain_ms, 4), bound_ms=round(b_ms, 4), bound_by=b_by,
+        launches=launches)
+    if not (err <= SPLAT_TOL and err_g <= SPLAT_TOL and same_g
+            and float(want.max()) > 0.5):
+        raise AssertionError("splat_tiles disagrees with its plain version")
+    results["splat_tiles"] = dict(max_abs_err=max(err, err_g), ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=None,
+                                  launches=launches)
 
 
 def check_count(h, results):
@@ -346,7 +576,13 @@ def check_count(h, results):
         r = results.setdefault("count_planes", dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if pop == 0:
-            r.update(ms=ms, plain_ms=plain_ms)
+            # F reads two fields, occupancy and index, of the core rows and
+            # the one halo row on each side
+            ops = window_pairs(b.planes[D.FIELD_OCC, rp:rp + g], k, 1) * COUNT_OPS
+            read = 2 * (g + 2) * b.planes.shape[2] * b.planes.element_size()
+            b_ms, b_by = bound(ops, read + nbytes(got))
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None)
         planes = b.planes.clone()
         occ = planes[D.FIELD_OCC] > 0.0
         gen = torch.Generator(device=planes.device).manual_seed(SEED + 10 + pop)
@@ -362,6 +598,7 @@ def check_sweep(ordered_planes, results) -> None:
     1M scene's drifted ordered planes; the ordered cutoff set to bind for
     about half the slots."""
     import torch
+    from egg_fluid_simulation_tpu_torch.ops import dense as D
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
     for pop, (p, planes, cum_max) in enumerate(ordered_planes):
         name = ("white", "yolk")[pop]
@@ -369,6 +606,8 @@ def check_sweep(ordered_planes, results) -> None:
         params = p["params"].clone()
         params[4] = 0.5 * cum_max              # max_pairs: binds
         dev = planes.device
+        rp = D.ROW_PAD
+        pairs = window_pairs(planes[D.FIELD_OCC, rp:rp + p["g"]], k, 1)
         for window in (1, 3):
             flag = torch.tensor(window == 3, device=dev)
             for ordered in (False, True):
@@ -399,7 +638,9 @@ def check_sweep(ordered_planes, results) -> None:
                 r = results.setdefault("sweep_planes", dict(max_abs_err=0.0))
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 if timed and (window, ordered) == (1, True):
-                    r.update(ms=ms, plain_ms=plain_ms)
+                    b_ms, b_by = bound(pairs * PAIR_OPS, nbytes(planes, got))
+                    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
             # kernel E: each unordered pair once, ordered budget, cohesion
             static = dict(cohesion=True, ordered_budget=True, window=window,
                           fresh_mask=window == 3)
@@ -427,14 +668,18 @@ def check_sweep(ordered_planes, results) -> None:
             r = results.setdefault("sweep_planes_sym", dict(max_abs_err=0.0))
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if timed and window == 1:
-                r.update(ms=ms, plain_ms=plain_ms)
+                # each unordered pair once, two atomic adds for the partner
+                b_ms, b_by = bound(pairs / 2 * (PAIR_OPS + 2),
+                                   nbytes(planes, got))
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
 
 
 def reset_counters() -> None:
     from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
     from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
-    PK.launches = SPK.launches = 0
+    PK.launches = SPK.launches = SPK.tiles_launches = 0
     SK.launches = SK.sweep_launches = SK.sweep_sym_launches = 0
     SK.count_launches = 0
 
@@ -446,7 +691,8 @@ def read_counters() -> dict:
     return {"place_planes": PK.launches, "substep_pass": SK.launches,
             "splat": SPK.launches, "count_planes": SK.count_launches,
             "sweep_planes": SK.sweep_launches,
-            "sweep_planes_sym": SK.sweep_sym_launches}
+            "sweep_planes_sym": SK.sweep_sym_launches,
+            "splat_tiles": SPK.tiles_launches}
 
 
 def plane_launches(opts, n_steps: int) -> dict:
@@ -461,7 +707,7 @@ def plane_launches(opts, n_steps: int) -> dict:
     sweep = 2 * n_steps * passes
     ordered = opts.budget_mode == "ordered"
     return {"place_planes": 0 if ordered else 2 * n_steps * bins,
-            "substep_pass": 0, "splat": 0,
+            "substep_pass": 0, "splat": 0, "splat_tiles": 0,
             "count_planes": 2 * n_steps * bins if ordered else 0,
             "sweep_planes": 0 if opts.sweep_symmetric else sweep,
             "sweep_planes_sym": sweep if opts.sweep_symmetric else 0}
@@ -506,6 +752,7 @@ def main() -> int:
     check_place(h, results)
     check_substep(h, results)
     check_splat(h, results)
+    check_splat_tiles(h, results)
     check_sweep(check_count(hp, results), results)
 
     # ---- main path: update(1/60) x N + draw, counters from zero ----
@@ -549,8 +796,84 @@ def main() -> int:
             and launches["substep_pass"] == per * n_steps
             and launches["splat"] >= 2 * n_steps
             and launches["count_planes"] == launches["sweep_planes"]
-            == launches["sweep_planes_sym"] == 0):
+            == launches["sweep_planes_sym"] == launches["splat_tiles"] == 0):
         raise AssertionError(f"unexpected kernel launch counts {launches}")
+
+    # ---- resident steps: run_steps on the same 1M handler ----
+    from egg_fluid_simulation_tpu_torch.ops import solver as S
+    reset_counters()
+    S.rebins[:] = [0, 0]
+    S.host_syncs = 0
+    torch.cuda.synchronize()
+    t_start = torch.cuda.Event(enable_timing=True)
+    t_end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    t_start.record()
+    h.run_steps(RESIDENT_STEPS)
+    t_end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / RESIDENT_STEPS
+    res_ms = t_start.elapsed_time(t_end) / RESIDENT_STEPS
+    res_launches = read_counters()
+    rebins = list(S.rebins)
+    validate_state(h)
+    drops = collision_drop_stats(h)
+    log("resident_path", steps=RESIDENT_STEPS, ms_per_step=round(res_ms, 3),
+        host_ms_per_step=round(host_ms, 3),
+        update_ms=[round(x, 3) for x in step_ms], rebins=rebins,
+        host_syncs_per_step=S.host_syncs / RESIDENT_STEPS,
+        drop_pct_white=round(drops["white"]["drop_pct"], 3),
+        drop_pct_yolk=round(drops["yolk"]["drop_pct"], 3),
+        max_cell_occupancy=(drops["white"]["max_cell_occupancy"],
+                            drops["yolk"]["max_cell_occupancy"]),
+        launches=res_launches)
+    if not (res_launches["substep_pass"] == per * RESIDENT_STEPS
+            and res_launches["place_planes"] == 2 * (1 + 1) + sum(rebins)
+            and S.host_syncs == 2 * (RESIDENT_STEPS - 2)):
+        raise AssertionError(f"resident path: launch counts {res_launches}, "
+                             f"rebins {rebins}, host syncs {S.host_syncs}")
+
+    # ---- resident frames: multi_step_frames with the render as frame_fn ----
+    audits, marks = [], []
+    render_fn = render_frame_fn(h, viewport, audits)
+    cfg2 = h._device_cfg2()
+
+    def frame_fn(state, stats):
+        total_f = render_fn(state, stats)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return total_f
+
+    reset_counters()
+    S.rebins[:] = [0, 0]
+    S.host_syncs = 0
+    dt, relax = h._step_scalars(1 / 60)
+    torch.cuda.synchronize()
+    t_start.record()
+    state_f, total = S.multi_step_frames(h.state, cfg2, dt, relax,
+                                         h._options, RESIDENT_FRAMES, frame_fn)
+    t_end.record()
+    torch.cuda.synchronize()
+    frames_ms = t_start.elapsed_time(t_end) / RESIDENT_FRAMES
+    each_ms = [a.elapsed_time(b) for a, b in zip([t_start] + marks, marks)]
+    frames_launches = read_counters()
+    overflow = int(torch.stack(audits)[:, :, 0].sum())
+    finite = bool(torch.isfinite(total)) and bool(
+        torch.isfinite(state_f.pos).all())
+    log("resident_frames", frames=RESIDENT_FRAMES,
+        ms_per_frame=round(frames_ms, 3),
+        frame_ms=[round(x, 3) for x in each_ms], update_draw_ms=[round(x, 3) for x in frame_ms],
+        total=float(total), finite=finite, render_dropped=overflow,
+        rebins=list(S.rebins), host_syncs=S.host_syncs,
+        launches=frames_launches)
+    if not (finite and overflow == 0 and float(total) > 0.0):
+        raise AssertionError("resident frames: non-finite, empty or "
+                             "overflowing render")
+    if not (frames_launches["substep_pass"] == per * RESIDENT_FRAMES
+            and frames_launches["place_planes"] == 2 + sum(S.rebins)
+            and frames_launches["splat"] >= 2 * RESIDENT_FRAMES):
+        raise AssertionError(f"resident frames: launch counts "
+                             f"{frames_launches}")
 
     # ---- default options: the violence-gated wide sweep on a spawn explosion ----
     from egg_fluid_simulation_tpu_torch import (SimulationHandler,
@@ -672,6 +995,69 @@ def main() -> int:
             raise AssertionError(f"plane path on the card disagrees with the "
                                  f"plain reference ({mode})")
 
+    # ---- resident steps and frames on a calm 4k lattice, card vs CPU: the
+    # fused variant, the plane-resident variant (symmetric sweep, kernel E,
+    # planes written in place) and the frame loop's carry ----
+    def lattice_run(device, route, mode):
+        hr = lattice_handler(device, **mode)
+        if route == "run_steps":
+            hr.run_steps(RESIDENT_REF_STEPS)
+        else:
+            dt_r, relax_r = hr._step_scalars(1 / 60)
+            hr._state, _ = S.multi_step_frames(
+                hr.state, hr._device_cfg2(), dt_r, relax_r, hr._options,
+                RESIDENT_REF_FRAMES,
+                lambda state, stats: torch.sum(stats.centroid))
+        validate_state(hr)
+        return hr
+
+    for route, mode in (("run_steps", dict()),
+                        ("run_steps", dict(sweep_symmetric=True)),
+                        ("multi_step_frames", dict())):
+        out = []
+        for device in (dev, torch.device("cpu")):
+            S.rebins[:] = [0, 0]
+            hr = lattice_run(device, route, mode)
+            occ = collision_drop_stats(hr)
+            out.append((state_to_numpy(hr.state), list(S.rebins),
+                        (occ["white"]["max_cell_occupancy"],
+                         occ["yolk"]["max_cell_occupancy"])))
+        (a, rebins_card, occ_card), (b, rebins_cpu, _) = out
+        err = {f: float(np.abs(a[f] - b[f]).max())
+               for f in ("pos", "prev", "vel", "last_pos")}
+        moved = float(np.abs(a["pos"] - a["last_pos"]).max())
+        log("resident_reference", route=route, mode=mode,
+            particles=int(a["count"].sum()),
+            steps=RESIDENT_REF_STEPS if route == "run_steps"
+            else RESIDENT_REF_FRAMES, max_abs_err=err,
+            tol=f"pos/prev/last_pos {REF_TOL} px, vel 0.2 px/s",
+            rebins_card=rebins_card, rebins_cpu=rebins_cpu,
+            max_cell_occupancy=occ_card, moved_px=moved)
+        if not (max(err["pos"], err["prev"], err["last_pos"]) <= REF_TOL
+                and err["vel"] <= 0.2 and moved > 0.0
+                and rebins_card == rebins_cpu and sum(rebins_card) > 0
+                and max(occ_card) <= 4):
+            raise AssertionError(f"resident {route} {mode} on the card "
+                                 f"disagrees with the plain reference")
+
+    # ---- warmup: builds, steps and draws, and leaves no trace ----
+    hw = build_handler(N_WHITE_REF, dev, wide_default=True)
+    hw.update(0.5 / 60)
+    saved = {f: getattr(hw.state, f).clone() for f in vars(hw.state)
+             if isinstance(getattr(hw.state, f), torch.Tensor)}
+    alpha0 = hw.interpolation_alpha
+    t0 = time.perf_counter()
+    hw.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    unchanged = all(torch.equal(getattr(hw.state, f), v)
+                    for f, v in saved.items())
+    log("warmup", seconds=round(warm_s, 3), state_unchanged=unchanged,
+        alpha=(alpha0, hw.interpolation_alpha),
+        wide_state=[[int(v) for v in w] for w in hw._wide_state])
+    if not (unchanged and hw.interpolation_alpha == alpha0 == 0.5):
+        raise AssertionError("warmup changed the simulation state")
+
     launches.update(count_planes=plane_launches_run["count_planes"],
                     sweep_planes=plane_launches_run["sweep_planes"],
                     sweep_planes_sym=mode_launches[
@@ -684,10 +1070,15 @@ def main() -> int:
              ("count_planes", src + "count_planes.cu", tpu + "sweep_kernel.py:572"),
              ("sweep_planes", src + "sweep_planes.cu", tpu + "sweep_kernel.py:455"),
              ("sweep_planes_sym", src + "sweep_planes.cu",
-              tpu + "sweep_kernel.py:526")]
+              tpu + "sweep_kernel.py:526"),
+             ("splat_tiles", src + "splat_tiles.cu", tpu + "splat_kernel.py:443")]
+    # kernel G has no caller on any path: its launches are its check's
+    launches["splat_tiles"] = results["splat_tiles"]["launches"]
     kernels = [dict(name=n, route="cuda", source=s, replaces=r,
-                    launches=launches[n], max_abs_err=results[n]["max_abs_err"],
-                    ms=results[n]["ms"], plain_ms=results[n]["plain_ms"])
+                    launches=launches[n],
+                    **{key: results[n][key] for key in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")})
                for n, s, r in table]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -489,6 +489,24 @@ class SimulationHandler:
         if stepped:
             self._frames = None  # canvases dirty (:1984)
 
+    def warmup(self, viewport=(0.0, 0.0, 800, 600)) -> None:
+        """Build the kernel library (on a CUDA device) and run one step and
+        one draw, so the first frame pays neither (the reference's shader
+        warm-up draw, simulation_handler.lua:600-615). The state, stats,
+        time accumulator and interpolation alpha are restored afterwards;
+        as in the JAX package, the wide-sweep episode state keeps the
+        step's update."""
+        if self._device.type == "cuda":
+            from .ops.kernels import library
+            library.load()
+        saved = (self._state, self._stats, self._elapsed,
+                 self._interpolation_alpha)
+        self.step_once(1 / 60)
+        self.draw(viewport=viewport)
+        (self._state, self._stats, self._elapsed,
+         self._interpolation_alpha) = saved
+        self._frames = None
+
     def step_once(self, step_delta: float = 1 / 60) -> None:
         """Advance exactly one fixed step (benchmark/test convenience)."""
         self._flush_targets()
@@ -497,6 +515,20 @@ class SimulationHandler:
         self._state, self._stats, self._wide_state = solver_ops.step(
             self._state, self._device_cfg2(), dt, relax, self._options,
             wide_state=self._wide_or_init())
+        self._frames = None
+
+    def run_steps(self, n_steps: int, step_delta: float = 1 / 60) -> None:
+        """Advance ``n_steps`` fixed steps through ``solver.multi_step``
+        (headless fast-forward; the binned layout stays resident across the
+        steps where the options allow). A no-op for ``n_steps <= 0``."""
+        if n_steps <= 0:
+            return
+        self._flush_targets()
+        self._check_caps()
+        dt, relax = self._step_scalars(step_delta)
+        self._state, self._stats, self._wide_state = solver_ops.multi_step(
+            self._state, self._device_cfg2(), dt, relax, self._options,
+            int(n_steps), wide_state=self._wide_or_init())
         self._frames = None
 
     def _wide_or_init(self):

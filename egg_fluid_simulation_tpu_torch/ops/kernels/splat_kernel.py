@@ -1,4 +1,5 @@
-"""Kernel C: per-tile gaussian splat accumulation (``csrc/splat.cu``).
+"""Kernels C and G: per-tile gaussian splat accumulation (``csrc/splat.cu``,
+``csrc/splat_tiles.cu``).
 
 Replaces ``egg_fluid_simulation_tpu/ops/pallas/splat_kernel.py``
 (``splat_rows`` and ``splat_tiles_v2``: one kernel covers both). Per pixel
@@ -18,6 +19,14 @@ the plain scan's in 128-candidate chunks, so the two agree to rounding.
 :func:`splat_plain` (the plain scan of ``ops/render.py`` in the JAX
 package); CUDA tensors launch the kernel, or raise. ``launches`` counts
 kernel launches.
+
+Kernel G, :func:`splat_tiles`, replaces the slot-major splat of the same
+file (``splat_tiles``): candidates pre-gathered per tile into chunks of
+128, ``cand`` (T, n_chunks, 9, 128), of which only the first ``trips[t]``
+chunks of tile ``t`` are read. Its box test is the TPU kernel's normalised
+one (``max(|nx|, |ny|, max(|dx|, |dy|) / max_splat_px) <= 1``), not kernel
+C's extent test, so the two are separate kernels. :func:`splat_tiles_plain`
+is its plain version; ``tiles_launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -26,9 +35,11 @@ import math
 
 import torch
 
-__all__ = ["splat", "splat_plain", "launches"]
+__all__ = ["splat", "splat_plain", "launches", "splat_tiles",
+           "splat_tiles_plain", "tiles_launches"]
 
-launches = 0
+launches = 0           # kernel C
+tiles_launches = 0     # kernel G
 
 _GAUSS_COEFF = 4.0 * math.pi / 3.0  # particle_texture.glsl:8
 _SPLAT_CHUNK = 128                  # candidates per product step of the scan
@@ -150,3 +161,88 @@ def splat(payload: torch.Tensor, counts: torch.Tensor, opts, use_rgb: bool):
     global launches
     launches += 1
     return alpha, rgb
+
+
+# ------------------------------------------------ kernel G: slot-major tiles --
+
+_TILES_FIELDS = 9      # x, y, cos, sin, extent_perp, extent_par, inv_sx,
+                       # inv_sy, a (ops/render.py's payload columns)
+
+
+def splat_tiles_plain(cand: torch.Tensor, trips: torch.Tensor, th: int,
+                      tw: int, ntx: int, max_splat_px: int) -> torch.Tensor:
+    """Plain PyTorch slot-major splat, in the TPU kernel's order: per tile,
+    a running product per candidate lane over the chunks ``c < trips[t]``,
+    then one product over the 128 lanes by pairwise halving."""
+    n_tiles, n_chunks, n_f, chunk = cand.shape
+    dev = cand.device
+    icap = 1.0 / float(max_splat_px)
+    trips = trips.to(device=dev, dtype=torch.int64)
+    py_g = torch.arange(th, device=dev, dtype=torch.float32)[:, None, None] + 0.5
+    px_g = torch.arange(tw, device=dev, dtype=torch.float32)[None, :, None] + 0.5
+    out = torch.empty((n_tiles, th, tw), dtype=torch.float32, device=dev)
+    # tiles in groups bounding the (TC, th, tw, 128) intermediates
+    tc = max(1, min(n_tiles, (8 << 20) // (th * tw * chunk * 4)))
+    for t0 in range(0, n_tiles, tc):
+        ids = torch.arange(t0, min(t0 + tc, n_tiles), device=dev)
+        px = px_g + ((ids % ntx) * tw).to(torch.float32)[:, None, None, None]
+        py = py_g + ((ids // ntx) * th).to(torch.float32)[:, None, None, None]
+        acc = torch.ones((ids.shape[0], th, tw, chunk), dtype=torch.float32,
+                         device=dev)
+        n_run = int(trips[t0:t0 + tc].max()) if ids.shape[0] else 0
+        for c in range(min(n_run, n_chunks)):
+            f = cand[t0:t0 + tc, c][:, None, None]            # (m, 1, 1, F, C)
+            pcx, pcy, ca, sa = f[..., 0, :], f[..., 1, :], f[..., 2, :], f[..., 3, :]
+            isx, isy, ap = f[..., 6, :], f[..., 7, :], f[..., 8, :]
+            cax, sax = ca * isx, sa * isx
+            cay, say = ca * isy, sa * isy
+            dx = px - pcx                                     # (m, th, tw, C)
+            dy = py - pcy
+            nx = dx * cax + dy * sax
+            ny = dy * cay - dx * say
+            r2 = nx * nx + ny * ny
+            m = torch.maximum(torch.maximum(torch.abs(nx), torch.abs(ny)),
+                              icap * torch.maximum(torch.abs(dx),
+                                                   torch.abs(dy)))
+            g = torch.where(m <= 1.0, torch.exp(-_GAUSS_COEFF * r2) * ap, 0.0)
+            live = (c < trips[t0:t0 + tc])[:, None, None, None]
+            acc = torch.where(live, acc * (1.0 - g), acc)     # screen blend
+        w = chunk
+        while w > 1:
+            w //= 2
+            acc = acc[..., :w] * acc[..., w:2 * w]
+        out[t0:t0 + tc] = 1.0 - acc[..., 0]
+    return out
+
+
+def splat_tiles(cand: torch.Tensor, trips: torch.Tensor, th: int, tw: int,
+                ntx: int, max_splat_px: int) -> torch.Tensor:
+    """(n_tiles, th, tw) splat alpha per evaluation tile from slot-major
+    candidates ``cand`` (n_tiles, n_chunks, 9, 128) float32 and the chunk
+    counts ``trips`` (n_tiles,) int32; tile ``t``'s origin is
+    ``((t // ntx) * th, (t % ntx) * tw)`` effective canvas pixels."""
+    dev = cand.device
+    if dev.type == "cpu":
+        return splat_tiles_plain(cand, trips, th, tw, ntx, max_splat_px)
+    if dev.type != "cuda":
+        raise RuntimeError(f"splat_tiles: no kernel for device {dev}")
+    from . import library
+    if (cand.dim() != 4 or cand.shape[2] != _TILES_FIELDS
+            or cand.shape[3] != _SPLAT_CHUNK or cand.dtype != torch.float32
+            or trips.shape != (cand.shape[0],) or trips.device != dev):
+        raise ValueError("splat_tiles: float32 cand (T, n_chunks, 9, 128) "
+                         "and trips (T,) on one device expected")
+    if not 0 < th * tw <= 1024:
+        raise ValueError("splat_tiles: tiles of 1 to 1024 pixels supported")
+    n_tiles, n_chunks = cand.shape[0], cand.shape[1]
+    cand = cand.contiguous()
+    trips32 = trips.to(torch.int32).contiguous()
+    out = torch.empty((n_tiles, th, tw), dtype=torch.float32, device=dev)
+    lib = library.load()
+    err = lib.egg_splat_tiles(cand.data_ptr(), trips32.data_ptr(),
+                              out.data_ptr(), n_tiles, n_chunks, th, tw, ntx,
+                              int(max_splat_px), library.stream_handle(dev))
+    library.check("splat_tiles", err)
+    global tiles_launches
+    tiles_launches += 1
+    return out

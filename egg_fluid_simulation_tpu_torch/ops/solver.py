@@ -25,10 +25,18 @@ sub_dt``). Particles over the per-cell budget K integrate without collision
 The two populations run as one Python loop. Everything dynamic (configs,
 dt, the violence gate) stays in device tensors, so a step never waits on
 the device.
+
+Multi-step residency (:func:`multi_step`, :func:`multi_step_frames`) keeps
+the binned layout across steps and rebins only when the drift since bin
+time passes a quarter cell for more than ``rebin_tolerance`` of the live
+particles. That decision is a branch on the host: it costs one
+device-to-host read per population per resident step, counted in
+``host_syncs``; ``rebins`` counts the rebins per population.
 """
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
@@ -40,9 +48,13 @@ from ..utils.mathx import EPS, torch_mix
 from . import dense as dense_ops
 from .kernels import sweep_kernel
 
-__all__ = ["SolverOptions", "step", "substep", "pre_solve", "solve_follow",
-           "solve_pairs_dense", "strength_to_compliance", "take_batch_rows",
-           "batch_segment_sums", "wide_state_init"]
+__all__ = ["SolverOptions", "step", "multi_step", "multi_step_frames",
+           "substep", "pre_solve", "solve_follow", "solve_pairs_dense",
+           "strength_to_compliance", "take_batch_rows", "batch_segment_sums",
+           "wide_state_init", "host_syncs", "rebins"]
+
+host_syncs = 0      # device-to-host reads of the resident rebin flag
+rebins = [0, 0]     # resident rebins per population (white, yolk)
 
 _BIG = 3.4e38
 
@@ -83,6 +95,11 @@ class SolverOptions:
     n_collision_steps: int = 3      # reference default, :171
     pop_caps: Optional[Union[int, Tuple[int, int]]] = None  # per-pop particle
                                     # slice; each must be >= the live count
+    adaptive_rebin: bool = True     # multi_step: keep the binned layout
+                                    # across steps, rebinning only when the
+                                    # drift since bin time passes cell/4
+    rebin_tolerance: float = 1e-3   # fraction of live particles allowed past
+                                    # that drift before a rebin (0.0 = strict)
     wide_threshold_cells: float = 0.5  # violence gate: relative motion past
                                     # this fraction of a cell ...
     wide_tolerance: float = 0.02    # ... for more than this fraction of live
@@ -256,11 +273,14 @@ def _comp_extract(xy, prev, stat, slot, g: int, lanes: int, sub_dt):
     return p, pr, (p - pr) / sub_dt, in_grid
 
 
-def _count_over(disp, occ, thresh2):
-    """Count of occupied slots whose displacement ``disp`` (2, G, L) RELATIVE
-    to the population-mean displacement exceeds ``thresh2`` (uniform
-    translation keeps every pair window valid; only differential motion
-    invalidates it). ``occ`` > 0 marks occupied slots."""
+def _drift_over(disp, occ, thresh2):
+    """Drift metric of the binned layout (JAX ``_comp_drift_over`` and, on
+    the real rows of the planes, ``_plane_drift_over``): the count of
+    occupied slots whose displacement ``disp`` (2, G, L) RELATIVE to the
+    population-mean displacement exceeds ``thresh2`` (uniform translation
+    keeps every pair window valid; only differential motion invalidates
+    it), and the (2,) mean displacement. ``occ`` > 0 marks occupied
+    slots."""
     occ01 = torch.clamp(occ, max=1.0)
     n_occ = torch.clamp(torch.sum(occ01), min=1.0)
     dxp = disp[0] * occ01
@@ -268,7 +288,7 @@ def _count_over(disp, occ, thresh2):
     mx = torch.sum(dxp) / n_occ
     my = torch.sum(dyp) / n_occ
     rel2 = (dxp - mx * occ01) ** 2 + (dyp - my * occ01) ** 2
-    return torch.sum(rel2 > thresh2)
+    return torch.sum(rel2 > thresh2), torch.stack([mx, my])
 
 
 def wide_state_init(options: SolverOptions, device="cpu"):
@@ -311,7 +331,7 @@ def _gated_substeps(run, positions, occ, pred_disp, fb, fallback_substep,
     thresh2 = (options.wide_threshold_cells * cell_size) ** 2
     wide_tol = options.wide_tolerance
     n_live = torch.clamp(torch.sum(act), min=1)
-    pred_trip = _count_over(pred_disp(), occ, thresh2) > wide_tol * n_live
+    pred_trip = _drift_over(pred_disp(), occ, thresh2)[0] > wide_tol * n_live
     trip, budget, calm = wide
     trip = trip | pred_trip
     move_ref = positions().clone()
@@ -321,7 +341,7 @@ def _gated_substeps(run, positions, occ, pred_disp, fb, fallback_substep,
         budget = torch.where(wide_now, budget - 1, budget)
         fb_p, fb_prev, fb_v = fallback_substep(fb_p, fb_v)
         xy = positions()
-        n_over = _count_over(xy - move_ref, occ, thresh2)
+        n_over = _drift_over(xy - move_ref, occ, thresh2)[0]
         move_ref = xy.clone()
         trip = n_over > wide_tol * n_live
         calm = torch.where(trip, 0, calm + 1).to(torch.int32)
@@ -439,117 +459,232 @@ def _fused_component_path(options: SolverOptions) -> bool:
                      and options.n_collision_steps < 2))
 
 
+class _Population:
+    """One population's step constants on the dense engine and the layout
+    operations every dense route shares (one step, resident steps, resident
+    frames). ``follow_rows`` is the per-particle (N, 3) follow table
+    ``(tx, ty, sqrt(batch_radius))``. The binned layout ``grid`` is a list,
+    ``[xy, prev, stat, follow]`` on the fused path or ``[planes, aux]`` on
+    the plane path, advanced in place by :meth:`substeps`."""
+
+    def __init__(self, mass_t, batch_slot, act, cfg: DeviceConfig,
+                 follow_rows, sub_dt, relaxation, options: SolverOptions,
+                 g: int, k: int):
+        self.act, self.batch_slot = act, batch_slot
+        self.sub_dt, self.relaxation, self.options = sub_dt, relaxation, options
+        self.g, self.k, self.lanes = g, k, g * k
+        self.fused = _fused_component_path(options)
+        self.damp = 1.0 - torch.clamp(cfg.damping, 0.0, 1.0)     # :1768
+        mass = torch_mix(cfg.min_mass, cfg.max_mass, mass_t)
+        self.inv_mass = torch.where(act, 1.0 / torch.clamp(mass, min=1e-12),
+                                    0.0)
+        self.radius = torch.where(act, torch_mix(cfg.min_radius,
+                                                 cfg.max_radius, mass_t), 0.0)
+        self.follow_c = strength_to_compliance(cfg.follow_strength, sub_dt)
+        collision_c = strength_to_compliance(cfg.collision_strength, sub_dt)
+        cohesion_c = strength_to_compliance(cfg.cohesion_strength, sub_dt)
+        self.cell_size, params = _dense_params(cfg, act, collision_c,
+                                               cohesion_c, options)
+        self.params_packed = params.pack(mass_t.device)
+        self.tx, self.ty = follow_rows[:, 0], follow_rows[:, 1]
+        self.td = 2.0 * follow_rows[:, 2]
+        self._aux_packed = None
+
+    def fallback_substep(self, p, v):
+        """One pre-solve + follow substep in particle layout (no collision)."""
+        v = v * self.damp
+        prev = p
+        p = p + self.sub_dt * v
+        fdx, fdy = _follow_delta(p[:, 0], p[:, 1], self.inv_mass, self.act,
+                                 self.tx, self.ty, self.td, self.follow_c)
+        p = p + torch.stack([fdx, fdy], dim=1)
+        return p, prev, (p - prev) / self.sub_dt
+
+    def bin(self, p, v):
+        """Bin positions ``p`` with velocities ``v``: ``(grid, slot)``."""
+        if self.fused:
+            xy, prev, stat, follow, slot = _bin_components(
+                p, v, self.inv_mass, self.radius, self.batch_slot, self.act,
+                self.cell_size, self.tx, self.ty, self.td, self.sub_dt,
+                self.g, self.k, occ_cap=self.options.occ_pressure_cap)
+            return [xy, prev, stat, follow], slot
+        binning = _bin_dense(p, self.inv_mass, self.radius, self.batch_slot,
+                             self.act, self.cell_size, self.g, self.k,
+                             self.options,
+                             _plane_aux_cols(p, v, self.tx, self.ty, self.td))
+        return [binning.planes, binning.aux], binning.slot
+
+    def positions(self, grid):
+        """(2, G, L) positions of the real slots (a view on the plane path,
+        whose substeps write the planes in place)."""
+        if self.fused:
+            return grid[0]
+        rp = dense_ops.ROW_PAD
+        return grid[0][:2, rp:rp + self.g]
+
+    def occupancy(self, grid):
+        if self.fused:
+            return grid[2][3]
+        rp = dense_ops.ROW_PAD
+        return grid[0][dense_ops.FIELD_OCC, rp:rp + self.g]
+
+    def substeps(self, grid, fb, wide_state):
+        """One step's substeps on ``grid`` under the violence gate; the
+        fallback ``fb`` = (pos, prev, vel) advances in particle layout.
+        Returns ``(fb, wide_state)``."""
+        opts = self.options
+        if self.fused:
+            if self._aux_packed is None:
+                dev = self.damp.device
+                self._aux_packed = torch.stack([
+                    self.damp, self.follow_c,
+                    torch.as_tensor(self.relaxation, dtype=torch.float32,
+                                    device=dev),
+                    torch.zeros((), device=dev)])
+
+            def run(wide, first):
+                grid[0], grid[1] = _fused_run(
+                    grid[0], grid[1], grid[2], grid[3], self.params_packed,
+                    self._aux_packed, self.k, opts,
+                    cohesion=opts.cohesion_mode == "spacing", wide=wide,
+                    first_substep=first)
+
+            # velocity-predicted displacement: x - prev == vel * sub_dt
+            def pred_disp():
+                return grid[0] - grid[1]
+        else:
+            planes, aux = grid
+            rp = dense_ops.ROW_PAD
+
+            def run(wide, first):
+                _plane_substep(planes, aux, self.damp, self.follow_c,
+                               self.params_packed, self.sub_dt,
+                               self.relaxation, opts, self.g, self.k,
+                               wide=wide, first_substep=first)
+
+            def pred_disp():
+                return aux[AUX_VX:AUX_VY + 1, rp:rp + self.g] * self.sub_dt
+        return _gated_substeps(run, lambda: self.positions(grid),
+                               self.occupancy(grid), pred_disp, fb,
+                               self.fallback_substep, self.act,
+                               self.cell_size, opts, opts.n_substeps,
+                               wide_state)
+
+    def extract(self, grid, slot):
+        """(pos, prev, vel, in_grid) per particle; the velocity is derived,
+        so at least one substep must have run on ``grid``."""
+        if self.fused:
+            return _comp_extract(grid[0], grid[1], grid[2], slot, self.g,
+                                 self.lanes, self.sub_dt)
+        return _plane_extract(grid[0], grid[1], slot, self.g, self.lanes,
+                              self.sub_dt)
+
+    def merge(self, extracted, fb):
+        """Particle arrays of a step: binned particles from the layout
+        (``extracted``, as :meth:`extract` gives it), every other row from
+        the fallback ``fb``."""
+        p_pl, prev_pl, v_pl, in_grid = extracted
+        sel = (in_grid & self.act)[:, None]
+        return tuple(torch.where(sel, a, b)
+                     for a, b in zip((p_pl, prev_pl, v_pl), fb))
+
+    def keep_inactive(self, merged, old):
+        """``merged`` on the live rows, ``old`` on the inactive ones."""
+        live = self.act[:, None]
+        return tuple(torch.where(live, a, b) for a, b in zip(merged, old))
+
+
 def _population_step_dense(pos, vel, mass_t, batch_slot, act,
-                           cfg: DeviceConfig, batch_target, follow_radius,
-                           sub_dt, relaxation, options: SolverOptions,
-                           g: int, k: int, wide_state=None):
+                           cfg: DeviceConfig, follow_rows, sub_dt, relaxation,
+                           options: SolverOptions, g: int, k: int,
+                           wide_state=None):
     """Whole-step dense path of one population: one binning per step (or per
     substep), all substep math in the fused component layout or in plane
     layout; budget-dropped particles fall back to integration without
     collision (reference :1656-1658)."""
-    damp = 1.0 - torch.clamp(cfg.damping, 0.0, 1.0)         # :1768
-    mass = torch_mix(cfg.min_mass, cfg.max_mass, mass_t)
-    inv_mass = torch.where(act, 1.0 / torch.clamp(mass, min=1e-12), 0.0)
-    radius = torch.where(act, torch_mix(cfg.min_radius, cfg.max_radius,
-                                        mass_t), 0.0)
-
-    follow_c = strength_to_compliance(cfg.follow_strength, sub_dt)
-    collision_c = strength_to_compliance(cfg.collision_strength, sub_dt)
-    cohesion_c = strength_to_compliance(cfg.cohesion_strength, sub_dt)
-    cell_size, params = _dense_params(cfg, act, collision_c, cohesion_c,
-                                      options)
-    params_packed = params.pack(pos.device)
-
-    # follow target per particle, once per step (static within a step)
-    table = torch.cat([batch_target, follow_radius[:, None]], dim=1)
-    rows3 = take_batch_rows(table, batch_slot)
-    tx, ty, td = rows3[:, 0], rows3[:, 1], 2.0 * rows3[:, 2]
-
-    def fallback_substep(p, v):
-        """One pre-solve + follow substep in particle layout (no collision)."""
-        v = v * damp
-        prev = p
-        p = p + sub_dt * v
-        fdx, fdy = _follow_delta(p[:, 0], p[:, 1], inv_mass, act,
-                                 tx, ty, td, follow_c)
-        p = p + torch.stack([fdx, fdy], dim=1)
-        return p, prev, (p - prev) / sub_dt
-
-    def merge(p_pl, prev_pl, v_pl, in_grid, fb, pos, prev, vel):
-        fb_p, fb_prev, fb_v = fb
-        sel = (in_grid & act)[:, None]
-        keep = act[:, None]
-        return (torch.where(sel, p_pl, torch.where(keep, fb_p, pos)),
-                torch.where(sel, prev_pl, torch.where(keep, fb_prev, prev)),
-                torch.where(sel, v_pl, torch.where(keep, fb_v, vel)))
-
-    lanes = g * k
-    rp = dense_ops.ROW_PAD
-    n_sub = options.n_substeps
+    pop = _Population(mass_t, batch_slot, act, cfg, follow_rows, sub_dt,
+                      relaxation, options, g, k)
     if options.dense_rebin == "substep":
         # strict rebuild before every substep; no wide machinery, the
         # episode state passes through untouched
         new_pos, new_prev, new_vel = pos, pos, vel
-        for s in range(n_sub):
-            binning = _bin_dense(new_pos, inv_mass, radius, batch_slot, act,
-                                 cell_size, g, k, options,
-                                 _plane_aux_cols(new_pos, new_vel, tx, ty, td))
-            _plane_substep(binning.planes, binning.aux, damp, follow_c,
-                           params_packed, sub_dt, relaxation, options, g, k,
-                           first_substep=s == 0)
-            fb = fallback_substep(new_pos, new_vel)
-            new_pos, new_prev, new_vel = merge(
-                *_plane_extract(binning.planes, binning.aux, binning.slot, g,
-                                lanes, sub_dt), fb, new_pos, new_prev,
-                new_vel)
+        for s in range(options.n_substeps):
+            binning = _bin_dense(new_pos, pop.inv_mass, pop.radius, batch_slot,
+                                 act, pop.cell_size, g, k, options,
+                                 _plane_aux_cols(new_pos, new_vel, pop.tx,
+                                                 pop.ty, pop.td))
+            _plane_substep(binning.planes, binning.aux, pop.damp,
+                           pop.follow_c, pop.params_packed, sub_dt,
+                           relaxation, options, g, k, first_substep=s == 0)
+            fb = pop.fallback_substep(new_pos, new_vel)
+            new_pos, new_prev, new_vel = pop.keep_inactive(
+                pop.merge(_plane_extract(binning.planes, binning.aux,
+                                         binning.slot, g, pop.lanes, sub_dt),
+                          fb), (new_pos, new_prev, new_vel))
         ws = wide_state if wide_state is not None else \
             wide_state_init(options, pos.device)
-        return new_pos, new_prev, new_vel, inv_mass, radius, ws
+        return new_pos, new_prev, new_vel, pop.inv_mass, pop.radius, ws
 
-    if _fused_component_path(options):
-        xy, prev_c, stat_c, follow3, slot = _bin_components(
-            pos, vel, inv_mass, radius, batch_slot, act, cell_size,
-            tx, ty, td, sub_dt, g, k, occ_cap=options.occ_pressure_cap)
-        aux_packed = torch.stack([
-            damp, follow_c,
-            torch.as_tensor(relaxation, dtype=torch.float32,
-                            device=pos.device),
-            torch.zeros((), device=pos.device)])
-        comp = [xy, prev_c]
+    grid, slot = pop.bin(pos, vel)
+    fb, ws = pop.substeps(grid, (pos, pos, vel), wide_state)
+    return (*pop.keep_inactive(pop.merge(pop.extract(grid, slot), fb),
+                               (pos, pos, vel)),
+            pop.inv_mass, pop.radius, ws)
 
-        def run(wide, first):
-            comp[0], comp[1] = _fused_run(
-                comp[0], comp[1], stat_c, follow3, params_packed, aux_packed,
-                k, options, cohesion=options.cohesion_mode == "spacing",
-                wide=wide, first_substep=first)
 
-        # velocity-predicted displacement: x - prev == vel * sub_dt
-        fb, ws = _gated_substeps(run, lambda: comp[0], stat_c[3],
-                                 lambda: xy - prev_c, (pos, pos, vel),
-                                 fallback_substep, act, cell_size, options,
-                                 n_sub, wide_state)
-        extracted = _comp_extract(comp[0], comp[1], stat_c, slot, g, lanes,
-                                  sub_dt)
-    else:
-        binning = _bin_dense(pos, inv_mass, radius, batch_slot, act,
-                             cell_size, g, k, options,
-                             _plane_aux_cols(pos, vel, tx, ty, td))
-        planes, aux = binning.planes, binning.aux
+# ------------------------------------ dense engine (multi-step residency) --
 
-        def run(wide, first):
-            _plane_substep(planes, aux, damp, follow_c, params_packed, sub_dt,
-                           relaxation, options, g, k, wide=wide,
-                           first_substep=first)
+def _rebin_needed(n_over, n_live, options: SolverOptions, pop: int) -> bool:
+    """The resident rebin decision, read on the host (JAX takes it inside a
+    ``lax.cond``): one device-to-host read, counted in ``host_syncs``."""
+    global host_syncs
+    host_syncs += 1
+    need = bool(n_over > options.rebin_tolerance * n_live)
+    if need:
+        rebins[pop] += 1
+    return need
 
-        fb, ws = _gated_substeps(
-            run, lambda: planes[:2, rp:rp + g],
-            planes[dense_ops.FIELD_OCC, rp:rp + g],
-            lambda: aux[AUX_VX:AUX_VY + 1, rp:rp + g] * sub_dt,
-            (pos, pos, vel), fallback_substep, act, cell_size, options,
-            n_sub, wide_state)
-        extracted = _plane_extract(planes, aux, binning.slot, g, lanes,
-                                   sub_dt)
-    return (*merge(*extracted, fb, pos, pos, vel), inv_mass, radius, ws)
+
+def _population_multi_dense(pos, vel, mass_t, batch_slot, act,
+                            cfg: DeviceConfig, follow_rows, sub_dt,
+                            relaxation, options: SolverOptions, g: int,
+                            k: int, n_steps: int, pop_index: int,
+                            wide_state=None):
+    """``n_steps`` whole steps of one population with ADAPTIVE residency
+    (JAX ``_population_multi_dense`` and its fused variant): the binned
+    layout stays across steps, and a fresh binning from the merged particle
+    arrays happens only when more than ``rebin_tolerance`` of the live
+    particles drifted over ``cell_size/4`` relative to the mean drift since
+    bin time. The budget-dropped particles, integrated by the fallback,
+    count toward that drift. The drift references are copies: the plane
+    path writes its planes in place. The first step has no drift to check
+    (the layout was just binned), so its host read is skipped. Requires
+    ``n_steps >= 1``, ``budget_mode='off'`` and ``dense_rebin='step'``."""
+    pop = _Population(mass_t, batch_slot, act, cfg, follow_rows, sub_dt,
+                      relaxation, options, g, k)
+    thresh2 = (0.25 * pop.cell_size) ** 2
+    n_live = torch.clamp(torch.sum(act), min=1)
+    grid, slot = pop.bin(pos, vel)
+    ref_xy = pop.positions(grid).clone()
+    fb = (pos, pos, vel)
+    fb_ref = pos.clone()
+    ws = wide_state
+    for i in range(n_steps):
+        if i:
+            n_over, mean = _drift_over(pop.positions(grid) - ref_xy,
+                                       pop.occupancy(grid), thresh2)
+            dropped = act & (slot >= g * pop.lanes)
+            dfb = fb[0] - fb_ref - mean
+            n_over = n_over + torch.sum(
+                dropped & (torch.sum(dfb * dfb, dim=1) > thresh2))
+            if _rebin_needed(n_over, n_live, options, pop_index):
+                fb = pop.merge(pop.extract(grid, slot), fb)
+                grid, slot = pop.bin(fb[0], fb[2])
+                ref_xy = pop.positions(grid).clone()
+                fb_ref = fb[0].clone()
+        fb, ws = pop.substeps(grid, fb, ws)
+    return (*pop.merge(pop.extract(grid, slot), fb), pop.inv_mass,
+            pop.radius, ws)
 
 
 # ----------------------------------------------- dense engine (per pass) --
@@ -635,19 +770,35 @@ def _aabb(pos, radius, active):
     return lo, hi
 
 
+def _pop_caps(options: SolverOptions, capacity: int) -> Tuple[int, int]:
+    caps = options.pop_caps or (capacity, capacity)
+    return tuple(min(c, capacity) for c in caps)
+
+
+def _follow_rows(state: ParticleState, caps):
+    """Per-population (cap, 3) follow tables ``(tx, ty, sqrt(batch_radius))``
+    of every particle's batch (reference :1789-1792)."""
+    follow_radius = torch.sqrt(torch.clamp(state.batch_radius, min=0.0))
+    return tuple(
+        take_batch_rows(torch.cat([state.batch_target,
+                                   follow_radius[i][:, None]], dim=1),
+                        state.batch_slot[i, :caps[i]])
+        for i in range(2))
+
+
 def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
                relaxation, options: SolverOptions, with_stats: bool = True,
-               wide_state=None):
+               follow_rows=None, wide_state=None):
     """Returns ``(state, stats)``, or ``(state, stats, wide_state_out)`` when
-    ``wide_state`` (per-population episode tuples) is passed."""
+    ``wide_state`` (per-population episode tuples) is passed.
+    ``follow_rows`` (from :func:`_follow_rows`) lets a multi-step caller
+    build the follow tables once."""
     dev = state.device
     thread_wide = wide_state is not None
     ws_out = [None, None]
     step_delta = torch.as_tensor(step_delta, dtype=torch.float32, device=dev)
     sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)  # :1723
-    capacity = state.capacity
-    caps = options.pop_caps or (capacity, capacity)
-    caps = tuple(min(c, capacity) for c in caps)
+    caps = _pop_caps(options, state.capacity)
     active_full = state.active_mask()
     max_batches = state.max_batches
 
@@ -660,6 +811,8 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
                          / n_act[:, None])
 
     follow_radius = torch.sqrt(torch.clamp(state.batch_radius, min=0.0))
+    if options.dense_rebin in ("step", "substep") and follow_rows is None:
+        follow_rows = _follow_rows(state, caps)
 
     new_pos, new_prev, new_vel = (state.pos.clone(), state.prev.clone(),
                                   state.vel.clone())
@@ -675,8 +828,7 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
                 _population_step_dense(
                     state.pos[i, :cap], state.vel[i, :cap],
                     state.mass_t[i, :cap], state.batch_slot[i, :cap], act,
-                    cfg, state.batch_target, follow_radius[i], sub_dt,
-                    relaxation, options, g, k,
+                    cfg, follow_rows[i], sub_dt, relaxation, options, g, k,
                     wide_state=wide_state[i] if thread_wide else None)
         else:
             # the per-pass route has no wide machinery: the episode state
@@ -740,3 +892,163 @@ def step(state: ParticleState, cfg2: DeviceConfig, step_delta, relaxation,
     wide_state_out)``, so per-tick callers keep the episode budget."""
     return _step_impl(state, cfg2, step_delta, relaxation, options,
                       wide_state=wide_state)
+
+
+def _resident(options: SolverOptions) -> bool:
+    """Whether multi-step residency applies (JAX ``multi_step``'s test; the
+    port has only the dense engine)."""
+    return options.dense_rebin == "step" and options.budget_mode == "off"
+
+
+@torch.no_grad()
+def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
+               relaxation, options: SolverOptions, n_steps: int,
+               wide_state=None):
+    """``n_steps`` chained fixed steps (headless fast-forward).
+
+    Returns ``(state, stats)``, or ``(state, stats, wide_state_out)`` when
+    ``wide_state`` is passed. With the budget off, ``dense_rebin="step"``
+    and ``adaptive_rebin``, the first ``n_steps - 1`` steps run resident
+    (:func:`_population_multi_dense`); otherwise they are a loop of steps.
+    Either way one full step comes last, giving the stats and ``last_pos``
+    (the stats are the final step's only, as the reference reads centroids
+    lazily, :289-293). ``n_steps <= 1`` runs that one step. The follow
+    tables are built once for all steps."""
+    caps = _pop_caps(options, state.capacity)
+    follow_rows = _follow_rows(state, caps)
+    thread_wide = wide_state is not None
+    ws = (list(wide_state) if thread_wide
+          else [wide_state_init(options, state.device)] * 2)
+    n_res = max(int(n_steps) - 1, 0)
+    if _resident(options) and options.adaptive_rebin:
+        # no resident step: the final step reads only pos and vel, so
+        # skipping the binning gives JAX's zero-step result
+        if n_res:
+            step_delta = torch.as_tensor(step_delta, dtype=torch.float32,
+                                         device=state.device)
+            sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)
+            active_full = state.active_mask()
+            new = {f: getattr(state, f).clone()
+                   for f in ("pos", "prev", "vel", "inv_mass", "radius")}
+            for i in range(2):
+                cap = caps[i]
+                outs = _population_multi_dense(
+                    state.pos[i, :cap], state.vel[i, :cap],
+                    state.mass_t[i, :cap], state.batch_slot[i, :cap],
+                    active_full[i, :cap], population_config(cfg2, i),
+                    follow_rows[i], sub_dt, relaxation, options,
+                    options.dense_grid_dim[i], options.dense_slots[i], n_res,
+                    i, wide_state=ws[i])
+                for f, v in zip(("pos", "prev", "vel", "inv_mass", "radius"),
+                                outs[:5]):
+                    new[f][i, :cap] = v
+                ws[i] = outs[5]
+            state = state.replace(**new)
+    else:
+        for _ in range(n_res):
+            state, _, ws = _step_impl(state, cfg2, step_delta, relaxation,
+                                      options, with_stats=False,
+                                      follow_rows=follow_rows,
+                                      wide_state=tuple(ws))
+    state, stats, ws_fin = _step_impl(state, cfg2, step_delta, relaxation,
+                                      options, follow_rows=follow_rows,
+                                      wide_state=tuple(ws))
+    if thread_wide:
+        return state, stats, ws_fin
+    return state, stats
+
+
+@torch.no_grad()
+def multi_step_frames(state: ParticleState, cfg2: DeviceConfig, step_delta,
+                      relaxation, options: SolverOptions, n_steps: int,
+                      frame_fn, wide_state=None):
+    """Resident frame loop: per iteration one fixed step, then
+    ``frame_fn(state, stats)`` or ``frame_fn(state, stats, t)`` (``t`` the
+    frame index), whose scalar results are summed.
+
+    The interactive update -> draw loop with the layout kept across frames:
+    per frame and population, the step runs on the binned layout, the
+    particle arrays are extracted (``frame_fn`` needs them), and a rebin
+    from those arrays follows when the per-particle drift since bin time
+    demands it (the :func:`multi_step` rule). ``last_pos`` is each frame's
+    start position. ``stats`` carries the centroid and last centroid the
+    renderer reads; the other fields are zero (ones for ``max_radius``).
+
+    Returns ``(state, total)``, or ``(state, total, wide_state_out)`` when
+    ``wide_state`` is passed. Requires ``budget_mode='off'`` and
+    ``dense_rebin='step'``."""
+    if not _resident(options):
+        raise ValueError("multi_step_frames requires the resident dense "
+                         "configuration: budget_mode='off', "
+                         "dense_rebin='step'")
+    dev = state.device
+    caps = _pop_caps(options, state.capacity)
+    follow_rows = _follow_rows(state, caps)
+    step_delta = torch.as_tensor(step_delta, dtype=torch.float32, device=dev)
+    sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)
+    active_full = state.active_mask()
+    wants_index = len(inspect.signature(frame_fn).parameters) >= 3
+
+    pops, carries = [], []
+    for i in range(2):
+        cap = caps[i]
+        pop = _Population(state.mass_t[i, :cap], state.batch_slot[i, :cap],
+                          active_full[i, :cap], population_config(cfg2, i),
+                          follow_rows[i], sub_dt, relaxation, options,
+                          options.dense_grid_dim[i], options.dense_slots[i])
+        p0, v0 = state.pos[i, :cap].clone(), state.vel[i, :cap]
+        grid, slot = pop.bin(p0, v0)
+        pops.append(pop)
+        carries.append(dict(
+            grid=grid, slot=slot, ref=p0, fb=(p0, p0, v0), last=p0,
+            ws=(wide_state[i] if wide_state is not None
+                else wide_state_init(options, dev))))
+    n_a0 = torch.clamp(torch.sum(active_full, dim=1), min=1)
+    centroid = (torch.sum(torch.where(active_full[..., None], state.pos, 0.0),
+                          dim=1) / n_a0[:, None])
+
+    def with_carries():
+        new = {f: getattr(state, f).clone()
+               for f in ("pos", "prev", "vel", "last_pos")}
+        for i, c in enumerate(carries):
+            for f, v in zip(("pos", "prev", "vel", "last_pos"),
+                            (*c["fb"], c["last"])):
+                new[f][i, :caps[i]] = v
+        return state.replace(**new)
+
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    z2 = torch.zeros((2, 2), dtype=torch.float32, device=dev)
+    for t in range(int(n_steps)):
+        cents = []
+        for i, (pop, c) in enumerate(zip(pops, carries)):
+            act = pop.act
+            pre_p = c["fb"][0]
+            fb, c["ws"] = pop.substeps(c["grid"], c["fb"], c["ws"])
+            p, pr, v = pop.merge(pop.extract(c["grid"], c["slot"]), fb)
+            # relative-to-mean drift since bin time, per particle
+            n_live = torch.clamp(torch.sum(act), min=1)
+            n_over = _drift_over((p - c["ref"]).T, act.to(torch.float32),
+                                 (0.25 * pop.cell_size) ** 2)[0]
+            if _rebin_needed(n_over, n_live, options, i):
+                c["grid"], c["slot"] = pop.bin(p, v)
+                c["ref"] = p.clone()
+            c["fb"], c["last"] = (p, pr, v), pre_p
+            cents.append(torch.sum(torch.where(act[:, None], p, 0.0), dim=0)
+                         / n_live)
+        last_centroid, centroid = centroid, torch.stack(cents)
+        stats = StepStats(
+            aabb_min=z2, aabb_max=z2, centroid=centroid,
+            last_centroid=last_centroid,
+            max_radius=torch.ones((2,), dtype=torch.float32, device=dev),
+            max_velocity=torch.zeros((2,), dtype=torch.float32, device=dev),
+            batch_pos_sum=torch.zeros((2, state.max_batches, 2),
+                                      dtype=torch.float32, device=dev),
+            batch_count=torch.zeros((2, state.max_batches),
+                                    dtype=torch.float32, device=dev))
+        frame_state = with_carries()
+        total = total + (frame_fn(frame_state, stats, t) if wants_index
+                         else frame_fn(frame_state, stats))
+    final = with_carries()
+    if wide_state is not None:
+        return final, total, tuple(c["ws"] for c in carries)
+    return final, total

@@ -1,16 +1,107 @@
-"""State audits: the collision-budget drop rate and the NaN guard.
+"""Profiling and state audits.
 
-Host-side numpy over a handler's current state, as in
+``StepTimer`` (rolling phase timings) and ``trace`` (a ``torch.profiler``
+trace), then the collision-budget drop rate and the NaN guard: host-side
+numpy over a handler's current state, as in
 ``egg_fluid_simulation_tpu/utils/profiling.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import statistics
+import time
+from typing import Dict, List, Union
+
 import numpy as np
+import torch
 
 from . import log
 
-__all__ = ["validate_state", "collision_drop_stats"]
+__all__ = ["StepTimer", "trace", "validate_state", "collision_drop_stats"]
+
+
+class StepTimer:
+    """Rolling window of phase timings (the demo overlay's instrument).
+
+    On a CUDA device a phase is timed with CUDA events recorded on the
+    current stream, so it measures the device work the phase enqueued; the
+    events are read (and the device waited for) only when a summary is
+    asked for. On the CPU a phase is timed with the host clock. Usage::
+
+        timer = StepTimer(window=100)          # device="cuda"
+        with timer.phase("step"):
+            handler.update(1 / 60)
+        timer.summary()  # {"step": {"p50_ms": ..., "mean_ms": ..., ...}}
+    """
+
+    def __init__(self, window: int = 100, device="cuda"):
+        self.window = window
+        self.device = torch.device(device)
+        self._samples: Dict[str, List[Union[float, tuple]]] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                yield
+            finally:
+                end.record()
+                self._add(name, (start, end))
+        else:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._add(name, (time.perf_counter() - t0) * 1000)
+
+    def _add(self, name: str, sample) -> None:
+        bucket = self._samples.setdefault(name, [])
+        bucket.append(sample)
+        if len(bucket) > self.window:
+            bucket.pop(0)
+
+    def _ms(self, name: str) -> List[float]:
+        out = []
+        for x in self._samples.get(name, []):
+            if isinstance(x, tuple):
+                x[1].synchronize()
+                x = x[0].elapsed_time(x[1])
+            out.append(float(x))
+        self._samples[name] = list(out)
+        return out
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        out = {}
+        for name in self._samples:
+            xs = self._ms(name)
+            out[name] = {"p50_ms": statistics.median(xs),
+                         "mean_ms": statistics.fmean(xs),
+                         "max_ms": max(xs), "n": len(xs)}
+        return out
+
+    def frame_usage_pct(self, name: str, frame_s: float = 1 / 60) -> float:
+        """Mean phase time as % of a frame (the reference overlay's metric)."""
+        xs = self._ms(name) or [0.0]
+        return statistics.fmean(xs) / (frame_s * 1000) * 100
+
+
+@contextlib.contextmanager
+def trace(dir_path: str):
+    """Wrap a block in a ``torch.profiler`` trace (CPU activity, and CUDA
+    activity where a card is present), written to ``dir_path/trace.json``
+    in the Chrome trace format."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(dir_path, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(dir_path, "trace.json"))
 
 
 def collision_drop_stats(handler) -> dict:
