@@ -4,8 +4,12 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``egg_fluid_simulation_tpu_torch/
-csrc/``, checks each kernel against its plain PyTorch version at the shapes
-of the paths that run it, then drives the paths through the public API:
+csrc/`` (the build line carries each kernel's registers and spills), checks
+each kernel against its plain PyTorch version at the shapes of the paths
+that run it (``check.*``: both populations of the 1M scene, white and yolk,
+each timed for the sweeps B and D) and, for the tiled sweeps B and D, at
+small ragged grids with pairs across the torus seam
+(``check.sweep_shapes``), then drives the paths through the public API:
 
 - ``main_path``: the 1M-white / 100k-yolk scene of ``bench.py``
   (``build_handler``) with the budget off (the fused path: kernels A, B),
@@ -143,6 +147,73 @@ def window_pairs(occ, k: int, w: int) -> float:
     near = sum(torch.roll(n, (dy, dx), (0, 1))
                for dy in range(-w, w + 1) for dx in range(-w, w + 1))
     return float((n * near).sum() - n.sum())
+
+
+# (G, K, fresh modulus; 0 = the grid's own G): grids a tile of kernels B and
+# D does not divide, one smaller than a tile in both directions, and one
+# whose fractional fresh modulus takes the general fresh-cell adjacency test
+SWEEP_SHAPES = ((20, 3, 0.0), (33, 4, 0.0), (24, 1, 24.5), (40, 8, 0.0),
+                (6, 2, 0.0))
+
+
+def sweep_shape_case(g: int, k: int, seed: int, fresh_mod: float = 0.0,
+                     cell: float = 8.0) -> dict:
+    """Seeded numpy inputs of kernels B and D on a (g, g*k) grid that a tile
+    of the kernels does not divide: ``xy`` (2, g, L), ``stat`` (4, g, L),
+    ``prev``, ``follow`` (3, g, L), ``aux`` (4,) for B; ``planes``
+    (8, g + 16, L) with its halo rows for D; ``params`` (8,) for both.
+
+    About 60% of the slots are occupied and every slot of row 0, row g-1,
+    lane 0 and lane L-1 is. Particles sit up to 0.4 cell outside their cell
+    (a stale layout); about half of those in row 0 and in cell column 0 lie
+    one grid period further on, next to row g-1 and column g-1, so pairs
+    collide across the torus seam in both directions. A few particles
+    coincide with their lane neighbour (the tie direction). Collision reaches
+    about 1.4 cells, cohesion 1.7; the ordered cutoff ``max_pairs`` binds for
+    half the slots; FIELD_OCC holds cell counts up to 2k (the boost clip)."""
+    rng = np.random.default_rng(seed)
+    lanes = g * k
+    occ = rng.random((g, lanes)) < 0.6
+    occ[0] = occ[-1] = True
+    occ[:, 0] = occ[:, -1] = True
+    row = np.broadcast_to(np.arange(g, dtype=np.float64)[:, None], occ.shape)
+    col = np.broadcast_to((np.arange(lanes) // k).astype(np.float64)[None, :],
+                          occ.shape)
+    row = np.where((row == 0) & (rng.random(occ.shape) < 0.5), float(g), row)
+    col = np.where((col == 0) & (rng.random(occ.shape) < 0.5), float(g), col)
+    x = (col + rng.uniform(-0.4, 1.4, occ.shape)) * cell
+    y = (row + rng.uniform(-0.4, 1.4, occ.shape)) * cell
+    twin = (rng.random(occ.shape) < 0.05) & occ & np.roll(occ, 1, axis=1)
+    twin[:, 0] = False
+    x = np.where(twin, np.roll(x, 1, axis=1), x)
+    y = np.where(twin, np.roll(y, 1, axis=1), y)
+    idx = rng.permutation(g * lanes).reshape(g, lanes).astype(np.float64)
+    cum = idx * 3.0 + rng.uniform(0.0, 2.0, occ.shape)
+    fields = dict(
+        x=x, y=y, w=rng.uniform(0.5, 1.5, occ.shape),
+        r=rng.uniform(2.0, 3.5, occ.shape),
+        batch=rng.integers(0, 3, occ.shape).astype(np.float64),
+        cum=cum, idx=idx,
+        count=rng.integers(1, 2 * k + 1, occ.shape).astype(np.float64),
+        boost=rng.uniform(1.0, 2.0, occ.shape),
+        px=x - rng.uniform(-1.0, 1.0, occ.shape),
+        py=y - rng.uniform(-1.0, 1.0, occ.shape),
+        tx=np.full(occ.shape, 0.5 * g * cell), ty=np.full(occ.shape, 0.4 * g * cell),
+        td=np.full(occ.shape, 0.25 * g * cell))
+    f = {n: np.where(occ, v, 0.0).astype(np.float32) for n, v in fields.items()}
+    core = np.stack([f["x"], f["y"], f["w"], f["r"], f["batch"], f["cum"],
+                     f["idx"], f["count"]])
+    halo = (np.arange(g + 16) - 8) % g          # ROW_PAD = 8 rows each side
+    max_pairs = float(np.median(f["cum"][occ]))
+    return dict(
+        xy=np.stack([f["x"], f["y"]]),
+        stat=np.stack([f["w"], f["r"], f["batch"], f["boost"]]),
+        prev=np.stack([f["px"], f["py"]]),
+        follow=np.stack([f["tx"], f["ty"], f["td"]]),
+        planes=np.ascontiguousarray(core[:, halo]),
+        params=np.array([10.0, 50.0, 2.0, 2.5, max_pairs, cell, fresh_mod,
+                         1.5], np.float32),
+        aux=np.array([0.98, 0.02, 0.5, 0.0], np.float32))
 
 
 def build_handler(n_target: int, device, wide_default: bool = False,
@@ -344,56 +415,121 @@ def check_place(h, results) -> None:
 
 
 def check_substep(h, results) -> None:
+    """Kernel B against its plain version on both populations of the 1M
+    scene (white G=768, ~42% of the slots occupied; yolk G=512, ~10%), each
+    timed."""
     import torch
     from egg_fluid_simulation_tpu_torch.ops import solver as S
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
-    p = population_inputs(h, 0, SEED)
-    xy, prev, stat, follow, _ = S._bin_components(
-        p["pos"], p["vel"], p["inv_mass"], p["radius"], p["batch"], p["act"],
-        p["cell_size"], p["tx"], p["ty"], p["td"], p["sub_dt"], p["g"], p["k"])
-    # start the plain passes from a state one integrating pass in, so the
-    # pair terms see moved particles
-    xy1, prev1 = SK.substep_pass_plain(xy, stat, p["params"], p["aux"], p["k"],
-                                       cohesion=True, prev=prev, follow=follow,
-                                       integrate=True)
-    for window, integrate in ((1, True), (1, False), (3, True), (3, False)):
-        kw = dict(cohesion=True, window=window, fresh_mask=window == 3,
-                  integrate=integrate)
-        if integrate:
-            args = (xy, stat, p["params"], p["aux"], p["k"])
-            kw.update(prev=prev, follow=follow)
-        else:
-            args = (xy1, stat, p["params"], p["aux"], p["k"])
-        got = SK.substep_pass(*args, **kw)
-        want = SK.substep_pass_plain(*args, **kw)
-        if integrate:
-            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        else:
-            err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: SK.substep_pass(*args, **kw), 10)
-        plain_ms = cuda_ms(lambda: SK.substep_pass_plain(*args, **kw), 2)
-        # the device-flag form of the gate selects the same window
-        flag = torch.tensor(window == 3, device=xy.device)
-        kw_flag = {k_: v for k_, v in kw.items() if k_ not in ("window", "fresh_mask")}
-        got_flag = SK.substep_pass(*args, wide=flag, **kw_flag)
-        same_flag = all(torch.equal(a, b) for a, b in
+    for pop, name in ((0, "white"), (1, "yolk")):
+        p = population_inputs(h, pop, SEED + pop)
+        xy, prev, stat, follow, _ = S._bin_components(
+            p["pos"], p["vel"], p["inv_mass"], p["radius"], p["batch"],
+            p["act"], p["cell_size"], p["tx"], p["ty"], p["td"], p["sub_dt"],
+            p["g"], p["k"])
+        # start the plain passes from a state one integrating pass in, so the
+        # pair terms see moved particles
+        xy1, prev1 = SK.substep_pass_plain(xy, stat, p["params"], p["aux"],
+                                           p["k"], cohesion=True, prev=prev,
+                                           follow=follow, integrate=True)
+        occupied = float((stat[3] > 0).sum())
+        for window, integrate in ((1, True), (1, False), (3, True), (3, False)):
+            kw = dict(cohesion=True, window=window, fresh_mask=window == 3,
+                      integrate=integrate)
+            if integrate:
+                args = (xy, stat, p["params"], p["aux"], p["k"])
+                kw.update(prev=prev, follow=follow)
+            else:
+                args = (xy1, stat, p["params"], p["aux"], p["k"])
+            got = SK.substep_pass(*args, **kw)
+            want = SK.substep_pass_plain(*args, **kw)
+            if integrate:
+                err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            else:
+                err = float((got - want).abs().max())
+            ms = cuda_ms(lambda: SK.substep_pass(*args, **kw), 10)
+            plain_ms = cuda_ms(lambda: SK.substep_pass_plain(*args, **kw), 2)
+            # the device-flag form of the gate selects the same window
+            flag = torch.tensor(window == 3, device=xy.device)
+            kw_flag = {k_: v for k_, v in kw.items()
+                       if k_ not in ("window", "fresh_mask")}
+            got_flag = SK.substep_pass(*args, wide=flag, **kw_flag)
+            same_flag = all(torch.equal(a, b) for a, b in
+                            zip(got if integrate else [got],
+                                got_flag if integrate else [got_flag]))
+            flag_ms = cuda_ms(lambda: SK.substep_pass(*args, wide=flag,
+                                                      **kw_flag), 10)
+            log("check.substep_pass", pop=name, G=p["g"], K=p["k"],
+                occupied=int(occupied), window=window,
+                fresh_mask=window == 3, integrate=integrate, max_abs_err=err,
+                tol=SUBSTEP_TOL, device_flag_same=same_flag, ms=round(ms, 4),
+                device_flag_ms=round(flag_ms, 4), plain_ms=round(plain_ms, 4))
+            if not (err <= SUBSTEP_TOL and same_flag):
+                raise AssertionError("substep_pass disagrees with its plain "
+                                     "version")
+            r = results.setdefault("substep_pass", dict(max_abs_err=0.0))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if pop == 0 and (window, integrate) == (1, True):
+                # the function needs the prologue once per occupied slot
+                ops = (window_pairs(stat[3], p["k"], 1) * PAIR_OPS
+                       + occupied * PROLOGUE_OPS)
+                b_ms, b_by = bound(ops, nbytes(xy, stat, prev, follow, *got))
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+
+
+def check_sweep_shapes(dev, results) -> None:
+    """Kernels B and D against their plain versions on small grids that a
+    tile of the kernels does not divide, with occupied edges and pairs that
+    collide across the torus seam (``sweep_shape_case``): windows 1 and 3
+    (fresh mask), B with and without ``integrate``, D with and without the
+    ordered cutoff, each through the static window and the device flag."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
+    for g, k, fresh_mod in SWEEP_SHAPES:
+        c = {n: torch.from_numpy(v).to(dev)
+             for n, v in sweep_shape_case(g, k, SEED + g, fresh_mod).items()}
+        worst = dict(B=0.0, D=0.0)
+        moved = []
+        for window in (1, 3):
+            static = dict(window=window, fresh_mask=window == 3)
+            flag = dict(wide=torch.tensor(window == 3, device=dev))
+            for integrate in (True, False):
+                kw = dict(cohesion=True, integrate=integrate)
+                if integrate:
+                    kw.update(prev=c["prev"], follow=c["follow"])
+                args = (c["xy"], c["stat"], c["params"], c["aux"], k)
+                want = SK.substep_pass_plain(*args, **kw, **static)
+                moved.append(float(((want[0] if integrate else want)
+                                    - c["xy"]).abs().max()))
+                for gate in (static, flag):
+                    got = SK.substep_pass(*args, **kw, **gate)
+                    worst["B"] = max([worst["B"]] + [
+                        float((a - b).abs().max()) for a, b in
                         zip(got if integrate else [got],
-                            got_flag if integrate else [got_flag]))
-        log("check.substep_pass", G=p["g"], K=p["k"], window=window,
-            fresh_mask=window == 3, integrate=integrate, max_abs_err=err,
-            tol=SUBSTEP_TOL, device_flag_same=same_flag, ms=round(ms, 4),
-            plain_ms=round(plain_ms, 4))
-        if not (err <= SUBSTEP_TOL and same_flag):
-            raise AssertionError("substep_pass disagrees with its plain version")
-        r = results.setdefault("substep_pass", dict(max_abs_err=0.0))
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if (window, integrate) == (1, True):
-            occupied = float((stat[3] > 0).sum())
-            ops = (window_pairs(stat[3], p["k"], 1) * (PAIR_OPS + PROLOGUE_OPS)
-                   + occupied * PROLOGUE_OPS)
-            b_ms, b_by = bound(ops, nbytes(xy, stat, prev, follow, *got))
-            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None)
+                            want if integrate else [want])])
+            for ordered in (True, False):
+                kw = dict(cohesion=True, ordered_budget=ordered)
+                want = SK.sweep_planes_plain(c["planes"], c["params"], k,
+                                             **kw, **static)
+                moved.append(float(want.abs().max()))
+                for gate in (static, flag):
+                    got = SK.sweep_planes(c["planes"], c["params"], k, **kw,
+                                          **gate)
+                    worst["D"] = max(worst["D"],
+                                     float((got - want).abs().max()))
+        torch.cuda.synchronize()
+        log("check.sweep_shapes", G=g, K=k, lanes=g * k, fresh_mod=fresh_mod,
+            occupied=int((c["stat"][3] > 0).sum()),
+            substep_pass_max_abs_err=worst["B"],
+            sweep_planes_max_abs_err=worst["D"], tol=SWEEP_TOL,
+            least_correction_px=round(min(moved), 4))
+        if not (worst["B"] <= SUBSTEP_TOL and worst["D"] <= SWEEP_TOL
+                and min(moved) > 0.0):
+            raise AssertionError(f"sweep kernels disagree with their plain "
+                                 f"versions at G={g}, K={k}")
+        for n, e in (("substep_pass", worst["B"]), ("sweep_planes", worst["D"])):
+            results[n]["max_abs_err"] = max(results[n]["max_abs_err"], e)
 
 
 def check_splat(h, results) -> None:
@@ -618,18 +754,21 @@ def check_sweep(ordered_planes, results) -> None:
                 err = float((got - want).abs().max())
                 same_flag = bool(torch.equal(
                     got, SK.sweep_planes(planes, params, k, wide=flag, **kw)))
-                timed = pop == 0
                 ms = cuda_ms(lambda: SK.sweep_planes(planes, params, k,
-                                                     **static), 10) \
-                    if timed else float("nan")
+                                                     **static), 10)
+                flag_ms = cuda_ms(lambda: SK.sweep_planes(
+                    planes, params, k, wide=flag, **kw), 10)
                 plain_ms = cuda_ms(lambda: SK.sweep_planes_plain(
-                    planes, params, k, **static), 2) if timed else float("nan")
-                log("check.sweep_planes", pop=name, G=p["g"], K=k, window=window,
+                    planes, params, k, **static), 2)
+                log("check.sweep_planes", pop=name, G=p["g"], K=k,
+                    occupied=int((planes[D.FIELD_OCC, rp:rp + p["g"]]
+                                  > 0).sum()), window=window,
                     fresh_mask=window == 3, ordered_budget=ordered,
                     max_pairs=float(params[4]) if ordered else "off",
                     corr_max=round(float(want.abs().max()), 4),
                     max_abs_err=err, tol=SWEEP_TOL,
                     device_flag_same=same_flag, ms=round(ms, 4),
+                    device_flag_ms=round(flag_ms, 4),
                     plain_ms=round(plain_ms, 4))
                 if not (err <= SWEEP_TOL and same_flag
                         and float(want.abs().max()) > 0.0):
@@ -637,7 +776,7 @@ def check_sweep(ordered_planes, results) -> None:
                                          "plain version")
                 r = results.setdefault("sweep_planes", dict(max_abs_err=0.0))
                 r["max_abs_err"] = max(r["max_abs_err"], err)
-                if timed and (window, ordered) == (1, True):
+                if pop == 0 and (window, ordered) == (1, True):
                     b_ms, b_by = bound(pairs * PAIR_OPS, nbytes(planes, got))
                     r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=None)
@@ -731,7 +870,10 @@ def main() -> int:
     t0 = time.perf_counter()
     library.load()
     log("build", seconds=round(time.perf_counter() - t0, 2),
-        nvcc_seconds=library.last_build_seconds, flags=" ".join(library.NVCC_FLAGS))
+        nvcc_seconds=library.last_build_seconds,
+        flags=" ".join(library.NVCC_FLAGS),
+        ptxas={n: f"{r['registers']} regs, {r['spill_bytes']} B spilled"
+               for n, r in sorted(library.kernel_resources().items())})
 
     t0 = time.perf_counter()
     h = build_handler(N_WHITE, dev)
@@ -754,6 +896,7 @@ def main() -> int:
     check_splat(h, results)
     check_splat_tiles(h, results)
     check_sweep(check_count(hp, results), results)
+    check_sweep_shapes(dev, results)
 
     # ---- main path: update(1/60) x N + draw, counters from zero ----
     reset_counters()

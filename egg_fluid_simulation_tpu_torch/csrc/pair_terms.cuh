@@ -68,25 +68,29 @@ __device__ __forceinline__ PairConsts pair_consts(const float* params) {
 }
 
 // The trimmed XPBD projection of _pair_terms: the shared-divide factor
-// num / den of one valid pair (0 where neither constraint fires). `deg`
-// (coincident pair) is dist2 <= kEps2; the caller picks the direction.
+// num / den of one valid pair (0 where neither constraint fires, decided
+// before the rsqrtf and the divide). `deg` (coincident pair) is
+// dist2 <= kEps2; the caller picks the direction.
 __device__ __forceinline__ float pair_ratio(float dist2, float sw, float ow,
                                             float sr, float orr, float sb,
                                             float ob, bool cohesion,
                                             const PairConsts& c) {
-  const bool deg = dist2 <= kEps2;
-  const float inv_d1 = deg ? 1.0f : rsqrtf(fmaxf(dist2, kEps2));
-  const float nd = deg ? 0.0f : 1.0f;
   const float w_sum = sw + ow;
   const bool ok = w_sum >= kEps;
   const float sum_r = sr + orr;
   const float min_d = c.overlap_f * sum_r;
   const bool hit_l = ok && (dist2 <= min_d * min_d);
+  const float coh_d = c.cohesion_f * sum_r;
+  const bool hit_c =
+      cohesion && ok && (sb == ob) && (dist2 <= coh_d * coh_d);
+  // neither constraint fires: both numerators are zero, and 0 / den is 0
+  if (!hit_l && !hit_c) return 0.0f;
+  const bool deg = dist2 <= kEps2;
+  const float inv_d1 = deg ? 1.0f : rsqrtf(fmaxf(dist2, kEps2));
+  const float nd = deg ? 0.0f : 1.0f;
   const float f_l = hit_l ? min_d * inv_d1 - nd : 0.0f;
   const float dl = fmaxf(w_sum + c.collision_c, 1.0f);
   if (!cohesion) return f_l / dl;
-  const float coh_d = c.cohesion_f * sum_r;
-  const bool hit_c = ok && (sb == ob) && (dist2 <= coh_d * coh_d);
   const float f_c = hit_c ? coh_d * inv_d1 - nd : 0.0f;
   const float dc = fmaxf(w_sum + c.cohesion_c, 1.0f);
   return (f_c * dl + f_l * dc) / (dc * dl);

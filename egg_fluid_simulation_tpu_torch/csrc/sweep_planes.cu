@@ -11,39 +11,58 @@
 // SweepParams.pack(), read from device memory. Output (2, G, L): the x and y
 // correction sums of every real slot (0 for empty slots).
 //
-// D: one thread per (row, lane) self slot. It sums, over partner rows
-// r + dy (dy in [-w, w], read through the halo rows: w <= 3 <= ROW_PAD) and
-// partner lanes (l - d) mod L, the collision + same-batch cohesion
-// corrections of the trimmed XPBD projection, in the plain version's order
-// (dy outer, d inner: dense.sweep_planes_jnp), so the sums round alike. The
-// TPU kernel skipped row blocks with no occupied slot; here an empty self
-// slot writes 0 and returns. Options: the ordered cutoff cum_min < max_pairs,
-// the fresh-cell mask (window 3), the occupancy boost clip(occ / K, 1, cap).
-// `wide_flag` (optional device int) selects window 3 + fresh mask when
-// nonzero, window 1 when zero: the violence gate never syncs the host.
+// D: every real slot sums, over partner rows r + dy (dy in [-w, w], read
+// through the halo rows: w <= 3 <= ROW_PAD) and partner lanes (l - d) mod L,
+// the collision + same-batch cohesion corrections of the trimmed XPBD
+// projection, in the plain version's order (dy outer, d inner:
+// dense.sweep_planes_jnp), so the sums round alike. Options: the ordered
+// cutoff cum_min < max_pairs, the fresh-cell mask (window 3), the occupancy
+// boost clip(occ / K, 1, cap). `wide_flag` (optional device int) selects
+// window 3 + fresh mask when nonzero, window 1 when zero: the violence gate
+// never syncs the host.
 //
-// E: the same sums, each unordered pair evaluated once. A thread takes the
-// half-space of offsets dy > 0, or dy == 0 and d > 0 (d outer, dy inner, as
-// _pair_terms_sym), keeps its own side in registers and adds the partner's
-// opposite push to the partner slot (row + dy, lane - d), wrapped, with a
-// global atomicAdd; its own sum goes in with one atomicAdd at the end. The
-// output must start zeroed. The order of the atomic adds changes from run to
-// run, so E agrees with its plain version to rounding, not bit for bit.
+// D's design (sweep_tile.cuh): a block owns a tile of 8 rows x 128 lanes
+// (whole cells; 256 threads, 512 where the launch may run window 3). It
+// lists the tile's occupied slots from FIELD_OCC and writes the zeros of the
+// empty ones (the TPU kernel skipped row blocks with no occupied slot; here
+// a tile with none ends after reading 4 bytes a slot). Otherwise it stages
+// the tile with its halo (w plane rows, w cells, the lane wrap resolved once
+// per staged slot) into shared memory, the 8 plane fields a slot and, with
+// the fresh mask, the slot's fresh cell formed once: at K = 4, 10 x 136
+// slots = 45 KB with the list at window 1 (1.33x the tile), 14 x 152 slots =
+// 85 KB at window 3 (opt-in above 48 KB). With `wide_flag` the launch is
+// sized for window 3 and the block lays out the halo in force. Threads walk
+// the list of occupied slots and read partners from shared memory at fixed
+// offsets; the window is a template argument, so the row loop unrolls.
+// Bound on the H100: instructions, not bytes. Nothing in the pair loop
+// touches global memory; what is left is the walk over the 3 x 12 partner
+// slots of each occupied slot and the pair arithmetic, one rsqrtf and one
+// IEEE divide a firing pair under --fmad=false (a pair whose constraints do
+// not fire adds exactly zero and leaves before both; the ordered cutoff
+// rules pairs out before any arithmetic). ptxas -v: 62 registers, no spills,
+// one barrier; capping the registers for more blocks an SM measured slower.
 //
-// Bound on the H100: pair arithmetic and L1/L2 traffic of the partner reads.
-// A window-1 slot evaluates up to 3 * (4K - 1) partner terms (E about half);
-// partners of neighbouring threads are neighbouring lanes, so a warp's loads
-// coalesce and stay in L1. Terms ruled out by the lane mask, the partner's
+// E: the same sums, each unordered pair evaluated once. One thread per
+// (row, lane) self slot, partners read from global memory through L1. A
+// thread takes the half-space of offsets dy > 0, or dy == 0 and d > 0 (d
+// outer, dy inner, as _pair_terms_sym), keeps its own side in registers and
+// adds the partner's opposite push to the partner slot (row + dy, lane - d),
+// wrapped, with a global atomicAdd; its own sum goes in with one atomicAdd
+// at the end. The output must start zeroed. The order of the atomic adds
+// changes from run to run, so E agrees with its plain version to rounding,
+// not bit for bit. E is bound by the pair arithmetic and the L1/L2 traffic
+// of its partner reads: a window-1 slot evaluates up to 3 * (4K - 1) / 2
+// partner terms, and terms ruled out by the lane mask, the partner's
 // occupancy or the ordered cutoff are skipped before the other fields load
 // (a skipped term adds exactly zero).
 
-#include "pair_terms.cuh"
+#include "sweep_tile.cuh"
 
 namespace {
 
 using namespace egg;
 
-// The launch's scalars and the self slot's fields, shared by D and E.
+// Kernel E: the launch's scalars and the self slot's fields.
 struct Sweep {
   long long F;  // elements per field: (G + 2*ROW_PAD) * L
   long long s;  // the self slot's offset within a field
@@ -119,53 +138,153 @@ __device__ __forceinline__ bool partner_ok(const float* P, long long o,
           torus_adjacent(t.sfy, fresh_cell(*oy, t.cell_size, t.fm), t.fm));
 }
 
-__global__ void sweep_planes_kernel(const float* __restrict__ P,
-                                    const float* __restrict__ params,
-                                    const int* __restrict__ wide_flag,
-                                    float* __restrict__ out, int g, int lanes,
-                                    int k, int window, int fresh_mask,
-                                    int cohesion, int ordered) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                        threadIdx.x;
-  Sweep t;
-  if (!setup(P, idx, g, lanes, window, fresh_mask, wide_flag, &t)) return;
+// Kernel D, one tile at window WIN (a template argument, so the row loop
+// unrolls).
+template <int WIN>
+__device__ __forceinline__ void sweep_planes_tile(
+    const float* __restrict__ P, const float* __restrict__ params,
+    float* __restrict__ out, int g, int lanes, int k, int fresh_mask,
+    int cohesion, int ordered, unsigned char* smem, int* n_listed) {
+  const Tile t = make_tile(WIN, fresh_mask, k);
+  const int plane_rows = g + 2 * kRowPad;
+  const long long F = static_cast<long long>(plane_rows) * lanes;
   const long long gl = static_cast<long long>(g) * lanes;
-  if (!(t.socc > 0.0f)) {  // empty self slot: every pair is invalid
+
+  auto write_empty = [&](long long idx) {  // no valid pair: the sums are 0
     out[idx] = 0.0f;
     out[gl + idx] = 0.0f;
-    return;
-  }
-  load_self(P, params, lanes, k, &t);
-  const long long F = t.F;
-  float tx = 0.0f, ty = 0.0f;
-  const int d_hi = (t.w + 1) * k;
-  const int s_lane = t.l % k;
-  for (int dy = -t.w; dy <= t.w; ++dy) {
-    const long long orow = static_cast<long long>(t.r + kRowPad + dy) * lanes;
-    for (int d = -(d_hi - 1); d < d_hi; ++d) {
-      if (dy == 0 && d == 0) continue;
-      if (!lane_ok(s_lane, d, k, t.w)) continue;
-      const long long o = orow + wrap(t.l - d, lanes);
-      float oocc, ox, oy;
-      if (!partner_ok(P, o, t, ordered, &oocc, &ox, &oy)) continue;
-      const float ddx = ox - t.sx;
-      const float ddy = oy - t.sy;
-      const float dist2 = ddx * ddx + ddy * ddy;
-      const bool deg = dist2 <= kEps2;
-      const float ratio = pair_ratio(
-          dist2, t.sw, P[kW * F + o], t.sr, P[kR * F + o], t.sb,
-          cohesion ? P[kBatch * F + o] : 0.0f, cohesion != 0, t.pc);
-      const float boost = fminf(fmaxf(oocc * t.inv_k, 1.0f), t.boost_hi);
-      const float s_eff = ratio * (t.sw * boost);
-      const float sgn = (dy > 0 || (dy == 0 && d > 0)) ? 1.0f : -1.0f;
-      const float ux = deg ? sgn * kTieX : ddx;
-      const float uy = deg ? sgn * kTieY : ddy;
-      tx = tx - ux * s_eff;
-      ty = ty - uy * s_eff;
+  };
+  unsigned short* list = reinterpret_cast<unsigned short*>(smem);
+  const int n_list = tile_compact(
+      t, g, lanes, list, n_listed,
+      [&](int r, int l) {
+        return P[kOcc * F + static_cast<long long>(r + kRowPad) * lanes + l];
+      },
+      [&](int r, int l) {
+        write_empty(static_cast<long long>(r) * lanes + l);
+      });
+  if (n_list == 0) return;
+
+  const PairConsts pc = pair_consts(params);
+  const float max_pairs = params[4];
+  const float cell_size = params[5];
+  const float fm = params[6] > 0.0f ? params[6] : static_cast<float>(lanes / k);
+  const float boost_hi = fmaxf(params[7], 1.0f);
+  const float inv_k = 1.0f / static_cast<float>(k);
+  const bool whole = whole_modulus(fm);
+
+  // ---- stage the tile and its halo: lane wrap and fresh cell once a slot;
+  // staged field f of staged slot i lives at S[f * n_stage + i]
+  float* S = reinterpret_cast<float*>(smem + tile_list_bytes(t.tl, t.tr));
+  float* sFX = S + 8 * t.n_stage;  // with the fresh mask only
+  float* sFY = sFX + t.n_stage;
+  for (int i = threadIdx.x; i < t.n_stage; i += blockDim.x) {
+    const int srow = i / t.sw;
+    const int prow = t.r0 - t.w + srow + kRowPad;  // plane row, halo included
+    const int pl = wrap_any(t.l0 - t.hl + (i - srow * t.sw), lanes);
+    float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (prow < plane_rows) {  // rows past the planes serve no real slot
+      const long long o = static_cast<long long>(prow) * lanes + pl;
+      v[kOcc] = P[kOcc * F + o];
+      if (v[kOcc] > 0.0f) {  // the fields of an empty slot are never read
+#pragma unroll
+        for (int f = 0; f < kOcc; ++f) v[f] = P[f * F + o];
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 8; ++f) S[f * t.n_stage + i] = v[f];
+    if (t.fresh) {
+      sFX[i] = fresh_cell(v[kX], cell_size, fm);
+      sFY[i] = fresh_cell(v[kY], cell_size, fm);
     }
   }
-  out[idx] = tx;
-  out[gl + idx] = ty;
+  __syncthreads();
+
+  // ---- the pair sums of the listed slots, partners from shared memory
+  const float* sX = S + kX * t.n_stage;
+  const float* sY = S + kY * t.n_stage;
+  const float* sW = S + kW * t.n_stage;
+  const float* sR = S + kR * t.n_stage;
+  const float* sB = S + kBatch * t.n_stage;
+  const float* sCum = S + kCum * t.n_stage;
+  const float* sIdx = S + kIdx * t.n_stage;
+  const float* sO = S + kOcc * t.n_stage;
+  const int n_partner_lanes = (2 * WIN + 1) * k;
+  for (int j = threadIdx.x; j < n_list; j += blockDim.x) {
+    const int i = list[j];
+    const int trow = i / t.tl;
+    const int tlane = i - trow * t.tl;
+    const long long idx =
+        static_cast<long long>(t.r0 + trow) * lanes + t.l0 + tlane;
+    const int sl = tlane + t.hl;              // staged lane of the self slot
+    const int c = (trow + WIN) * t.sw + sl;
+    if (!kCompact && !(sO[c] > 0.0f)) {
+      write_empty(idx);
+      continue;
+    }
+    const float sx = sX[c], sy = sY[c], sw = sW[c], sr = sR[c], sb = sB[c];
+    const float scum = sCum[c], sidx = sIdx[c];
+    float sfx = 0.0f, sfy = 0.0f;
+    if (t.fresh) {
+      sfx = sFX[c];
+      sfy = sFY[c];
+    }
+    // partner lanes: the cells cx - w .. cx + w, walked from the highest lane
+    // down, which is d = (l - partner lane) ascending
+    const int pl_lo = (tlane / k) * k;        // staged lane, cell cx - w slot 0
+    float tx = 0.0f, ty = 0.0f;
+#pragma unroll
+    for (int dy = -WIN; dy <= WIN; ++dy) {
+      const int row = (trow + WIN + dy) * t.sw;
+      for (int pl = pl_lo + n_partner_lanes - 1; pl >= pl_lo; --pl) {
+        const int d = sl - pl;
+        if (dy == 0 && d == 0) continue;
+        const int o = row + pl;
+        const float oocc = sO[o];
+        if (!(oocc > 0.0f)) continue;
+        if (ordered) {
+          const float cum_min = sIdx[o] < sidx ? sCum[o] : scum;
+          if (!(cum_min < max_pairs)) continue;
+        }
+        if (t.fresh &&
+            !(cells_adjacent(sfx, sFX[o], fm, whole) &&
+              cells_adjacent(sfy, sFY[o], fm, whole)))
+          continue;
+        const float ddx = sX[o] - sx;
+        const float ddy = sY[o] - sy;
+        const float dist2 = ddx * ddx + ddy * ddy;
+        const float ratio =
+            pair_ratio(dist2, sw, sW[o], sr, sR[o], sb,
+                       cohesion ? sB[o] : 0.0f, cohesion != 0, pc);
+        if (ratio == 0.0f) continue;          // the term is exactly zero
+        const bool deg = dist2 <= kEps2;
+        const float boost = fminf(fmaxf(oocc * inv_k, 1.0f), boost_hi);
+        const float s_eff = ratio * (sw * boost);
+        const float sgn = (dy > 0 || (dy == 0 && d > 0)) ? 1.0f : -1.0f;
+        const float ux = deg ? sgn * kTieX : ddx;
+        const float uy = deg ? sgn * kTieY : ddy;
+        tx = tx - ux * s_eff;
+        ty = ty - uy * s_eff;
+      }
+    }
+    out[idx] = tx;
+    out[gl + idx] = ty;
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreadsWide, 2) sweep_planes_kernel(
+    const float* __restrict__ P, const float* __restrict__ params,
+    const int* __restrict__ wide_flag, float* __restrict__ out, int g,
+    int lanes, int k, int window, int fresh_mask, int cohesion, int ordered) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int n_listed;
+  window_in_force(wide_flag, &window, &fresh_mask);
+  if (window == 1)
+    sweep_planes_tile<1>(P, params, out, g, lanes, k, fresh_mask, cohesion,
+                         ordered, smem, &n_listed);
+  else
+    sweep_planes_tile<3>(P, params, out, g, lanes, k, fresh_mask, cohesion,
+                         ordered, smem, &n_listed);
 }
 
 __global__ void sweep_planes_sym_kernel(const float* __restrict__ P,
@@ -227,10 +346,11 @@ extern "C" int egg_sweep_planes(const float* planes, const float* params,
                                 int lanes, int k, int window, int fresh_mask,
                                 int cohesion, int ordered,
                                 cudaStream_t stream) {
-  const long long n = static_cast<long long>(g) * lanes;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  sweep_planes_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+  const egg::TileLaunch at = egg::tile_launch(
+      g, lanes, k, window, fresh_mask, wide_flag != nullptr, 8);
+  const cudaError_t err = egg::tile_allow_smem(sweep_planes_kernel, at.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sweep_planes_kernel<<<at.grid, at.threads, at.smem, stream>>>(
       planes, params, wide_flag, out, g, lanes, k, window, fresh_mask,
       cohesion, ordered);
   return static_cast<int>(cudaGetLastError());

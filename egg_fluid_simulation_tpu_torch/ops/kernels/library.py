@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +28,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["load", "build", "check", "stream_handle", "ptr"]
+__all__ = ["load", "build", "open_build", "use", "kernel_resources", "check",
+           "stream_handle", "ptr"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -36,9 +38,10 @@ BUILD_DIR = _PKG / "_build"
 # Route (b) of a hand-built Hopper library. --fmad=false keeps every multiply
 # and add rounded on its own, as the plain PyTorch versions' separate
 # elementwise ops are; --use_fast_math is deliberately absent (expf, rsqrtf
-# and '/' stay the accurate ones).
+# and '/' stay the accurate ones). -Xptxas -v makes the build log carry each
+# kernel's registers and spills (kernel_resources()).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "--fmad=false"]
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
 
 _C_INT = ctypes.c_int
 _C_PTR = ctypes.c_void_p
@@ -56,10 +59,11 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: Optional[float] = None
+last_build_log: dict = {}     # source name -> nvcc / ptxas output of its build
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -75,11 +79,17 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the library if this exact source set is not built yet."""
+def build(csrc: Optional[Path] = None, extra_flags=()) -> Path:
+    """Compile the library if this exact source set is not built yet.
+
+    ``csrc`` (default: the package's ``csrc/``) and ``extra_flags`` (added to
+    ``NVCC_FLAGS``) let a measurement script build another source tree or a
+    ``-D`` variant beside the package's own library."""
     global last_build_seconds
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    csrc = CSRC if csrc is None else Path(csrc)
+    flags = [*NVCC_FLAGS, *extra_flags]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libegg_kernels_{h.hexdigest()[:16]}.so"
@@ -90,17 +100,18 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs, procs = [], []
-        for src in _sources():
+        for src in _sources(csrc):
             if src.suffix != ".cu":
                 continue
             obj = os.path.join(work, src.stem + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                [nvcc, *flags, "-c", "-o", obj, str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         errors = []
         for src, proc in procs:
             log_text, _ = proc.communicate()
+            last_build_log[src.name] = log_text
             if proc.returncode != 0:
                 errors.append(f"{src.name} (exit {proc.returncode}):\n"
                               f"{log_text}")
@@ -117,18 +128,48 @@ def build() -> Path:
     return out
 
 
+def kernel_resources() -> dict:
+    """Per kernel of the last build, what ``ptxas -v`` reported:
+    ``{kernel: {"registers": n, "spill_bytes": n, "static_smem_bytes": n}}``
+    (empty when the library was already built and nothing was compiled)."""
+    out = {}
+    entry = re.compile(
+        r"Function properties for \w*?\d+([a-z_]+_kernel)E.*?"
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+        r"Used (\d+) registers(?:[^\n]*?(\d+) bytes smem)?", re.S)
+    for text in last_build_log.values():
+        for name, st, ld, regs, smem in entry.findall(text):
+            out[name] = dict(registers=int(regs),
+                             spill_bytes=int(st) + int(ld),
+                             static_smem_bytes=int(smem or 0))
+    return out
+
+
+def open_build(csrc: Optional[Path] = None, extra_flags=()) -> ctypes.CDLL:
+    """Build (see :func:`build`) and open a library, its entry points typed."""
+    lib = ctypes.CDLL(str(build(csrc, extra_flags)))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _C_INT
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = _C_INT
-            _lib = lib
+            _lib = open_build()
     return _lib
+
+
+def use(lib: ctypes.CDLL) -> None:
+    """Make ``lib`` (from :func:`open_build`) the library the wrappers call:
+    how a measurement script times two builds in turns in one process."""
+    global _lib
+    with _lock:
+        _lib = lib
 
 
 def check(name: str, err: int) -> None:
