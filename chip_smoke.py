@@ -7,8 +7,8 @@ Builds the hand-written CUDA kernels from ``egg_fluid_simulation_tpu_torch/
 csrc/`` (the build line carries each kernel's registers and spills), checks
 each kernel against its plain PyTorch version at the shapes of the paths
 that run it (``check.*``: both populations of the 1M scene, white and yolk,
-each timed for the sweeps B and D) and, for the tiled sweeps B and D, at
-small ragged grids with pairs across the torus seam
+each timed for the sweeps B, D and E and the splat C) and, for the tiled
+sweeps B, D and E, at small ragged grids with pairs across the torus seam
 (``check.sweep_shapes``), then drives the paths through the public API:
 
 - ``main_path``: the 1M-white / 100k-yolk scene of ``bench.py``
@@ -90,6 +90,8 @@ PAIR_OPS = 36        # one (self, partner) term of pair_terms.cuh's
 PROLOGUE_OPS = 20    # kernel B's integrate + follow prologue, per slot
 COUNT_OPS = 4        # kernel F: one partner's adjacency test and count
 SPLAT_OPS = 28       # kernel C: one candidate at one pixel, exp as one
+SPLAT_BOX_OPS = 27   # kernel C: one window candidate's extent box against
+                     # its tile (splat_kernel.extent_box and the four tests)
 TILES_OPS = 26       # kernel G: the same with the normalised box test
 
 
@@ -149,8 +151,8 @@ def window_pairs(occ, k: int, w: int) -> float:
     return float((n * near).sum() - n.sum())
 
 
-# (G, K, fresh modulus; 0 = the grid's own G): grids a tile of kernels B and
-# D does not divide, one smaller than a tile in both directions, and one
+# (G, K, fresh modulus; 0 = the grid's own G): grids a tile of kernels B, D
+# and E does not divide, one smaller than a tile in both directions, and one
 # whose fractional fresh modulus takes the general fresh-cell adjacency test
 SWEEP_SHAPES = ((20, 3, 0.0), (33, 4, 0.0), (24, 1, 24.5), (40, 8, 0.0),
                 (6, 2, 0.0))
@@ -158,10 +160,10 @@ SWEEP_SHAPES = ((20, 3, 0.0), (33, 4, 0.0), (24, 1, 24.5), (40, 8, 0.0),
 
 def sweep_shape_case(g: int, k: int, seed: int, fresh_mod: float = 0.0,
                      cell: float = 8.0) -> dict:
-    """Seeded numpy inputs of kernels B and D on a (g, g*k) grid that a tile
-    of the kernels does not divide: ``xy`` (2, g, L), ``stat`` (4, g, L),
-    ``prev``, ``follow`` (3, g, L), ``aux`` (4,) for B; ``planes``
-    (8, g + 16, L) with its halo rows for D; ``params`` (8,) for both.
+    """Seeded numpy inputs of kernels B, D and E on a (g, g*k) grid that a
+    tile of the kernels does not divide: ``xy`` (2, g, L), ``stat``
+    (4, g, L), ``prev``, ``follow`` (3, g, L), ``aux`` (4,) for B; ``planes``
+    (8, g + 16, L) with its halo rows for D and E; ``params`` (8,) for all.
 
     About 60% of the slots are occupied and every slot of row 0, row g-1,
     lane 0 and lane L-1 is. Particles sit up to 0.4 cell outside their cell
@@ -479,17 +481,18 @@ def check_substep(h, results) -> None:
 
 
 def check_sweep_shapes(dev, results) -> None:
-    """Kernels B and D against their plain versions on small grids that a
-    tile of the kernels does not divide, with occupied edges and pairs that
-    collide across the torus seam (``sweep_shape_case``): windows 1 and 3
-    (fresh mask), B with and without ``integrate``, D with and without the
-    ordered cutoff, each through the static window and the device flag."""
+    """Kernels B, D and E against their plain versions (and E against D) on
+    small grids that a tile of the kernels does not divide, with occupied
+    edges and pairs that collide across the torus seam
+    (``sweep_shape_case``): windows 1 and 3 (fresh mask), B with and without
+    ``integrate``, D and E with and without the ordered cutoff, each through
+    the static window and the device flag."""
     import torch
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
     for g, k, fresh_mod in SWEEP_SHAPES:
         c = {n: torch.from_numpy(v).to(dev)
              for n, v in sweep_shape_case(g, k, SEED + g, fresh_mod).items()}
-        worst = dict(B=0.0, D=0.0)
+        worst = dict(B=0.0, D=0.0, E=0.0, E_vs_D=0.0)
         moved = []
         for window in (1, 3):
             static = dict(window=window, fresh_mask=window == 3)
@@ -513,77 +516,172 @@ def check_sweep_shapes(dev, results) -> None:
                 want = SK.sweep_planes_plain(c["planes"], c["params"], k,
                                              **kw, **static)
                 moved.append(float(want.abs().max()))
+                want_sym = SK.sweep_planes_sym_plain(c["planes"], c["params"],
+                                                     k, **kw, **static)
                 for gate in (static, flag):
                     got = SK.sweep_planes(c["planes"], c["params"], k, **kw,
                                           **gate)
                     worst["D"] = max(worst["D"],
                                      float((got - want).abs().max()))
+                    sym = SK.sweep_planes(c["planes"], c["params"], k,
+                                          symmetric=True, **kw, **gate)
+                    worst["E"] = max(worst["E"],
+                                     float((sym - want_sym).abs().max()))
+                    worst["E_vs_D"] = max(worst["E_vs_D"],
+                                          float((sym - got).abs().max()))
         torch.cuda.synchronize()
         log("check.sweep_shapes", G=g, K=k, lanes=g * k, fresh_mod=fresh_mod,
             occupied=int((c["stat"][3] > 0).sum()),
             substep_pass_max_abs_err=worst["B"],
-            sweep_planes_max_abs_err=worst["D"], tol=SWEEP_TOL,
+            sweep_planes_max_abs_err=worst["D"],
+            sweep_planes_sym_max_abs_err=worst["E"],
+            sym_vs_one_sided=worst["E_vs_D"], tol=SWEEP_TOL,
             least_correction_px=round(min(moved), 4))
-        if not (worst["B"] <= SUBSTEP_TOL and worst["D"] <= SWEEP_TOL
+        if not (worst["B"] <= SUBSTEP_TOL
+                and max(worst["D"], worst["E"], worst["E_vs_D"]) <= SWEEP_TOL
                 and min(moved) > 0.0):
             raise AssertionError(f"sweep kernels disagree with their plain "
                                  f"versions at G={g}, K={k}")
-        for n, e in (("substep_pass", worst["B"]), ("sweep_planes", worst["D"])):
+        for n, e in (("substep_pass", worst["B"]), ("sweep_planes", worst["D"]),
+                     ("sweep_planes_sym", worst["E"])):
             results[n]["max_abs_err"] = max(results[n]["max_abs_err"], e)
 
 
-def check_splat(h, results) -> None:
+def splat_case(h, pop: int, post_mode: str, use_rgb: bool):
+    """Kernel C's inputs from the handler's current state: the render
+    payload, its audit and the per-bin counts of population ``pop`` at the
+    handler's render options with ``post_mode`` and seeded particle colours
+    (``use_rgb``). Returns (payload, counts, opts, audit)."""
     import dataclasses
     import torch
     from egg_fluid_simulation_tpu_torch.config import population_config
     from egg_fluid_simulation_tpu_torch.ops import render as R
-    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
     st = h.state
     dev = st.device
-    cap = h._options.pop_caps[0]
-    cfg = population_config(h._device_cfg2(), 0)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cap = h._options.pop_caps[pop]
+    cfg = population_config(h._device_cfg2(), pop)
+    gen = torch.Generator(device=dev).manual_seed(SEED + pop)
     color = torch.cat([torch.rand((cap, 3), generator=gen, device=dev),
                        torch.ones((cap, 1), device=dev)], 1)
-    alpha_t = torch.tensor(0.5, device=dev)
-    for post_mode in ("coarse", "full"):
-        for use_rgb in (False, True):
-            base = R.frame_options(h)[0]
-            opts = dataclasses.replace(base, post_mode=post_mode,
-                                       use_particle_color=use_rgb)
-            payload, audit, counts = R._splat_payload(
-                st.pos[0, :cap], st.last_pos[0, :cap], st.vel[0, :cap],
-                st.radius[0, :cap], color, st.active_mask()[0, :cap],
-                h.stats.centroid[0], alpha_t, cfg.texture_scale,
-                cfg.motion_blur, opts)
-            got = SPK.splat(payload, counts, opts, use_rgb)
-            want = SPK.splat_plain(payload, counts, opts, use_rgb)
-            err = float((got[0] - want[0]).abs().max())
-            if use_rgb:
-                err = max(err, float((got[1] - want[1]).abs().max()))
-            ms = cuda_ms(lambda: SPK.splat(payload, counts, opts, use_rgb), 10)
-            plain_ms = cuda_ms(lambda: SPK.splat_plain(payload, counts, opts,
-                                                       use_rgb), 2)
-            log("check.splat", post_mode=post_mode, use_rgb=use_rgb,
-                canvas=opts.canvas_size, eff=opts.eff_size,
-                tile=f"{opts.tile_h}x{opts.tile_w}",
-                bin=f"{opts.bin_h}x{opts.bin_w}", K=opts.tile_capacity,
-                dropped=int(audit[0]), max_abs_err=err, tol=SPLAT_TOL,
-                alpha_max=round(float(want[0].max()), 4), ms=round(ms, 4),
-                plain_ms=round(plain_ms, 4))
-            if not err <= SPLAT_TOL:
-                raise AssertionError("splat disagrees with its plain version")
-            r = results.setdefault("splat", dict(max_abs_err=0.0))
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if (post_mode, use_rgb) == ("coarse", False):
-                # work: every occupied window candidate at every tile pixel
-                filled = torch.clamp(counts, max=opts.tile_capacity)
-                cand = float(filled[R._tile_bins(opts, dev)].to(torch.float64).sum())
-                ops = cand * opts.tile_h * opts.tile_w * SPLAT_OPS
-                read = float(filled[:-1].sum()) * payload.shape[-1] * 4
-                b_ms, b_by = bound(ops, read + nbytes(counts, got[0]))
-                r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None)
+    opts = dataclasses.replace(R.frame_options(h)[pop], post_mode=post_mode,
+                               use_particle_color=use_rgb)
+    payload, audit, counts = R._splat_payload(
+        st.pos[pop, :cap], st.last_pos[pop, :cap], st.vel[pop, :cap],
+        st.radius[pop, :cap], color, st.active_mask()[pop, :cap],
+        h.stats.centroid[pop], torch.tensor(0.5, device=dev),
+        cfg.texture_scale, cfg.motion_blur, opts)
+    return payload, counts, opts, audit
+
+
+def splat_inside_pairs(payload, counts, opts) -> float:
+    """The (candidate, pixel) pairs of the splat whose factor is not 1.0 by
+    construction: occupied candidates of a tile's window at the pixels of
+    the tile that pass the plain version's ``inside`` test (quad extent and
+    static cap), summed over the tiles. Everywhere else ``g = 0``."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    dev = payload.device
+    s, th, tw = opts.eff_size, opts.tile_h, opts.tile_w
+    ntx = s // tw
+    msp = float(opts.max_splat_px)
+    nb = R._tile_bins(opts, dev)                           # (T, W)
+    filled = torch.clamp(counts.to(torch.int64), max=opts.tile_capacity)
+    k_used = max(int(filled.max()), 1)
+    occ = torch.arange(k_used, device=dev)[None, :] < filled[:, None]
+    fields = payload[:, :k_used, :6]
+    n_tiles, n_cand = nb.shape[0], nb.shape[1] * k_used
+    pix = torch.arange(th * tw, device=dev)
+    px_t = ((pix % tw).to(torch.float32) + 0.5)[None, :, None]
+    py_t = ((pix // tw).to(torch.float32) + 0.5)[None, :, None]
+    tc = max(1, (16 << 20) // (th * tw * n_cand))          # tiles per chunk
+    total = 0.0
+    for t0 in range(0, n_tiles, tc):
+        ids = torch.arange(t0, min(t0 + tc, n_tiles), device=dev)
+        m = ids.shape[0]
+        win = fields[nb[ids]].reshape(m, 1, n_cand, 6)
+        live = occ[nb[ids]].reshape(m, 1, n_cand)
+        dx = px_t + ((ids % ntx) * tw).to(torch.float32)[:, None, None] - win[..., 0]
+        dy = py_t + ((ids // ntx) * th).to(torch.float32)[:, None, None] - win[..., 1]
+        ca, sa = win[..., 2], win[..., 3]
+        d_par = dx * ca + dy * sa
+        d_perp = -dx * sa + dy * ca
+        inside = ((torch.abs(d_par) <= win[..., 5]) & (torch.abs(d_perp) <= win[..., 4])
+                  & (torch.abs(dx) <= msp) & (torch.abs(dy) <= msp) & live)
+        total += float(inside.sum())
+    return total
+
+
+def check_splat(h, results) -> None:
+    """Kernel C against its plain version on the render payloads of both
+    populations of the 1M scene: alpha and rgb, the three post modes (white),
+    and once on tiles of 32 x 64 pixels over the same bins (8 pixels a
+    thread, 256 threads a tile). Each line carries the share of the window's
+    occupied candidates that the kernel's cull stages and the share of the
+    staged (candidate, pixel) pairs that lie inside the candidate's quad,
+    which is the work the bound counts."""
+    import dataclasses
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
+    cases = [(0, "white", mode, rgb, None) for mode in ("coarse", "full", "super")
+             for rgb in (False, True)]
+    cases += [(1, "yolk", "coarse", False, None), (1, "yolk", "coarse", True, None),
+              (0, "white", "coarse", True, (32, 64))]
+    for pop, name, post_mode, use_rgb, tile in cases:
+        payload, counts, opts, audit = splat_case(h, pop, post_mode, use_rgb)
+        if tile is not None:
+            opts = dataclasses.replace(opts, tile_h=tile[0], tile_w=tile[1])
+        main = (name, post_mode, use_rgb, tile) == ("white", "coarse", False, None)
+        got = SPK.splat(payload, counts, opts, use_rgb)
+        want = SPK.splat_plain(payload, counts, opts, use_rgb)
+        err = float((got[0] - want[0]).abs().max())
+        if use_rgb:
+            err = max(err, float((got[1] - want[1]).abs().max()))
+        ms = cuda_ms(lambda: SPK.splat(payload, counts, opts, use_rgb), 10)
+        plain_ms = cuda_ms(lambda: SPK.splat_plain(payload, counts, opts,
+                                                   use_rgb), 2 if main else 1,
+                           warmup=int(main))
+        in_window, staged = SPK.cull_counts(payload, counts, opts)
+        n_window = float(in_window.to(torch.float64).sum())
+        n_staged = float(staged.to(torch.float64).sum())
+        n_inside = splat_inside_pairs(payload, counts, opts)
+        # work the function needs: one box test a window candidate and tile,
+        # and the full term only where a pixel lies inside the candidate's
+        # quad (elsewhere the factor is 1.0 by the test alone). Beside it the
+        # counts that charge every pixel of the tile: to the staged
+        # candidates (what the kernel evaluates), and to every occupied
+        # window candidate (the count before the cull)
+        npix = opts.tile_h * opts.tile_w
+        filled = torch.clamp(counts, max=opts.tile_capacity)
+        moved = (float(filled[:-1].sum()) * payload.shape[-1] * 4
+                 + nbytes(counts, *(t for t in got if t is not None)))
+        b_ms, b_by = bound(n_inside * SPLAT_OPS + n_window * SPLAT_BOX_OPS,
+                           moved)
+        b_staged_ms, _ = bound(n_staged * npix * SPLAT_OPS, moved)
+        b_window_ms, _ = bound(n_window * npix * SPLAT_OPS, moved)
+        log("check.splat", pop=name, post_mode=post_mode, use_rgb=use_rgb,
+            canvas=opts.canvas_size, eff=opts.eff_size,
+            tile=f"{opts.tile_h}x{opts.tile_w}",
+            bin=f"{opts.bin_h}x{opts.bin_w}", K=opts.tile_capacity,
+            max_splat_px=opts.max_splat_px, dropped=int(audit[0]),
+            peak_bin=int(audit[1]),
+            window_candidates_per_tile=round(n_window / in_window.numel(), 1),
+            staged_share=round(n_staged / max(n_window, 1.0), 4),
+            inside_share_of_staged_pixels=round(
+                n_inside / max(n_staged * npix, 1.0), 4),
+            max_abs_err=err, tol=SPLAT_TOL,
+            alpha_max=round(float(want[0].max()), 4), ms=round(ms, 4),
+            plain_ms=round(plain_ms, 4), bound_ms=round(b_ms, 4),
+            bound_staged_ms=round(b_staged_ms, 4),
+            bound_before_cull_ms=round(b_window_ms, 4), bound_by=b_by)
+        if not (err <= SPLAT_TOL and float(want[0].max()) > 0.5
+                and 0.0 < n_staged <= n_window
+                and 0.0 < n_inside <= n_staged * npix):
+            raise AssertionError("splat disagrees with its plain version")
+        r = results.setdefault("splat", dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if main:
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None)
 
 
 def slot_major_candidates(payload, counts, opts):
@@ -783,31 +881,36 @@ def check_sweep(ordered_planes, results) -> None:
             # kernel E: each unordered pair once, ordered budget, cohesion
             static = dict(cohesion=True, ordered_budget=True, window=window,
                           fresh_mask=window == 3)
+            flagged = dict(cohesion=True, ordered_budget=True, wide=flag)
             got = SK.sweep_planes(planes, params, k, symmetric=True, **static)
             want = SK.sweep_planes_sym_plain(planes, params, k, **static)
             one_sided = SK.sweep_planes(planes, params, k, **static)
             err = float((got - want).abs().max())
             err_d = float((got - one_sided).abs().max())
             err_flag = float((got - SK.sweep_planes(
-                planes, params, k, symmetric=True, wide=flag, cohesion=True,
-                ordered_budget=True)).abs().max())
-            timed = pop == 0
+                planes, params, k, symmetric=True, **flagged)).abs().max())
+            # the wrapper's call: the memset of the output and the kernel
             ms = cuda_ms(lambda: SK.sweep_planes(planes, params, k,
-                                                 symmetric=True, **static),
-                         10) if timed else float("nan")
+                                                 symmetric=True, **static), 10)
+            flag_ms = cuda_ms(lambda: SK.sweep_planes(
+                planes, params, k, symmetric=True, **flagged), 10)
+            d_ms = cuda_ms(lambda: SK.sweep_planes(planes, params, k,
+                                                   **static), 10)
             plain_ms = cuda_ms(lambda: SK.sweep_planes_sym_plain(
-                planes, params, k, **static), 2) if timed else float("nan")
+                planes, params, k, **static), 2 if pop == 0 else 1,
+                warmup=int(pop == 0))
             log("check.sweep_planes_sym", pop=name, G=p["g"], K=k, window=window,
                 fresh_mask=window == 3, max_abs_err=err, vs_one_sided=err_d,
                 device_flag_err=err_flag, tol=SWEEP_TOL, ms=round(ms, 4),
+                device_flag_ms=round(flag_ms, 4), one_sided_ms=round(d_ms, 4),
                 plain_ms=round(plain_ms, 4))
             if not max(err, err_d, err_flag) <= SWEEP_TOL:
                 raise AssertionError("sweep_planes_sym disagrees with its "
                                      "plain version or with kernel D")
             r = results.setdefault("sweep_planes_sym", dict(max_abs_err=0.0))
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if timed and window == 1:
-                # each unordered pair once, two atomic adds for the partner
+            if pop == 0 and window == 1:
+                # each unordered pair once, two adds for the partner's side
                 b_ms, b_by = bound(pairs / 2 * (PAIR_OPS + 2),
                                    nbytes(planes, got))
                 r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,

@@ -42,101 +42,53 @@
 // rules pairs out before any arithmetic). ptxas -v: 62 registers, no spills,
 // one barrier; capping the registers for more blocks an SM measured slower.
 //
-// E: the same sums, each unordered pair evaluated once. One thread per
-// (row, lane) self slot, partners read from global memory through L1. A
-// thread takes the half-space of offsets dy > 0, or dy == 0 and d > 0 (d
-// outer, dy inner, as _pair_terms_sym), keeps its own side in registers and
-// adds the partner's opposite push to the partner slot (row + dy, lane - d),
-// wrapped, with a global atomicAdd; its own sum goes in with one atomicAdd
-// at the end. The output must start zeroed. The order of the atomic adds
-// changes from run to run, so E agrees with its plain version to rounding,
-// not bit for bit. E is bound by the pair arithmetic and the L1/L2 traffic
-// of its partner reads: a window-1 slot evaluates up to 3 * (4K - 1) / 2
-// partner terms, and terms ruled out by the lane mask, the partner's
-// occupancy or the ordered cutoff are skipped before the other fields load
-// (a skipped term adds exactly zero).
+// E: the same sums, each unordered pair evaluated once, on the same tiles.
+// A block lists its tile's occupied slots as D does and stages the tile with
+// the half-space halo only: rows r0 .. r0 + 7 + w (a slot's partners lie at
+// dy >= 0, so no rows above), w cells on each side, the 8 plane fields (and
+// the fresh cells at window 3) a staged slot, the wrap resolved at staging.
+// Beside the fields every staged slot has two float accumulators in shared
+// memory (two arrays, so that neighbouring slots fall into neighbouring
+// banks), zeroed at staging: at K = 4, 9 x 136 slots x 10 floats = 51 KB
+// with the list at window 1, 11 x 152 x 12 = 82 KB at window 3 (opt-in above
+// 48 KB); with `wide_flag` the launch is sized for window 3 and the block
+// lays out fields and accumulators for the window in force. A thread takes a
+// listed slot and walks its half-space partners: first its own row, the
+// lanes below it (d > 0) down to the first lane of cell cx - w, then the
+// rows below (dy = 1 .. w, unrolled) over the cells cx - w .. cx + w. The
+// gates come in D's order (occupancy, ordered cutoff, fresh adjacency, then
+// the pair ratio, leaving where it is 0). The thread keeps its own side in
+// registers and adds the partner's opposite push to the partner's
+// accumulators with shared-memory atomicAdds; its own sums go into its own
+// accumulators the same way at the end. The slots of one cell sit next to
+// each other in the list and would reach the same partner of a row below in
+// the same iteration; at window 1 each starts that walk 3 lanes further on,
+// so the atomics of a warp mostly hit different addresses. After a barrier
+// every staged slot whose accumulators are not both zero is flushed with one
+// global atomicAdd a component onto its real slot (row and lane wrapped; a
+// grid smaller than a tile is staged several times over, and all copies of
+// a real slot land on it). Interior slots also receive pushes from the tile
+// above and from the lateral neighbours, so every flush is atomic and the
+// output must start zeroed: the wrapper allocates it with torch.zeros (one
+// memset a sweep, part of E's time wherever it is stated). The empty-slot
+// path cannot zero it, since a neighbouring tile may have pushed already.
+// The order of the atomic adds changes from run to run, so E agrees with
+// its plain version to rounding, not bit for bit.
+// Bound on the H100: instructions, and among them the shared-memory
+// atomics. E walks half of D's partners, and its pair arithmetic takes half
+// of D's time; but a float atomicAdd on shared memory is a compare-and-swap
+// loop on this card (ATOMS.CAST.SPIN), and the two a firing pair cost about
+// what the saved half of the arithmetic does. Listing, staging, the memset
+// and the flush take a third of a window-1 launch. So at window 1 E takes
+// D's time, at window 3 (the half-space of 7 x 28 partner slots a slot,
+// where the walk dominates) about 70% of it. ptxas -v: 60 registers, no
+// spills.
 
 #include "sweep_tile.cuh"
 
 namespace {
 
 using namespace egg;
-
-// Kernel E: the launch's scalars and the self slot's fields.
-struct Sweep {
-  long long F;  // elements per field: (G + 2*ROW_PAD) * L
-  long long s;  // the self slot's offset within a field
-  int r, l, w, fresh;
-  PairConsts pc;
-  float max_pairs, cell_size, boost_hi, inv_k, fm;
-  float sx, sy, sw, sr, sb, scum, sidx, socc, sfx, sfy;
-};
-
-// The thread's slot, the window in force and the self occupancy; false past
-// the grid.
-__device__ __forceinline__ bool setup(const float* P, long long idx, int g,
-                                      int lanes, int window, int fresh_mask,
-                                      const int* wide_flag, Sweep* t) {
-  if (idx >= static_cast<long long>(g) * lanes) return false;
-  t->F = static_cast<long long>(g + 2 * kRowPad) * lanes;
-  t->r = static_cast<int>(idx / lanes);
-  t->l = static_cast<int>(idx - static_cast<long long>(t->r) * lanes);
-  t->s = static_cast<long long>(t->r + kRowPad) * lanes + t->l;
-  t->w = window;
-  t->fresh = fresh_mask;
-  if (wide_flag != nullptr) {
-    const bool wide = *wide_flag != 0;
-    t->w = wide ? 3 : 1;
-    t->fresh = wide ? 1 : 0;
-  }
-  t->socc = P[kOcc * t->F + t->s];
-  return true;
-}
-
-// The rest of the self slot's fields and the scalars of params.
-__device__ __forceinline__ void load_self(const float* P, const float* params,
-                                          int lanes, int k, Sweep* t) {
-  t->pc = pair_consts(params);
-  t->max_pairs = params[4];
-  t->cell_size = params[5];
-  t->fm = params[6] > 0.0f ? params[6] : static_cast<float>(lanes / k);
-  t->boost_hi = fmaxf(params[7], 1.0f);
-  t->inv_k = 1.0f / static_cast<float>(k);
-  t->sfx = t->sfy = 0.0f;
-  const long long F = t->F, s = t->s;
-  t->sx = P[kX * F + s];
-  t->sy = P[kY * F + s];
-  t->sw = P[kW * F + s];
-  t->sr = P[kR * F + s];
-  t->sb = P[kBatch * F + s];
-  t->scum = P[kCum * F + s];
-  t->sidx = P[kIdx * F + s];
-  if (t->fresh) {
-    t->sfx = fresh_cell(t->sx, t->cell_size, t->fm);
-    t->sfy = fresh_cell(t->sy, t->cell_size, t->fm);
-  }
-}
-
-// The gates of partner slot o that need no pair math: occupancy, the
-// ordered cutoff cum_min < max_pairs, the fresh-cell mask. A term they rule
-// out adds exactly zero, so it is skipped before the other fields load.
-__device__ __forceinline__ bool partner_ok(const float* P, long long o,
-                                           const Sweep& t, int ordered,
-                                           float* oocc, float* ox, float* oy) {
-  const long long F = t.F;
-  *oocc = P[kOcc * F + o];
-  if (!(*oocc > 0.0f)) return false;
-  if (ordered) {
-    const float oidx = P[kIdx * F + o];
-    const float cum_min = oidx < t.sidx ? P[kCum * F + o] : t.scum;
-    if (!(cum_min < t.max_pairs)) return false;
-  }
-  *ox = P[kX * F + o];
-  *oy = P[kY * F + o];
-  return !t.fresh ||
-         (torus_adjacent(t.sfx, fresh_cell(*ox, t.cell_size, t.fm), t.fm) &&
-          torus_adjacent(t.sfy, fresh_cell(*oy, t.cell_size, t.fm), t.fm));
-}
 
 // Kernel D, one tile at window WIN (a template argument, so the row loop
 // unrolls).
@@ -287,56 +239,195 @@ __global__ void __launch_bounds__(kTileThreadsWide, 2) sweep_planes_kernel(
                          ordered, smem, &n_listed);
 }
 
-__global__ void sweep_planes_sym_kernel(const float* __restrict__ P,
-                                        const float* __restrict__ params,
-                                        const int* __restrict__ wide_flag,
-                                        float* __restrict__ out, int g,
-                                        int lanes, int k, int window,
-                                        int fresh_mask, int cohesion,
-                                        int ordered) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                        threadIdx.x;
-  Sweep t;
-  if (!setup(P, idx, g, lanes, window, fresh_mask, wide_flag, &t)) return;
-  if (!(t.socc > 0.0f)) return;  // no valid pair: the zeroed output stays 0
-  load_self(P, params, lanes, k, &t);
-  const long long F = t.F;
+// Ablation builds of kernel E, used by profile_torch_sweeps.py only:
+// -DEGG_SYM_NO_PUSH drops the partner-side adds (the pair arithmetic alone;
+// the sums are then wrong), -DEGG_SYM_NO_WALK drops the pair loop (listing,
+// staging and flush alone).
+#ifdef EGG_SYM_NO_PUSH
+constexpr bool kSymPush = false;
+#else
+constexpr bool kSymPush = true;
+#endif
+#ifdef EGG_SYM_NO_WALK
+constexpr bool kSymWalk = false;
+#else
+constexpr bool kSymWalk = true;
+#endif
+
+// Kernel E, one tile at window WIN.
+template <int WIN>
+__device__ __forceinline__ void sweep_planes_sym_tile(
+    const float* __restrict__ P, const float* __restrict__ params,
+    float* __restrict__ out, int g, int lanes, int k, int fresh_mask,
+    int cohesion, int ordered, unsigned char* smem, int* n_listed) {
+  const Tile t = make_tile(WIN, fresh_mask, k, /*half_space=*/true);
+  const int plane_rows = g + 2 * kRowPad;
+  const long long F = static_cast<long long>(plane_rows) * lanes;
   const long long gl = static_cast<long long>(g) * lanes;
-  const float boost_o = fminf(fmaxf(t.socc * t.inv_k, 1.0f), t.boost_hi);
-  float tx = 0.0f, ty = 0.0f;
-  const int d_hi = (t.w + 1) * k;
-  const int s_lane = t.l % k;
-  for (int d = -(d_hi - 1); d < d_hi; ++d) {
-    if (!lane_ok(s_lane, d, k, t.w)) continue;
-    const int ol = wrap(t.l - d, lanes);
-    for (int dy = (d > 0 ? 0 : 1); dy <= t.w; ++dy) {
-      const long long o =
-          static_cast<long long>(t.r + kRowPad + dy) * lanes + ol;
-      float oocc, ox, oy;
-      if (!partner_ok(P, o, t, ordered, &oocc, &ox, &oy)) continue;
-      const float ow = P[kW * F + o];
-      const float ddx = ox - t.sx;
-      const float ddy = oy - t.sy;
+
+  unsigned short* list = reinterpret_cast<unsigned short*>(smem);
+  const int n_list = tile_compact(
+      t, g, lanes, list, n_listed,
+      [&](int r, int l) {
+        return P[kOcc * F + static_cast<long long>(r + kRowPad) * lanes + l];
+      },
+      [](int, int) {});  // an empty slot's sums are the zeros out starts with
+  if (n_list == 0) return;
+
+  const PairConsts pc = pair_consts(params);
+  const float max_pairs = params[4];
+  const float cell_size = params[5];
+  const float fm = params[6] > 0.0f ? params[6] : static_cast<float>(lanes / k);
+  const float boost_hi = fmaxf(params[7], 1.0f);
+  const float inv_k = 1.0f / static_cast<float>(k);
+  const bool whole = whole_modulus(fm);
+
+  // ---- stage rows r0 .. r0 + tr - 1 + w with the lane halo; staged field f
+  // of staged slot i lives at S[f * n_stage + i]; then the fresh cells (with
+  // the mask) and the two accumulators of the layout in force
+  float* S = reinterpret_cast<float*>(smem + tile_list_bytes(t.tl, t.tr));
+  float* sFX = S + 8 * t.n_stage;  // with the fresh mask only
+  float* sFY = sFX + t.n_stage;
+  float* aX = S + (t.fresh ? 10 : 8) * t.n_stage;
+  float* aY = aX + t.n_stage;
+  for (int i = threadIdx.x; i < t.n_stage; i += blockDim.x) {
+    const int srow = i / t.sw;
+    const int prow = t.r0 + srow + kRowPad;  // plane row, halo included
+    const int pl = wrap_any(t.l0 - t.hl + (i - srow * t.sw), lanes);
+    float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (prow < plane_rows) {  // rows past the planes serve no real slot
+      const long long o = static_cast<long long>(prow) * lanes + pl;
+      v[kOcc] = P[kOcc * F + o];
+      if (v[kOcc] > 0.0f) {  // the fields of an empty slot are never read
+#pragma unroll
+        for (int f = 0; f < kOcc; ++f) v[f] = P[f * F + o];
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 8; ++f) S[f * t.n_stage + i] = v[f];
+    if (t.fresh) {
+      sFX[i] = fresh_cell(v[kX], cell_size, fm);
+      sFY[i] = fresh_cell(v[kY], cell_size, fm);
+    }
+    aX[i] = 0.0f;
+    aY[i] = 0.0f;
+  }
+  __syncthreads();
+
+  // ---- each listed slot's half-space pairs: its own side in registers, the
+  // partner's opposite push into the partner's accumulator
+  const float* sX = S + kX * t.n_stage;
+  const float* sY = S + kY * t.n_stage;
+  const float* sW = S + kW * t.n_stage;
+  const float* sR = S + kR * t.n_stage;
+  const float* sB = S + kBatch * t.n_stage;
+  const float* sCum = S + kCum * t.n_stage;
+  const float* sIdx = S + kIdx * t.n_stage;
+  const float* sO = S + kOcc * t.n_stage;
+  const int n_partner_lanes = (2 * WIN + 1) * k;
+  for (int j = threadIdx.x; j < n_list; j += blockDim.x) {
+    const int i = list[j];
+    const int trow = i / t.tl;
+    const int tlane = i - trow * t.tl;
+    const int sl = tlane + t.hl;              // staged lane of the self slot
+    const int c = trow * t.sw + sl;
+    const float socc = sO[c];
+    if (!kCompact && !(socc > 0.0f)) continue;
+    const float sx = sX[c], sy = sY[c], sw = sW[c], sr = sR[c], sb = sB[c];
+    const float scum = sCum[c], sidx = sIdx[c];
+    float sfx = 0.0f, sfy = 0.0f;
+    if (t.fresh) {
+      sfx = sFX[c];
+      sfy = sFY[c];
+    }
+    const float boost_o = fminf(fmaxf(socc * inv_k, 1.0f), boost_hi);
+    float tx = 0.0f, ty = 0.0f;
+    // one half-space partner, at staged slot o (the gates in D's order; a
+    // term they rule out is exactly zero on both sides)
+    auto pair = [&](int o) {
+      const float oocc = sO[o];
+      if (!(oocc > 0.0f)) return;
+      if (ordered) {
+        const float cum_min = sIdx[o] < sidx ? sCum[o] : scum;
+        if (!(cum_min < max_pairs)) return;
+      }
+      if (t.fresh &&
+          !(cells_adjacent(sfx, sFX[o], fm, whole) &&
+            cells_adjacent(sfy, sFY[o], fm, whole)))
+        return;
+      const float ow = sW[o];
+      const float ddx = sX[o] - sx;
+      const float ddy = sY[o] - sy;
       const float dist2 = ddx * ddx + ddy * ddy;
+      const float ratio =
+          pair_ratio(dist2, sw, ow, sr, sR[o], sb, cohesion ? sB[o] : 0.0f,
+                     cohesion != 0, pc);
+      if (ratio == 0.0f) return;              // both sides' terms are zero
       const bool deg = dist2 <= kEps2;
-      const float ratio = pair_ratio(
-          dist2, t.sw, ow, t.sr, P[kR * F + o], t.sb,
-          cohesion ? P[kBatch * F + o] : 0.0f, cohesion != 0, t.pc);
-      if (ratio == 0.0f) continue;  // both sides' terms are exactly zero
-      const float boost_s = fminf(fmaxf(oocc * t.inv_k, 1.0f), t.boost_hi);
+      const float boost_s = fminf(fmaxf(oocc * inv_k, 1.0f), boost_hi);
       // half-space terms carry sgn = +1; the partner gets the opposite push
       const float ux = deg ? kTieX : ddx;
       const float uy = deg ? kTieY : ddy;
-      tx = tx - ux * (ratio * (t.sw * boost_s));
-      ty = ty - uy * (ratio * (t.sw * boost_s));
-      const long long p =
-          static_cast<long long>(wrap(t.r + dy, g)) * lanes + ol;
-      atomicAdd(out + p, ux * (ratio * (ow * boost_o)));
-      atomicAdd(out + gl + p, uy * (ratio * (ow * boost_o)));
+      const float s_eff = ratio * (sw * boost_s);
+      tx = tx - ux * s_eff;
+      ty = ty - uy * s_eff;
+      if (kSymPush) {
+        const float o_eff = ratio * (ow * boost_o);
+        atomicAdd(aX + o, ux * o_eff);
+        atomicAdd(aY + o, uy * o_eff);
+      }
+    };
+    const int cell_slot = tlane % k;
+    const int pl_lo = tlane - cell_slot;  // staged lane, cell cx - w slot 0
+    if (kSymWalk) {
+      // the slot's own row: the lanes below it (d > 0), nearest first. The
+      // slots of a cell reach different partners in the same iteration.
+      for (int pl = sl - 1; pl >= pl_lo; --pl) pair(trow * t.sw + pl);
+      // the rows below: the cells cx - w .. cx + w from the highest lane
+      // down. At window 1 the start is rotated by the slot's place in its
+      // cell, so that the slots of a cell, neighbours in the list, push to
+      // different partners (measured: 4% faster at window 1, 7% slower at
+      // window 3, where it stays off)
+      int at = WIN == 1 ? cell_slot * (2 * WIN + 1) : 0;
+      for (int it = 0; it < n_partner_lanes; ++it) {
+        const int pl = pl_lo + n_partner_lanes - 1 - at;
+        at = at + 1 == n_partner_lanes ? 0 : at + 1;
+#pragma unroll
+        for (int dy = 1; dy <= WIN; ++dy) pair((trow + dy) * t.sw + pl);
+      }
     }
+    atomicAdd(aX + c, tx);
+    atomicAdd(aY + c, ty);
   }
-  atomicAdd(out + idx, tx);
-  atomicAdd(out + gl + idx, ty);
+  __syncthreads();
+
+  // ---- flush: one global atomicAdd a component and staged slot that
+  // received anything, onto its real slot
+  for (int i = threadIdx.x; i < t.n_stage; i += blockDim.x) {
+    const float ax = aX[i], ay = aY[i];
+    if (ax == 0.0f && ay == 0.0f) continue;
+    const int srow = i / t.sw;
+    const int r = wrap_any(t.r0 + srow, g);
+    const int l = wrap_any(t.l0 - t.hl + (i - srow * t.sw), lanes);
+    const long long p = static_cast<long long>(r) * lanes + l;
+    atomicAdd(out + p, ax);
+    atomicAdd(out + gl + p, ay);
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreadsWide, 2) sweep_planes_sym_kernel(
+    const float* __restrict__ P, const float* __restrict__ params,
+    const int* __restrict__ wide_flag, float* __restrict__ out, int g,
+    int lanes, int k, int window, int fresh_mask, int cohesion, int ordered) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int n_listed;
+  window_in_force(wide_flag, &window, &fresh_mask);
+  if (window == 1)
+    sweep_planes_sym_tile<1>(P, params, out, g, lanes, k, fresh_mask, cohesion,
+                             ordered, smem, &n_listed);
+  else
+    sweep_planes_sym_tile<3>(P, params, out, g, lanes, k, fresh_mask, cohesion,
+                             ordered, smem, &n_listed);
 }
 
 }  // namespace
@@ -361,12 +452,15 @@ extern "C" int egg_sweep_planes_sym(const float* planes, const float* params,
                                     int lanes, int k, int window,
                                     int fresh_mask, int cohesion, int ordered,
                                     cudaStream_t stream) {
-  const long long n = static_cast<long long>(g) * lanes;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  sweep_planes_sym_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                            stream>>>(planes, params, wide_flag, out, g, lanes,
-                                      k, window, fresh_mask, cohesion,
-                                      ordered);
+  // 8 plane fields and the two accumulators a staged slot; `out` zeroed
+  const egg::TileLaunch at = egg::tile_launch(
+      g, lanes, k, window, fresh_mask, wide_flag != nullptr, 10,
+      /*half_space=*/true);
+  const cudaError_t err =
+      egg::tile_allow_smem(sweep_planes_sym_kernel, at.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sweep_planes_sym_kernel<<<at.grid, at.threads, at.smem, stream>>>(
+      planes, params, wide_flag, out, g, lanes, k, window, fresh_mask,
+      cohesion, ordered);
   return static_cast<int>(cudaGetLastError());
 }

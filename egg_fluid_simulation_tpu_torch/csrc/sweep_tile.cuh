@@ -1,4 +1,4 @@
-// The shared-memory tile of the one-sided sweeps (kernels B and D).
+// The shared-memory tile of the tiled sweeps (kernels B, D and E).
 //
 // A block owns a tile of `tr` rows x `tl` lanes of the (G, L = G*K) slot
 // grid; `tl` is a multiple of K, so a tile starts and ends on a cell border
@@ -7,7 +7,9 @@
 // shared memory once, field by field (one float array per field, the staged
 // slots row-major), and resolves the torus wrap once per staged slot; the
 // pair loop then reads partners at fixed offsets from the self slot, with no
-// wrap, no lane mask and no global load.
+// wrap, no lane mask and no global load. The half-space sweep (kernel E)
+// looks only at rows r .. r + w, so its tile has no halo rows above:
+// (tr + w) x (tl + 2wK) staged slots (`half_space`).
 //
 // The dynamic shared memory of a block holds, in this order: the list of
 // the tile's occupied slots (unsigned short, tr * tl entries) and the staged
@@ -42,6 +44,7 @@ struct Tile {
   int w, fresh;   // the window in force and its fresh-cell mask
   int tl, tr;     // lanes and rows of the tile
   int hl;         // lane halo on each side: w * k
+  int ha;         // halo rows above the tile: w, or 0 for the half-space sweep
   int sw, sr;     // staged lanes and rows
   int n_stage;    // staged slots = the stride between staged fields
   int l0, r0;     // the tile's first lane and row in the grid
@@ -57,10 +60,12 @@ __host__ __device__ inline size_t tile_list_bytes(int tl, int tr) {
 }
 
 // dynamic shared memory of a block that stages `n_fields` fields at window w
-__host__ inline size_t tile_smem_bytes(int k, int w, int n_fields) {
+__host__ inline size_t tile_smem_bytes(int k, int w, int n_fields,
+                                       bool half_space) {
   const int tl = tile_lanes(k);
   const size_t staged =
-      static_cast<size_t>(kTileRows + 2 * w) * (tl + 2 * w * k);
+      static_cast<size_t>(kTileRows + (half_space ? w : 2 * w)) *
+      (tl + 2 * w * k);
   return tile_list_bytes(tl, kTileRows) + staged * n_fields * sizeof(float);
 }
 
@@ -75,14 +80,16 @@ struct TileLaunch {
 
 __host__ inline TileLaunch tile_launch(int g, int lanes, int k, int window,
                                        int fresh_mask, bool flagged,
-                                       int n_fields) {
+                                       int n_fields,
+                                       bool half_space = false) {
   const int w_max = flagged ? 3 : window;
   const bool fresh_max = flagged || fresh_mask != 0;
   const int tl = tile_lanes(k);
   TileLaunch s;
   s.grid = dim3((lanes + tl - 1) / tl, (g + kTileRows - 1) / kTileRows);
   s.threads = w_max > 1 ? kTileThreadsWide : kTileThreads;
-  s.smem = tile_smem_bytes(k, w_max, n_fields + (fresh_max ? 2 : 0));
+  s.smem = tile_smem_bytes(k, w_max, n_fields + (fresh_max ? 2 : 0),
+                           half_space);
   return s;
 }
 
@@ -107,7 +114,8 @@ __device__ __forceinline__ void window_in_force(const int* wide_flag,
 }
 
 // The block's tile at window w.
-__device__ __forceinline__ Tile make_tile(int w, int fresh, int k) {
+__device__ __forceinline__ Tile make_tile(int w, int fresh, int k,
+                                          bool half_space = false) {
   Tile t;
   t.w = w;
   t.fresh = fresh;
@@ -115,7 +123,8 @@ __device__ __forceinline__ Tile make_tile(int w, int fresh, int k) {
   t.tr = kTileRows;
   t.hl = t.w * k;
   t.sw = t.tl + 2 * t.hl;
-  t.sr = t.tr + 2 * t.w;
+  t.ha = half_space ? 0 : t.w;
+  t.sr = t.tr + t.ha + t.w;
   t.n_stage = t.sw * t.sr;
   t.l0 = blockIdx.x * t.tl;
   t.r0 = blockIdx.y * t.tr;

@@ -130,15 +130,21 @@ def build(csrc: Optional[Path] = None, extra_flags=()) -> Path:
 
 def kernel_resources() -> dict:
     """Per kernel of the last build, what ``ptxas -v`` reported:
-    ``{kernel: {"registers": n, "spill_bytes": n, "static_smem_bytes": n}}``
+    ``{kernel: {"registers": n, "spill_bytes": n, "static_smem_bytes": n}}``,
+    a template instance under ``kernel<arguments>``
     (empty when the library was already built and nothing was compiled)."""
     out = {}
+    # the mangled name: ...<len><name>_kernel, then for a template instance
+    # its integer arguments as I(L<type><value>E)+E, then E
     entry = re.compile(
-        r"Function properties for \w*?\d+([a-z_]+_kernel)E.*?"
+        r"Function properties for \w*?\d+([a-z_]+_kernel)"
+        r"((?:I(?:L[a-z]\d+E)+E)?)E.*?"
         r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
         r"Used (\d+) registers(?:[^\n]*?(\d+) bytes smem)?", re.S)
     for text in last_build_log.values():
-        for name, st, ld, regs, smem in entry.findall(text):
+        for name, targs, st, ld, regs, smem in entry.findall(text):
+            if targs:
+                name += "<%s>" % ",".join(re.findall(r"L[a-z](\d+)E", targs))
             out[name] = dict(registers=int(regs),
                              spill_bytes=int(st) + int(ld),
                              static_smem_bytes=int(smem or 0))

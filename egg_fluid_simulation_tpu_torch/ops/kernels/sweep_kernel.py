@@ -29,18 +29,24 @@ the plane-resident step and the per-pass route (``ops/dense.py``):
   count of occupied 3x3-neighbour slots with a larger particle index, the
   examined-pair count of the ordered 0.05 n^2 budget.
 
-On the H100, B and D are shared-memory tiled sweeps (``csrc/sweep_tile.cuh``):
-a block owns 8 rows x 128 lanes, lists the tile's occupied slots (an empty
-tile ends there), stages the tile and its halo once (wrap, B's prologue and
-the fresh cells once per staged slot; 34 KB for B and 45 KB for D at window
-1, K = 4; 69 and 85 KB at window 3) and lets its threads walk the list with
-partners read from shared memory. What bounds them is the instruction count
-of the partner walk and the pair arithmetic, not bytes (B 40 registers and
-8 bytes spilled, D 62 and none; see the sources). E and F run one thread per
-slot and read partners through L1/L2. The violence gate can stay on the
-device: ``wide`` (a 0-dim tensor) selects window 3 + fresh mask when true,
-window 1 when false, and the kernel reads it itself; a launch with ``wide``
-is sized for window 3.
+On the H100, B, D and E are shared-memory tiled sweeps
+(``csrc/sweep_tile.cuh``): a block owns 8 rows x 128 lanes, lists the tile's
+occupied slots (an empty tile ends there), stages the tile and its halo once
+(wrap, B's prologue and the fresh cells once per staged slot; 34 KB for B,
+45 KB for D and 51 KB for E at window 1, K = 4; 69, 85 and 82 KB at window
+3) and lets its threads walk the list with partners read from shared memory.
+E stages only the rows at and below the tile (its half-space), keeps two
+accumulators per staged slot in shared memory for the partners' pushes
+(``atomicAdd`` on shared memory) and flushes them with one global
+``atomicAdd`` a component onto an output that starts zeroed (the wrapper's
+``torch.zeros``). What bounds the three is the instruction count of the
+partner walk and the pair arithmetic, not bytes (B 40 registers and 8 bytes
+spilled, D 62 and none, E 60 and none; see the sources); E's shared-memory
+float atomics are compare-and-swap loops and cost what its halved pair
+arithmetic saves at window 1. F runs one thread per slot and reads partners
+through L1/L2. The violence gate can stay on the device: ``wide`` (a 0-dim
+tensor) selects window 3 + fresh mask when true, window 1 when false, and
+the kernel reads it itself; a launch with ``wide`` is sized for window 3.
 
 The dispatchers take the tensors' device: CPU tensors take the ``*_plain``
 version; CUDA tensors launch the kernel, or raise. Launch counters, one per

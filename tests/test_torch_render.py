@@ -11,6 +11,16 @@ Tolerances, with their reasons:
   candidates, the products grouped differently and ``exp`` rounded by two
   libraries (XLA's and PyTorch's): a few float32 ulps of the product
   (4e-7 measured).
+- the extent-box cull of kernel C (``splat_kernel.cull_counts``): a numpy
+  reference that drops every candidate whose box misses the tile before it
+  multiplies, products and ``exp`` in float64, against ``splat_plain``: atol
+  2e-6 (float32 products of a few hundred factors against float64; a wrongly
+  culled candidate would show as 1e-2 or more). The ``inside`` masks are
+  formed in float32 as the plain version forms them, so no pixel on a quad's
+  border flips.
+- ``chip_smoke.splat_inside_pairs`` (the work kernel C's bound counts): an
+  exact count, against a numpy loop over the tiles with the same float32
+  ``inside`` masks.
 - whole frames (outline + lighting + composite): atol 1e-4 per channel.
   The threshold smoothstep is steep (width 0.02 around alpha 0.3, slope
   75), the specular term is a 48th power of a Sobel normal, and the
@@ -36,6 +46,8 @@ from egg_fluid_simulation_tpu_torch.interop import state_from_numpy
 from egg_fluid_simulation_tpu_torch.ops import render as trender
 from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel
 from egg_fluid_simulation_tpu_torch.state import StepStats
+
+import chip_smoke
 
 SPECS = [dict(x=200.0, y=180.0, white_radius=60.0, yolk_radius=14.0,
               white_n_particles=500, yolk_n_particles=40),
@@ -110,6 +122,184 @@ def test_splat_plain_matches_jax_scan(scene, pop, use_rgb):
     if use_rgb:
         np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=0,
                                    atol=2e-6)
+
+
+def _payload(scene, pop, ot):
+    """The port's render payload of population ``pop`` of the scene."""
+    d = scene["d"]
+    act = np.arange(1024) < d["count"][pop]
+    center = np.array(scene["stats_j"].centroid)[pop]
+    args = [d["pos"][pop], d["last_pos"][pop], d["vel"][pop],
+            d["radius"][pop], d["color"][pop], act]
+    return trender._splat_payload(
+        *[torch.from_numpy(np.asarray(a)) for a in args],
+        torch.from_numpy(center), torch.tensor(0.7), torch.tensor(12.0),
+        torch.tensor(0.0003), ot)
+
+
+def _splat_reference_culled(payload, counts, opts, use_rgb):
+    """Numpy splat that culls first: per tile, the occupied window candidates
+    (``min(counts, K)`` a bin) whose extent box reaches the tile's pixel
+    centres, multiplied in float64. Returns (alpha, rgb, in_window, staged),
+    the last two per tile."""
+    s, th, tw, k = opts.eff_size, opts.tile_h, opts.tile_w, opts.tile_capacity
+    nb = trender._tile_bins(opts).numpy()
+    p32 = payload.numpy()
+    ex, ey = (t.numpy().astype(np.float64) for t in
+              splat_kernel.extent_box(payload.to(torch.float64),
+                                      opts.max_splat_px))
+    occupied = np.arange(k)[None, :] < np.minimum(counts.numpy(), k)[:, None]
+    msp = np.float32(opts.max_splat_px)
+    alpha = np.zeros((s, s))
+    rgb = np.zeros((s, s, 3))
+    in_window, staged = [], []
+    ntx = s // tw
+    for t, bins in enumerate(nb):
+        y0, x0 = (t // ntx) * th, (t % ntx) * tw
+        c = p32[bins][occupied[bins]]                       # (n, F) float32
+        bx, by = ex[bins][occupied[bins]], ey[bins][occupied[bins]]
+        cx, cy = c[:, 0].astype(np.float64), c[:, 1].astype(np.float64)
+        reach = ((cx >= x0 + 0.5 - bx) & (cx <= x0 + tw - 0.5 + bx)
+                 & (cy >= y0 + 0.5 - by) & (cy <= y0 + th - 0.5 + by))
+        in_window.append(len(c))
+        staged.append(int(reach.sum()))
+        c = c[reach]
+        px = (np.arange(tw, dtype=np.float32) + np.float32(0.5)
+              + np.float32(x0))[None, :, None]
+        py = (np.arange(th, dtype=np.float32) + np.float32(0.5)
+              + np.float32(y0))[:, None, None]
+        pcx, pcy, ca, sa, bs, bs_sm, isx, isy, ap = (c[None, None, :, j]
+                                                     for j in range(9))
+        dx, dy = px - pcx, py - pcy                         # float32
+        d_par = dx * ca + dy * sa
+        d_perp = -dx * sa + dy * ca
+        inside = ((np.abs(d_par) <= bs_sm) & (np.abs(d_perp) <= bs)
+                  & (np.abs(dx) <= msp) & (np.abs(dy) <= msp))
+        nx = d_par.astype(np.float64) * isx
+        ny = d_perp.astype(np.float64) * isy
+        g = np.where(inside, np.exp(-(4.0 * np.pi / 3.0) * (nx * nx + ny * ny))
+                     * ap, 0.0)
+        alpha[y0:y0 + th, x0:x0 + tw] = 1.0 - np.prod(1.0 - g, axis=-1)
+        if use_rgb:
+            col = c[None, None, :, 9:12].astype(np.float64)
+            rgb[y0:y0 + th, x0:x0 + tw] = 1.0 - np.prod(
+                1.0 - g[..., None] * col, axis=-2)
+    return alpha, rgb, np.array(in_window), np.array(staged)
+
+
+@pytest.mark.parametrize("use_rgb", [False, True], ids=["alpha", "rgb"])
+@pytest.mark.parametrize("pop", [0, 1], ids=["white", "yolk"])
+def test_extent_box_cull_changes_nothing(scene, pop, use_rgb):
+    """Dropping the candidates whose extent box misses the tile leaves the
+    splat as it was, and ``cull_counts`` counts the same survivors."""
+    _, ot = _opts(scene, pop, use_rgb)
+    payload, audit, counts = _payload(scene, pop, ot)
+    want_a, want_rgb = splat_kernel.splat_plain(payload, counts, ot, use_rgb)
+    alpha, rgb, in_window, staged = _splat_reference_culled(payload, counts,
+                                                            ot, use_rgb)
+    assert float(want_a.max()) > 0.5
+    np.testing.assert_allclose(want_a.numpy(), alpha, rtol=0, atol=2e-6)
+    if use_rgb:
+        np.testing.assert_allclose(want_rgb.numpy(), rgb, rtol=0, atol=2e-6)
+    # the cull has work to do here, and its plain form counts alike
+    assert 0 < staged.sum() < 0.9 * in_window.sum()
+    got_window, got_staged = splat_kernel.cull_counts(payload, counts, ot)
+    np.testing.assert_array_equal(got_window.numpy(), in_window)
+    assert np.abs(got_staged.numpy() - staged).max() <= 1   # box-edge rounding
+
+
+def test_cull_reference_with_an_overflowed_bin(scene):
+    """A bin that holds more particles than its budget: ``counts`` exceeds
+    K, only the first K slots exist, and the culled reference (which reads
+    ``min(counts, K)`` slots a bin, as kernel C does) still agrees."""
+    _, ot = _opts(scene, 0, True)
+    ot = dataclasses.replace(ot, tile_capacity=8)
+    payload, audit, counts = _payload(scene, 0, ot)
+    assert int(audit[0]) > 0 and int(counts[:-1].max()) > ot.tile_capacity
+    want_a, want_rgb = splat_kernel.splat_plain(payload, counts, ot, True)
+    alpha, rgb, in_window, staged = _splat_reference_culled(payload, counts,
+                                                            ot, True)
+    np.testing.assert_allclose(want_a.numpy(), alpha, rtol=0, atol=2e-6)
+    np.testing.assert_allclose(want_rgb.numpy(), rgb, rtol=0, atol=2e-6)
+    assert in_window.max() <= trender._tile_bins(ot).shape[1] * 8
+    assert float(want_a.max()) > 0.5
+
+
+def test_cull_reference_on_an_empty_window(scene):
+    """No candidate anywhere: alpha is exactly 0 and nothing is staged, also
+    where ``counts`` is positive only in the payload's last row (particles
+    that reach no bin)."""
+    _, ot = _opts(scene, 0, False)
+    payload, _, counts = _payload(scene, 0, ot)
+    payload = torch.zeros_like(payload)
+    counts = torch.zeros_like(counts)
+    counts[-1] = 700
+    want_a, _ = splat_kernel.splat_plain(payload, counts, ot, False)
+    alpha, _, in_window, staged = _splat_reference_culled(payload, counts, ot,
+                                                          False)
+    assert float(want_a.abs().max()) == 0.0 and np.abs(alpha).max() == 0.0
+    got_window, got_staged = splat_kernel.cull_counts(payload, counts, ot)
+    assert int(got_window.sum()) == int(got_staged.sum()) == 0
+    assert in_window.sum() == staged.sum() == 0
+
+
+def test_extent_box_holds_every_inside_pixel():
+    """Seeded candidates with any direction, smear and size: every pixel that
+    passes the kernel's ``inside`` test lies within ``extent_box`` of the
+    candidate's centre; a zero direction falls back to the static cap."""
+    rng = np.random.default_rng(3)
+    n = 4000
+    ang = rng.uniform(0, 2 * np.pi, n)
+    e_perp = rng.uniform(0.5, 20.0, n)
+    e_par = e_perp * rng.uniform(1.0, 3.0, n)
+    cand = np.zeros((n, 9), np.float32)
+    cand[:, 2], cand[:, 3] = np.cos(ang), np.sin(ang)
+    cand[::50, 2:4] = 0.0                                   # no direction
+    cand[:, 4], cand[:, 5] = e_perp, e_par
+    msp = 16
+    ex, ey = (t.numpy() for t in splat_kernel.extent_box(
+        torch.from_numpy(cand), msp))
+    assert np.all(ex[::50] == np.float32(msp) + np.float32(0.01))
+    off = rng.uniform(-40.0, 40.0, (64, n, 2)).astype(np.float32)
+    dx, dy = off[..., 0], off[..., 1]
+    d_par = dx * cand[:, 2] + dy * cand[:, 3]
+    d_perp = -dx * cand[:, 3] + dy * cand[:, 2]
+    inside = ((np.abs(d_par) <= cand[:, 5]) & (np.abs(d_perp) <= cand[:, 4])
+              & (np.abs(dx) <= msp) & (np.abs(dy) <= msp))
+    assert inside.sum() > 1000
+    assert np.all(np.abs(dx)[inside] <= np.broadcast_to(ex, dx.shape)[inside])
+    assert np.all(np.abs(dy)[inside] <= np.broadcast_to(ey, dy.shape)[inside])
+
+
+@pytest.mark.parametrize("pop", [0, 1], ids=["white", "yolk"])
+def test_inside_pair_count_of_the_splat_bound(scene, pop):
+    """The (candidate, pixel) pairs inside a quad, as the chip check counts
+    them for kernel C's bound: the numpy count over every occupied window
+    candidate, all of them among the candidates the cull stages."""
+    _, ot = _opts(scene, pop, False)
+    payload, _, counts = _payload(scene, pop, ot)
+    s, th, tw, k = ot.eff_size, ot.tile_h, ot.tile_w, ot.tile_capacity
+    nb = trender._tile_bins(ot).numpy()
+    p32 = payload.numpy()
+    occupied = np.arange(k)[None, :] < np.minimum(counts.numpy(), k)[:, None]
+    msp = np.float32(ot.max_splat_px)
+    want = 0
+    for t, bins in enumerate(nb):
+        y0, x0 = (t // (s // tw)) * th, (t % (s // tw)) * tw
+        c = p32[bins][occupied[bins]]
+        px = (np.arange(tw, dtype=np.float32) + np.float32(0.5)
+              + np.float32(x0))[None, :, None]
+        py = (np.arange(th, dtype=np.float32) + np.float32(0.5)
+              + np.float32(y0))[:, None, None]
+        dx, dy = px - c[None, None, :, 0], py - c[None, None, :, 1]
+        d_par = dx * c[:, 2] + dy * c[:, 3]
+        d_perp = -dx * c[:, 3] + dy * c[:, 2]
+        want += int(((np.abs(d_par) <= c[:, 5]) & (np.abs(d_perp) <= c[:, 4])
+                     & (np.abs(dx) <= msp) & (np.abs(dy) <= msp)).sum())
+    got = chip_smoke.splat_inside_pairs(payload, counts, ot)
+    assert got == want > 0
+    _, staged = splat_kernel.cull_counts(payload, counts, ot)
+    assert got < int(staged.sum()) * th * tw
 
 
 @pytest.mark.parametrize("use_rgb", [False, True], ids=["alpha", "rgb"])

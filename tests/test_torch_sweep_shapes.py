@@ -1,4 +1,4 @@
-"""The plain versions of kernels B and D at ragged shapes, where the card
+"""The plain versions of kernels B, D and E at ragged shapes, where the card
 check ``chip_smoke.py`` (``check.sweep_shapes``) leans on them as oracles.
 
 The inputs are ``chip_smoke.sweep_shape_case``: small (G, K) grids that a
@@ -13,6 +13,12 @@ and an ordered cutoff that binds for half the slots.
   the ordered cutoff: rtol 1e-4, atol 1e-5 (as ``test_torch_plane_sweep``:
   the same math in the same order, rsqrt rounding differs by an ulp between
   XLA and PyTorch).
+- ``sweep_planes_sym_plain`` (kernel E) against ``sweep_planes_plain``,
+  windows 1 and 3, with and without the ordered cutoff (rtol 1e-4, atol 1e-5:
+  the same pair terms, each unordered pair once, summed in another order),
+  and, at the shapes the TPU kernel ``_sweep_pallas_sym`` takes in interpret
+  mode (its row block divides G and holds its 8 spill rows), against that
+  kernel with the same tolerance.
 - ``substep_pass_plain`` (kernel B) against a numpy reference written here
   from the pair formulas in float64, partner cell by partner cell on the
   torus (no lane offsets, no lane mask, no fixed summation order), with and
@@ -33,6 +39,7 @@ import jax.numpy as jnp
 
 import chip_smoke
 from egg_fluid_simulation_tpu.ops import dense as jdense
+from egg_fluid_simulation_tpu.ops.pallas import sweep_kernel as jsweep
 from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as tsweep
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -95,6 +102,50 @@ def test_sweep_planes_plain_ragged_matches_golden_model(g, k, fresh_mod,
     # the seam rows and lanes carry corrections, not only the interior
     for edge in (got[:, 0], got[:, -1], got[:, :, 0], got[:, :, -1]):
         assert float(edge.abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["ordered", "all"])
+@pytest.mark.parametrize("window", [1, 3], ids=["w1", "w3_fresh"])
+@pytest.mark.parametrize("g,k,fresh_mod", SHAPES)
+def test_sweep_planes_sym_plain_ragged_matches_one_sided(g, k, fresh_mod,
+                                                         window, ordered):
+    c = _case(g, k, fresh_mod)
+    planes, params = torch.from_numpy(c["planes"]), torch.from_numpy(c["params"])
+    kw = dict(cohesion=True, ordered_budget=ordered, window=window,
+              fresh_mask=window == 3)
+    one = tsweep.sweep_planes_plain(planes, params, k, **kw)
+    sym = tsweep.sweep_planes_sym_plain(planes, params, k, **kw)
+    np.testing.assert_allclose(sym.numpy(), one.numpy(), rtol=RTOL, atol=ATOL)
+    # the partner's push crosses the seam: rows and lanes at both edges move
+    for edge in (sym[:, 0], sym[:, -1], sym[:, :, 0], sym[:, :, -1]):
+        assert float(edge.abs().max()) > 0.1
+    assert float(sym[:, c["planes"][7, 8:8 + g] == 0].abs().max()) == 0.0
+
+
+def _tpu_sym_kernel_takes(g: int) -> bool:
+    """``_sweep_pallas_sym`` cuts G into row blocks of min(32, G) rows that
+    must divide G and hold the 8 spill rows of the symmetric output."""
+    b = min(jsweep._BLOCK_ROWS, g)
+    return g % b == 0 and b >= jsweep.OUT_PAD
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["ordered", "all"])
+@pytest.mark.parametrize("window", [1, 3], ids=["w1", "w3_fresh"])
+@pytest.mark.parametrize("g,k,fresh_mod", [
+    p for p in SHAPES if _tpu_sym_kernel_takes(p.values[0])])
+def test_sweep_planes_sym_plain_ragged_matches_tpu_kernel(g, k, fresh_mod,
+                                                          window, ordered):
+    c = _case(g, k, fresh_mod)
+    ref = jsweep._sweep_pallas_sym(
+        jnp.asarray(c["planes"]), jnp.asarray(c["params"]), k, True, ordered,
+        window=window, fresh_mask=window == 3, interpret=True)
+    got = tsweep.sweep_planes_sym_plain(
+        torch.from_numpy(c["planes"]), torch.from_numpy(c["params"]), k,
+        cohesion=True, ordered_budget=ordered, window=window,
+        fresh_mask=window == 3)
+    ref = np.asarray(jax.block_until_ready(ref))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+    assert float(np.abs(ref).max()) > 1.0
 
 
 def _prologue_reference(c):
