@@ -7,9 +7,14 @@ Builds the hand-written CUDA kernels from ``egg_fluid_simulation_tpu_torch/
 csrc/`` (the build line carries each kernel's registers and spills), checks
 each kernel against its plain PyTorch version at the shapes of the paths
 that run it (``check.*``: both populations of the 1M scene, white and yolk,
-each timed for the sweeps B, D and E and the splat C) and, for the tiled
-sweeps B, D and E, at small ragged grids with pairs across the torus seam
-(``check.sweep_shapes``), then drives the paths through the public API:
+each timed for A, the sweeps B, D and E, the splat C and the count F), for
+the tiled kernels B, D, E and F at small ragged grids with pairs across the
+torus seam (``check.sweep_shapes``) and for the placement A at small ragged
+grids with both binning layouts (``check.place_shapes``); A and F write
+into memory that held NaN, so an element they leave unwritten shows. A and
+F, which take tens of microseconds, are timed from a CUDA graph of 20 calls
+(``graph_ms``), the others by CUDA events around calls launched one by one.
+Then it drives the paths through the public API:
 
 - ``main_path``: the 1M-white / 100k-yolk scene of ``bench.py``
   (``build_handler``) with the budget off (the fused path: kernels A, B),
@@ -22,7 +27,8 @@ sweeps B, D and E, at small ragged grids with pairs across the torus seam
   solver options of an automatic handler (the wide sweep);
 - ``plane_path``: the same 1M scene with the ordered budget and the default
   violence gate (the plane-resident step: kernels F, D), 3 updates and a
-  draw;
+  draw; it fails when a binning's ``FIELD_CUM`` prefix reaches 2^24, where
+  float32 stops counting by ones (``check.count_planes`` too);
 - ``plane_modes``: a 65k-white scene under the symmetric sweep (kernel E),
   per-substep and per-pass rebinning, the stale-hash pass count and the
   literal cohesion mode;
@@ -70,6 +76,8 @@ SUBSTEP_TOL = 1e-4          # px
 SWEEP_TOL = 1e-4            # px: D in its plain version's order; E adds
                             # with atomics in a run-dependent order
 COUNT_TOL = 0.0             # bit-exact: small integers
+CUM_EXACT = 2.0 ** 24       # FIELD_CUM, a float32 prefix of counts, is
+                            # exact below this; the smoke fails at it
 REF_TOL = 1e-3              # px after a few steps, card vs CPU (the CPU
                             # tests' tolerance against the JAX package)
 SPLAT_TOL = 1e-4            # alpha: products taken in another order
@@ -128,6 +136,34 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn``, ``reps`` calls captured in one CUDA
+    graph and replayed between CUDA events: the kernels' time without the
+    host's launch cost between calls, which a kernel of a few tens of
+    microseconds falls below (``cuda_ms`` would time the host). A wrapper's
+    launch counter counts the captured calls once."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
 def bound(ops: float, nbytes: float):
     """(bound_ms, bound_by): the least time the card could take."""
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -156,6 +192,36 @@ def window_pairs(occ, k: int, w: int) -> float:
 # whose fractional fresh modulus takes the general fresh-cell adjacency test
 SWEEP_SHAPES = ((20, 3, 0.0), (33, 4, 0.0), (24, 1, 24.5), (40, 8, 0.0),
                 (6, 2, 0.0))
+
+
+# (G, K) of the ragged placement case: the grids of SWEEP_SHAPES, raised to
+# the least grid the placement takes (2 * ROW_PAD = 16 rows, where the halo
+# mirrors every real row)
+PLACE_SHAPES = tuple((max(g, 16), k) for g, k, _ in SWEEP_SHAPES)
+
+
+def place_shape_case(g: int, k: int, seed: int, cell: float = 8.0) -> dict:
+    """Seeded numpy particles for kernel A on a (g, g*k) grid: about half as
+    many particles as slots, uniform over the torus and a little beyond it
+    (the wrap), three crowds of 3K + 5 in one cell each (over budget: in the
+    first row, the last row and the middle), the last tenth inactive.
+    Returns ``pos``, ``inv_mass``, ``radius``, ``batch``, ``active``, ``aux``
+    (N, 5) and ``cell``."""
+    rng = np.random.default_rng(seed)
+    n = g * g * k // 2
+    pos = rng.uniform(-0.5, g + 0.5, (n, 2)) * cell
+    crowd = 3 * k + 5
+    for j, c in enumerate(((0, 0), (g - 1, g - 1), (g // 2, g // 3))):
+        pos[j * crowd:(j + 1) * crowd] = (
+            np.array(c, np.float64) + rng.uniform(0.05, 0.95, (crowd, 2))) * cell
+    active = np.ones(n, bool)
+    active[n - n // 10:] = False
+    return dict(pos=pos.astype(np.float32),
+                inv_mass=rng.uniform(0.5, 1.5, n).astype(np.float32),
+                radius=rng.uniform(2.0, 4.0, n).astype(np.float32),
+                batch=rng.integers(0, 4, n).astype(np.int32), active=active,
+                aux=rng.normal(size=(n, 5)).astype(np.float32),
+                cell=np.float32(cell))
 
 
 def sweep_shape_case(g: int, k: int, seed: int, fresh_mod: float = 0.0,
@@ -361,7 +427,21 @@ def population_inputs(h, pop: int, vel_seed: int):
                 ty=rows3[:, 1], td=2.0 * rows3[:, 2], sub_dt=sub_dt, g=g, k=k)
 
 
+def on_stale_memory(fn, shape, dev):
+    """``fn()`` with the caching allocator's next block of ``shape`` float32
+    elements full of NaN: a kernel that leaves an element of an output it
+    allocates with ``torch.empty`` unwritten shows it."""
+    import torch
+    stale = torch.full(shape, float("nan"), dtype=torch.float32, device=dev)
+    del stale
+    return fn()
+
+
 def check_place(h, results) -> None:
+    """Kernel A on the rotating-winner binning of both populations of the 1M
+    scene (the fused path's inputs), bit-exact against its plain version on
+    an output whose memory held NaN, and the whole binning against the
+    golden scatter branch; timed beside its library yardstick."""
     import torch
     from egg_fluid_simulation_tpu_torch.ops import dense as D
     from egg_fluid_simulation_tpu_torch.ops import solver as S
@@ -371,13 +451,14 @@ def check_place(h, results) -> None:
         aux_cols = torch.stack([p["pos"][:, 0] - p["sub_dt"] * p["vel"][:, 0],
                                 p["pos"][:, 1] - p["sub_dt"] * p["vel"][:, 1],
                                 p["tx"], p["ty"], p["td"]], dim=1)
-        slot_sorted, pidx_sorted, _, pack = D.sort_bin(
+        slot_sorted, pidx_sorted, _, pack, cell_sorted = D.sort_bin(
             p["pos"], p["inv_mass"], p["radius"], p["batch"], p["act"],
             p["cell_size"], grid_dim=p["g"], slots_per_cell=p["k"],
             aux_cols=aux_cols, rotate=True)
-        pack_sorted = pack[pidx_sorted]
-        got = PK.place_planes(slot_sorted, pack_sorted, p["g"], p["k"])
-        want = PK.place_planes_plain(slot_sorted, pack_sorted, p["g"], p["k"])
+        args = (cell_sorted, slot_sorted, pidx_sorted, pack, p["g"], p["k"])
+        want = PK.place_planes_plain(*args)
+        got = on_stale_memory(lambda: PK.place_planes(*args), want.shape,
+                              want.device)
         err = float((got - want).abs().max())
         exact = bool(torch.equal(got, want))
         # and the whole binning against the golden scatter branch
@@ -389,31 +470,88 @@ def check_place(h, results) -> None:
                                  p["batch"], p["act"], p["cell_size"], p["tx"],
                                  p["ty"], p["td"], p["sub_dt"], p["g"], p["k"])
         golden_exact = all(torch.equal(a, b) for a, b in zip(gold, kern))
-        ms = cuda_ms(lambda: PK.place_planes(slot_sorted, pack_sorted,
-                                             p["g"], p["k"]), 20)
-        plain_ms = cuda_ms(lambda: PK.place_planes_plain(
-            slot_sorted, pack_sorted, p["g"], p["k"]), 20)
+        ms = graph_ms(lambda: PK.place_planes(*args), 20)
+        host_ms = cuda_ms(lambda: PK.place_planes(*args), 20)
+        plain_ms = cuda_ms(lambda: PK.place_planes_plain(*args), 20)
+        # library yardstick, the same work as A: a zero fill, one
+        # index_copy_ of the placed rows into the core rows, the halo fill
+        # (the rows come pre-gathered, which A does itself)
+        lanes = p["g"] * p["k"]
+        ok = (slot_sorted >= 0) & (slot_sorted < p["g"] * lanes)
+        idx = slot_sorted[ok] + D.ROW_PAD * lanes
+        src = pack[pidx_sorted[ok]].T
+        n_f, rows = got.shape[0], got.shape[1]
+
+        def library_call():
+            flat = torch.zeros((n_f, rows * lanes), device=got.device)
+            flat.index_copy_(1, idx, src)
+            return D.fill_halo(flat.view(n_f, rows, lanes))
+
+        lib_ms = graph_ms(library_call, 20)
+        lib_exact = bool(torch.equal(library_call(), want))
+        # bytes: the slots, the particle indices and the payload rows read
+        # once, the planes written once (the cell ids are only searched)
+        b_ms, b_by = bound(0.0, nbytes(slot_sorted, pidx_sorted, pack, got))
         log("check.place_planes", pop=name, G=p["g"], K=p["k"],
-            N=int(pack.shape[0]), F=int(pack.shape[1]), max_abs_err=err,
-            bit_exact=exact, golden_bit_exact=golden_exact,
-            ms=round(ms, 4), plain_ms=round(plain_ms, 4))
-        if not (exact and golden_exact and err <= PLACE_TOL):
+            N=int(pack.shape[0]), F=int(pack.shape[1]),
+            placed=int(ok.sum()), max_abs_err=err, bit_exact=exact,
+            golden_bit_exact=golden_exact, library_bit_exact=lib_exact,
+            ms=round(ms, 4), launched_one_by_one_ms=round(host_ms, 4),
+            plain_ms=round(plain_ms, 4),
+            library_ms=round(lib_ms, 4), bound_ms=round(b_ms, 4),
+            bound_by=b_by)
+        if not (exact and golden_exact and lib_exact and err <= PLACE_TOL):
             raise AssertionError(f"place_planes not bit-exact ({name})")
         r = results.setdefault("place_planes", dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if pop == 0:
-            # library yardstick: one index_copy_ of the placed entries into
-            # the core rows (no halo fill)
-            lanes = p["g"] * p["k"]
-            ok = (slot_sorted >= 0) & (slot_sorted < p["g"] * lanes)
-            idx = slot_sorted[ok].to(torch.int64) + D.ROW_PAD * lanes
-            src = pack_sorted[ok].T
-            flat = torch.zeros((got.shape[0], got.shape[1] * lanes),
-                               device=got.device)
-            lib_ms = cuda_ms(lambda: flat.index_copy_(1, idx, src), 20)
-            b_ms, b_by = bound(0.0, nbytes(slot_sorted, pack_sorted, got))
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=lib_ms)
+
+
+def check_place_shapes(dev, results) -> None:
+    """Kernel A against its plain version, and the placement binning against
+    the golden scatter branch, at the ragged grids of ``PLACE_SHAPES``
+    (``place_shape_case``: K = 1 to 8, chunks that straddle row ends, G =
+    2*ROW_PAD, crowds past K in the first, last and a middle row, an
+    inactive tail), with the rotating winners and the ordered layout; the
+    kernel's output memory held NaN."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import dense as D
+    from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
+    for g, k in PLACE_SHAPES:
+        c = {n: torch.from_numpy(np.asarray(v)).to(dev)
+             for n, v in place_shape_case(g, k, SEED + g).items()}
+        inputs = [c[n] for n in ("pos", "inv_mass", "radius", "batch",
+                                 "active", "cell")]
+        worst, golden_exact, over = 0.0, True, 0
+        for rotate in (True, False):
+            slot_sorted, pidx_sorted, _, pack, cell_sorted = D.sort_bin(
+                *inputs, grid_dim=g, slots_per_cell=k, aux_cols=c["aux"],
+                rotate=rotate)
+            args = (cell_sorted, slot_sorted, pidx_sorted, pack, g, k)
+            want = PK.place_planes_plain(*args)
+            got = on_stale_memory(lambda: PK.place_planes(*args), want.shape,
+                                  dev)
+            worst = max(worst, float(torch.nan_to_num(
+                (got - want).abs(), nan=float("inf")).max()))
+            gold = D.bin_to_planes(*inputs, grid_dim=g, slots_per_cell=k,
+                                   aux_cols=c["aux"], rotate=rotate)
+            kern = D.bin_to_planes(*inputs, grid_dim=g, slots_per_cell=k,
+                                   aux_cols=c["aux"], rotate=rotate,
+                                   use_placement=True)
+            golden_exact &= (torch.equal(gold.planes, kern.planes)
+                             and torch.equal(gold.aux, kern.aux))
+            over = int((slot_sorted == g * g * k).sum())
+        torch.cuda.synchronize()
+        log("check.place_shapes", G=g, K=k, lanes=g * k,
+            N=int(pack.shape[0]), unplaced=over, max_abs_err=worst,
+            golden_bit_exact=golden_exact)
+        if not (worst <= PLACE_TOL and golden_exact):
+            raise AssertionError(f"place_planes disagrees with its plain "
+                                 f"version at G={g}, K={k}")
+        r = results["place_planes"]
+        r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
 def check_substep(h, results) -> None:
@@ -481,18 +619,25 @@ def check_substep(h, results) -> None:
 
 
 def check_sweep_shapes(dev, results) -> None:
-    """Kernels B, D and E against their plain versions (and E against D) on
-    small grids that a tile of the kernels does not divide, with occupied
+    """Kernels B, D, E and F against their plain versions (and E against D)
+    on small grids that a tile of the kernels does not divide, with occupied
     edges and pairs that collide across the torus seam
     (``sweep_shape_case``): windows 1 and 3 (fresh mask), B with and without
     ``integrate``, D and E with and without the ordered cutoff, each through
-    the static window and the device flag."""
+    the static window and the device flag; F (window 1 only) on an output
+    whose memory held NaN."""
     import torch
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
     for g, k, fresh_mod in SWEEP_SHAPES:
         c = {n: torch.from_numpy(v).to(dev)
              for n, v in sweep_shape_case(g, k, SEED + g, fresh_mod).items()}
         worst = dict(B=0.0, D=0.0, E=0.0, E_vs_D=0.0)
+        # kernel F on the same planes, its output memory holding NaN
+        want_f = SK.count_planes_plain(c["planes"], k)
+        got_f = on_stale_memory(lambda: SK.count_planes(c["planes"], k),
+                                want_f.shape, dev)
+        worst["F"] = float(torch.nan_to_num((got_f - want_f).abs(),
+                                            nan=float("inf")).max())
         moved = []
         for window in (1, 3):
             static = dict(window=window, fresh_mask=window == 3)
@@ -536,14 +681,18 @@ def check_sweep_shapes(dev, results) -> None:
             sweep_planes_max_abs_err=worst["D"],
             sweep_planes_sym_max_abs_err=worst["E"],
             sym_vs_one_sided=worst["E_vs_D"], tol=SWEEP_TOL,
+            count_planes_max_abs_err=worst["F"], count_tol=COUNT_TOL,
+            pairs_counted=int(want_f.to(torch.float64).sum()),
             least_correction_px=round(min(moved), 4))
         if not (worst["B"] <= SUBSTEP_TOL
                 and max(worst["D"], worst["E"], worst["E_vs_D"]) <= SWEEP_TOL
+                and worst["F"] <= COUNT_TOL and float(want_f.max()) > 0.0
                 and min(moved) > 0.0):
             raise AssertionError(f"sweep kernels disagree with their plain "
                                  f"versions at G={g}, K={k}")
         for n, e in (("substep_pass", worst["B"]), ("sweep_planes", worst["D"]),
-                     ("sweep_planes_sym", worst["E"])):
+                     ("sweep_planes_sym", worst["E"]),
+                     ("count_planes", worst["F"])):
             results[n]["max_abs_err"] = max(results[n]["max_abs_err"], e)
 
 
@@ -791,11 +940,13 @@ def check_count(h, results):
         b = D.bin_to_planes(p["pos"], p["inv_mass"], p["radius"], p["batch"],
                             p["act"], p["cell_size"], grid_dim=g,
                             slots_per_cell=k)
-        got = SK.count_planes(b.planes, k)
         want = SK.count_planes_plain(b.planes, k)
+        got = on_stale_memory(lambda: SK.count_planes(b.planes, k),
+                              want.shape, want.device)
         err = float((got - want).abs().max())
         exact = bool(torch.equal(got, want))
-        ms = cuda_ms(lambda: SK.count_planes(b.planes, k), 20)
+        ms = graph_ms(lambda: SK.count_planes(b.planes, k), 20)
+        host_ms = cuda_ms(lambda: SK.count_planes(b.planes, k), 20)
         plain_ms = cuda_ms(lambda: SK.count_planes_plain(b.planes, k), 3)
         b = S._dense_add_cum(b, k)
         cum_max = float(b.planes[D.FIELD_CUM].max())
@@ -803,10 +954,16 @@ def check_count(h, results):
         log("check.count_planes", pop=name, G=g, K=k,
             occupied=int((b.planes[D.FIELD_OCC, rp:rp + g] > 0).sum()),
             total=int(got.to(torch.float64).sum()), cum_max=cum_max,
-            cum_exact_in_f32=cum_max < 2.0 ** 24, max_abs_err=err,
-            bit_exact=exact, ms=round(ms, 4), plain_ms=round(plain_ms, 4))
+            cum_exact_in_f32=cum_max < CUM_EXACT,
+            cum_headroom=round(CUM_EXACT / max(cum_max, 1.0), 3),
+            max_abs_err=err, bit_exact=exact, ms=round(ms, 4),
+            launched_one_by_one_ms=round(host_ms, 4),
+            plain_ms=round(plain_ms, 4))
         if not (exact and err <= COUNT_TOL):
             raise AssertionError(f"count_planes not bit-exact ({name})")
+        if not cum_max < CUM_EXACT:
+            raise AssertionError(f"FIELD_CUM reaches 2^24 ({name}): the "
+                                 f"ordered cutoff is no longer exact")
         r = results.setdefault("count_planes", dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if pop == 0:
@@ -995,6 +1152,7 @@ def main() -> int:
 
     results = {}
     check_place(h, results)
+    check_place_shapes(dev, results)
     check_substep(h, results)
     check_splat(h, results)
     check_splat_tiles(h, results)
@@ -1150,21 +1308,35 @@ def main() -> int:
         raise AssertionError("the wide sweep never ran on a spawn explosion")
 
     # ---- plane path: the ordered budget at 1M, default gate, 3 updates +
-    # one draw, counters from zero ----
+    # one draw, counters from zero; every binning's FIELD_CUM maximum is
+    # kept on the device and read after the run ----
+    from egg_fluid_simulation_tpu_torch.ops import dense as D
+    cum_max, add_cum = [], S._dense_add_cum
+
+    def add_cum_kept(binning, k):
+        binning = add_cum(binning, k)
+        cum_max.append(binning.planes[D.FIELD_CUM].max())
+        return binning
+
+    S._dense_add_cum = add_cum_kept
     reset_counters()
     plane_ms = []
-    for _ in range(MAIN_UPDATES):
+    try:
+        for _ in range(MAIN_UPDATES):
+            torch.cuda.synchronize()
+            t_start = torch.cuda.Event(enable_timing=True)
+            t_step = torch.cuda.Event(enable_timing=True)
+            t_start.record()
+            hp.update(1 / 60)
+            t_step.record()
+            torch.cuda.synchronize()
+            plane_ms.append(t_start.elapsed_time(t_step))
+        frame_p = hp.draw(viewport=viewport)
         torch.cuda.synchronize()
-        t_start = torch.cuda.Event(enable_timing=True)
-        t_step = torch.cuda.Event(enable_timing=True)
-        t_start.record()
-        hp.update(1 / 60)
-        t_step.record()
-        torch.cuda.synchronize()
-        plane_ms.append(t_start.elapsed_time(t_step))
-    frame_p = hp.draw(viewport=viewport)
-    torch.cuda.synchronize()
+    finally:
+        S._dense_add_cum = add_cum
     plane_launches_run = read_counters()
+    plane_cum_max = float(torch.stack(cum_max).max())
     validate_state(hp)
     audit_p = hp.render_audit
     want = plane_launches(hp._options, MAIN_UPDATES)
@@ -1174,7 +1346,13 @@ def main() -> int:
         wide_state=[[int(v) for v in w] for w in hp._wide_state],
         frame_finite=bool(torch.isfinite(frame_p).all()),
         alpha_max=round(float(frame_p[..., 3].max()), 4),
-        render_dropped=audit_p[:, 0].tolist(), launches=plane_launches_run)
+        render_dropped=audit_p[:, 0].tolist(), binnings=len(cum_max),
+        cum_max=plane_cum_max, cum_exact_in_f32=plane_cum_max < CUM_EXACT,
+        launches=plane_launches_run)
+    if not (len(cum_max) == plane_launches_run["count_planes"]
+            and plane_cum_max < CUM_EXACT):
+        raise AssertionError(f"plane path: FIELD_CUM max {plane_cum_max} "
+                             f"over {len(cum_max)} binnings, 2^24 or more")
     if int(audit_p[:, 0].sum()) != 0:
         raise AssertionError("plane path: render overflow dropped particles")
     if not (bool(torch.isfinite(frame_p).all())

@@ -151,10 +151,12 @@ def sort_bin(pos, inv_mass, radius, batch_slot, active, cell_size,
              rotate: bool = False):
     """The sort half of :func:`bin_to_planes` (same keywords).
 
-    Returns ``(slot_sorted, pidx_sorted, slot, pack)``: the (N,) int64 slot
-    of each cell-sorted entry (``G*L`` = over budget or inactive), the
-    particle index of each sorted entry, the per-particle slot, and the
-    (N, 8 + A) float32 payload in particle order."""
+    Returns ``(slot_sorted, pidx_sorted, slot, pack, cell_sorted)``: the
+    (N,) int64 slot of each cell-sorted entry (``G*L`` = over budget or
+    inactive), the particle index of each sorted entry, the per-particle
+    slot, the (N, 8 + A) float32 payload in particle order, and the cell id
+    of each sorted entry (ascending; ``G*G`` for inactive entries), which is
+    the search key of kernel A's chunks."""
     n = pos.shape[0]
     dev = pos.device
     g, k = grid_dim, slots_per_cell
@@ -201,7 +203,7 @@ def sort_bin(pos, inv_mass, radius, batch_slot, active, cell_size,
     pack = torch.stack(cols, dim=1)                        # (N, 8)
     if aux_cols is not None:
         pack = torch.cat([pack, aux_cols], dim=1)          # (N, 8 + A)
-    return slot_sorted, pidx_sorted, slot, pack
+    return slot_sorted, pidx_sorted, slot, pack, cid_sorted
 
 
 def bin_to_planes(pos, inv_mass, radius, batch_slot, active, cell_size,
@@ -221,21 +223,21 @@ def bin_to_planes(pos, inv_mass, radius, batch_slot, active, cell_size,
     - default: inverse-index scatter + row gather, the golden model (the
       scatter branch of the JAX package's ``bin_to_planes``). It is the one
       that returns ``pidx_grid``, which :func:`update_cum_field` needs;
-    - ``use_placement=True``: the payload is gathered into sorted order and
-      placed by :func:`.kernels.place_kernel.place_planes` (kernel A on CUDA,
+    - ``use_placement=True``: the payload rows are placed through the sort
+      order by :func:`.kernels.place_kernel.place_planes` (kernel A on CUDA,
       its plain version on the CPU).
     """
     g, k = grid_dim, slots_per_cell
     lanes = g * k
-    slot_sorted, pidx_sorted, slot, pack = sort_bin(
+    slot_sorted, pidx_sorted, slot, pack, cell_sorted = sort_bin(
         pos, inv_mass, radius, batch_slot, active, cell_size, grid_dim=g,
         slots_per_cell=k, cum=cum, aux_cols=aux_cols, rotate=rotate)
 
     rows = g + 2 * ROW_PAD
     if use_placement:
         from .kernels import place_kernel
-        all_planes = place_kernel.place_planes(slot_sorted, pack[pidx_sorted],
-                                               g, k)
+        all_planes = place_kernel.place_planes(cell_sorted, slot_sorted,
+                                               pidx_sorted, pack, g, k)
         aux = all_planes[N_FIELDS:] if aux_cols is not None else None
         return DenseBinning(planes=all_planes[:N_FIELDS], aux=aux, slot=slot,
                             pidx_grid=None, cell_size=cell_size)

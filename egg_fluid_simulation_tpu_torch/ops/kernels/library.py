@@ -46,8 +46,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _C_INT = ctypes.c_int
 _C_PTR = ctypes.c_void_p
 _SIGNATURES = {
-    "egg_place_planes": [_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_INT,
-                         _C_INT, _C_INT, _C_PTR],
+    "egg_place_planes": [_C_PTR] * 5 + [_C_INT] * 6 + [_C_PTR],
     "egg_substep_pass": [_C_PTR] * 9 + [_C_INT] * 7 + [_C_PTR],
     "egg_splat": [_C_PTR] * 4 + [_C_INT] * 12 + [_C_PTR],
     "egg_sweep_planes": [_C_PTR] * 4 + [_C_INT] * 7 + [_C_PTR],

@@ -4,11 +4,16 @@ Replaces ``egg_fluid_simulation_tpu/ops/pallas/place_kernel.py``
 (``_place_pallas``): it expands the cell-sorted particle payload into the
 ``(F, G + 2*ROW_PAD, L)`` plane tensor, one entry per unique slot, every
 other slot zero, and fills the torus halo rows in the same pass. On the TPU
-this took a one-hot product per 512-slot chunk; on Hopper it is a direct
-indexed store, one thread per sorted entry, bound by memory traffic (each
-value moves once). The golden model is the scatter branch of
+this took a one-hot product per 512-slot chunk; on Hopper a block owns a
+chunk of whole cells (512 slots at K = 4), finds the chunk's run of sorted
+entries by a search of the sorted cell ids (the JAX wrapper's
+``search_key``), stages the run's payload rows, read through
+``pidx_sorted``, in shared memory by slot, and writes every element of its
+slots once, halo copies included: no zero fill, no gathered copy of the
+payload. The golden model is the scatter branch of
 :func:`..dense.bin_to_planes`, which it matches bit for bit; unlike the TPU
-kernel it never leaves an in-budget entry unplaced.
+kernel it never leaves an in-budget entry unplaced, however many
+over-budget entries a cell's run holds.
 
 :func:`place_planes` dispatches on the tensors' device: CPU tensors take
 :func:`place_planes_plain`; CUDA tensors launch the kernel, or raise.
@@ -24,49 +29,66 @@ from .. import dense as D
 __all__ = ["place_planes", "place_planes_plain", "launches"]
 
 launches = 0
+MAX_FIELDS = 32     # the kernel stages 512 slots x F floats a block
 
 
-def place_planes_plain(slot_sorted: torch.Tensor, pack_sorted: torch.Tensor,
+def place_planes_plain(cell_sorted: torch.Tensor, slot_sorted: torch.Tensor,
+                       pidx_sorted: torch.Tensor, pack: torch.Tensor,
                        g: int, k: int) -> torch.Tensor:
     """Plain PyTorch placement: (F, G + 2*ROW_PAD, L) planes, halo filled.
 
-    ``slot_sorted``: (N,) unpadded flat slots, ``G*L`` = not placed;
-    ``pack_sorted``: (N, F) float32 payload in the same order."""
+    The outputs of :func:`..dense.sort_bin`: ``cell_sorted`` (N,) the
+    entries' cell ids, ascending (``G*G`` for inactive entries);
+    ``slot_sorted`` (N,) unpadded flat slots, ``G*L`` = not placed, an
+    in-budget slot inside its entry's cell (``slot // K == cell``);
+    ``pidx_sorted`` (N,) the particle of each entry; ``pack`` (N, F) float32
+    payload in particle order. The placement follows from the slots alone:
+    ``cell_sorted`` only tells the kernel where a chunk's entries lie."""
+    del cell_sorted
     lanes = g * k
     rows = g + 2 * D.ROW_PAD
-    n_f = pack_sorted.shape[1]
+    n_f = pack.shape[1]
     out = torch.zeros((n_f, rows * lanes), dtype=torch.float32,
-                      device=pack_sorted.device)
+                      device=pack.device)
     ok = (slot_sorted >= 0) & (slot_sorted < g * lanes)
     slots = slot_sorted[ok].to(torch.int64) + D.ROW_PAD * lanes
-    out[:, slots] = pack_sorted[ok].T
+    out[:, slots] = pack[pidx_sorted[ok]].T
     return D.fill_halo(out.reshape(n_f, rows, lanes))
 
 
-def place_planes(slot_sorted: torch.Tensor, pack_sorted: torch.Tensor,
+def place_planes(cell_sorted: torch.Tensor, slot_sorted: torch.Tensor,
+                 pidx_sorted: torch.Tensor, pack: torch.Tensor,
                  g: int, k: int) -> torch.Tensor:
-    """(F, G + 2*ROW_PAD, L) planes from sorted slots + payload."""
-    dev = pack_sorted.device
+    """(F, G + 2*ROW_PAD, L) planes from the cell sort's outputs (see
+    :func:`place_planes_plain`)."""
+    dev = pack.device
     if dev.type == "cpu":
-        return place_planes_plain(slot_sorted, pack_sorted, g, k)
+        return place_planes_plain(cell_sorted, slot_sorted, pidx_sorted,
+                                  pack, g, k)
     if dev.type != "cuda":
         raise RuntimeError(f"place_planes: no kernel for device {dev}")
     from . import library
-    n, n_f = pack_sorted.shape
-    if (slot_sorted.shape != (n,) or pack_sorted.dtype != torch.float32
-            or slot_sorted.device != dev):
-        raise ValueError("place_planes: slot_sorted (N,) and float32 "
-                         "pack_sorted (N, F) on one device expected")
+    n, n_f = pack.shape
+    index = (cell_sorted, slot_sorted, pidx_sorted)
+    if (any(t.shape != (n,) or t.dtype != torch.int64 or t.device != dev
+            for t in index)
+            or pack.dtype != torch.float32 or not 0 < n_f <= MAX_FIELDS):
+        raise ValueError("place_planes: int64 cell_sorted, slot_sorted, "
+                         "pidx_sorted (N,) and float32 pack (N, F <= "
+                         f"{MAX_FIELDS}) on one device expected")
     if g < 2 * D.ROW_PAD:
         raise ValueError("place_planes: grid_dim must be at least 2*ROW_PAD")
-    slot32 = slot_sorted.to(torch.int32).contiguous()
-    pack = pack_sorted.contiguous()
+    if n * n_f >= 2 ** 31:
+        raise ValueError("place_planes: N * F must stay below 2^31")
+    cell_sorted, slot_sorted, pidx_sorted, pack = (
+        t.contiguous() for t in (*index, pack))
     lanes = g * k
-    out = torch.zeros((n_f, g + 2 * D.ROW_PAD, lanes), dtype=torch.float32,
+    out = torch.empty((n_f, g + 2 * D.ROW_PAD, lanes), dtype=torch.float32,
                       device=dev)
     lib = library.load()
-    err = lib.egg_place_planes(slot32.data_ptr(), pack.data_ptr(),
-                               out.data_ptr(), n, n_f, g, lanes, D.ROW_PAD,
+    err = lib.egg_place_planes(cell_sorted.data_ptr(), slot_sorted.data_ptr(),
+                               pidx_sorted.data_ptr(), pack.data_ptr(),
+                               out.data_ptr(), n, n_f, g, lanes, k, D.ROW_PAD,
                                library.stream_handle(dev))
     library.check("place_planes", err)
     global launches

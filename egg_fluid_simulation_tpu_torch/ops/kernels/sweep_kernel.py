@@ -43,8 +43,11 @@ accumulators per staged slot in shared memory for the partners' pushes
 partner walk and the pair arithmetic, not bytes (B 40 registers and 8 bytes
 spilled, D 62 and none, E 60 and none; see the sources); E's shared-memory
 float atomics are compare-and-swap loops and cost what its halved pair
-arithmetic saves at window 1. F runs one thread per slot and reads partners
-through L1/L2. The violence gate can stay on the device: ``wide`` (a 0-dim
+arithmetic saves at window 1. F uses the same tile at window 1: it lists
+the occupied slots (an empty tile writes its zeros and ends), stages one key
+a slot (``FIELD_IDX`` where occupied, -inf where not; 7.4 KB with the list
+at K = 4) and counts each listed slot's partners of larger key from shared
+memory. The violence gate can stay on the device: ``wide`` (a 0-dim
 tensor) selects window 3 + fresh mask when true, window 1 when false, and
 the kernel reads it itself; a launch with ``wide`` is sized for window 3.
 

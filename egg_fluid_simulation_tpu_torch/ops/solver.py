@@ -80,6 +80,7 @@ class SolverOptions:
     constructor call configures both packages, with one exception: the
     default ``engine`` is ``"dense"`` here, because the gather engine is not
     ported yet (``engine="gather"`` raises ``NotImplementedError``).
+    ``use_pallas`` is accepted and has no effect (see the field).
     ``dense_grid_dim`` / ``dense_slots`` / ``pop_caps`` take one int for
     both populations or a (white, yolk) tuple.
     """
@@ -91,7 +92,11 @@ class SolverOptions:
     cohesion_mode: str = "spacing"  # "spacing" (documented intent) | "literal"
     dense_grid_dim: Union[int, Tuple[int, int]] = 512  # G per population
     dense_slots: Union[int, Tuple[int, int]] = 4       # K per population
-    n_substeps: int = 2             # reference default, simulation_handler.lua:170
+    use_pallas: bool = True         # accepted for the JAX package's calls and
+                                    # ignored: the tensors' device decides
+                                    # (CUDA: the hand-written kernels; CPU:
+                                    # their plain versions)
+    n_substeps: int = 2            # reference default, simulation_handler.lua:170
     n_collision_steps: int = 3      # reference default, :171
     pop_caps: Optional[Union[int, Tuple[int, int]]] = None  # per-pop particle
                                     # slice; each must be >= the live count

@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from egg_fluid_simulation_tpu.ops import dense as jdense
 from egg_fluid_simulation_tpu.ops import grid as jgrid
 from egg_fluid_simulation_tpu.ops.pallas import place_kernel as jplace
@@ -85,37 +86,87 @@ def test_bin_to_planes_bit_identical(g, n, seed, use_placement):
         np.testing.assert_array_equal(tb.pidx_grid.numpy(), _np(jb.pidx_grid))
 
 
-@pytest.mark.parametrize("g", [32, 64])
-def test_place_planes_plain_matches_jax_kernel(g):
-    """Kernel A's plain version against the TPU placement kernel in
-    interpret mode, on a compacted (ascending-slot) input whose window spans
-    stay within the kernel's slack. The TPU kernel leaves the halo rows
-    empty for the caller's fill_halo; the port fills them, so its halo is
-    compared with fill_halo of the JAX output. Tolerance: none (copies)."""
-    pos, inv, rad, batch, act, aux = _particles(2500, 7)
-    k = 4
-    slot_sorted, pidx_sorted, _, pack = tdense.sort_bin(
-        torch.from_numpy(pos), torch.from_numpy(inv), torch.from_numpy(rad),
-        torch.from_numpy(batch), torch.from_numpy(act), torch.tensor(8.0),
-        grid_dim=g, slots_per_cell=k, aux_cols=torch.from_numpy(aux),
-        rotate=True)
-    order = torch.sort(slot_sorted, stable=True).indices    # compact
-    slots = slot_sorted[order]
-    pack_sorted = pack[pidx_sorted][order]
-    got = tplace.place_planes(slots, pack_sorted, g, k)     # CPU: plain
-    want = _np(jplace.place_planes(jnp.asarray(slots.numpy().astype(np.int32)),
-                                   jnp.asarray(pack_sorted.numpy()), g, k,
-                                   interpret=True))
-    n_f = pack.shape[1]
-    want = _np(jdense.fill_halo(jnp.asarray(want[:n_f])))
-    np.testing.assert_array_equal(got.numpy(), want)
+def _sorted_case(g, k, rotate, seed=0):
+    """``chip_smoke.place_shape_case`` through the port's cell sort: the
+    numpy inputs and ``sort_bin``'s outputs."""
+    c = chip_smoke.place_shape_case(g, k, seed + 10 * g + k)
+    t = {n: torch.from_numpy(np.asarray(v)) for n, v in c.items()}
+    out = tdense.sort_bin(t["pos"], t["inv_mass"], t["radius"], t["batch"],
+                          t["active"], t["cell"], grid_dim=g,
+                          slots_per_cell=k, aux_cols=t["aux"], rotate=rotate)
+    return c, out
+
+
+def _jax_search_key(cell_sorted, g, k):
+    """The JAX wrapper's monotone search key: ``cell * K + min(rank, K-1)``
+    (``G*L`` for inactive entries), from the sorted cell ids."""
+    cid = cell_sorted.numpy()
+    n = cid.shape[0]
+    starts = np.r_[0, np.flatnonzero(np.diff(cid)) + 1]
+    first = np.repeat(starts, np.diff(np.r_[starts, n]))
+    rank = np.arange(n) - first
+    return np.where(cid < g * g, cid * k + np.minimum(rank, k - 1),
+                    g * g * k).astype(np.int32)
+
+
+@pytest.mark.parametrize("rotate", [True, False], ids=["rotate", "ordered"])
+@pytest.mark.parametrize("g,k", [(16, 2), (20, 3), (32, 4)])
+def test_place_planes_plain_matches_jax_kernel(g, k, rotate):
+    """Kernel A's plain version, fed the cell sort's outputs (sorted cell
+    ids, slots, particle indices, payload in particle order), against the
+    TPU placement kernel in interpret mode fed the same sort with the JAX
+    wrapper's ``search_key`` (the cell-sorted order, over-budget entries
+    inside their cells' runs, inactive ones at the tail). The TPU kernel
+    leaves the halo rows to its caller, so the core rows are compared.
+    Tolerance: none (copies)."""
+    _, (slot_sorted, pidx_sorted, _, pack, cell_sorted) = _sorted_case(
+        g, k, rotate)
+    got = tplace.place_planes(cell_sorted, slot_sorted, pidx_sorted, pack,
+                              g, k)                          # CPU: plain
+    want = _np(jplace.place_planes(
+        jnp.asarray(slot_sorted.numpy().astype(np.int32)),
+        jnp.asarray(pack[pidx_sorted].numpy()), g, k, interpret=True,
+        search_key=jnp.asarray(_jax_search_key(cell_sorted, g, k))))
+    rp, n_f = tdense.ROW_PAD, pack.shape[1]
+    np.testing.assert_array_equal(got[:, rp:rp + g].numpy(),
+                                  want[:n_f, rp:rp + g])
+    assert (slot_sorted == g * g * k).sum() > 3 * (k + 5)   # over budget
+
+
+@pytest.mark.parametrize("rotate", [True, False], ids=["rotate", "ordered"])
+@pytest.mark.parametrize("g,k", chip_smoke.PLACE_SHAPES,
+                         ids=[f"G{g}K{k}" for g, k in chip_smoke.PLACE_SHAPES])
+def test_place_planes_plain_ragged_matches_golden_scatter(g, k, rotate):
+    """Kernel A's plain version at the ragged grids of the card's placement
+    check (``chip_smoke.PLACE_SHAPES``: K = 1 to 8, rows that a 512-slot
+    chunk straddles, G = 2*ROW_PAD), with crowds past K in the first row,
+    the last row and the middle, and an inactive tail: all planes, halo
+    included, and the aux columns equal the golden scatter branch of the
+    JAX package's ``bin_to_planes`` exactly."""
+    c, (slot_sorted, pidx_sorted, _, pack, cell_sorted) = _sorted_case(
+        g, k, rotate)
+    got = tplace.place_planes(cell_sorted, slot_sorted, pidx_sorted, pack,
+                              g, k)
+    jb = jdense.bin_to_planes(
+        *(jnp.asarray(c[n]) for n in ("pos", "inv_mass", "radius", "batch",
+                                      "active", "cell")),
+        grid_dim=g, slots_per_cell=k, aux_cols=jnp.asarray(c["aux"]),
+        rotate=rotate, use_placement=False)
+    np.testing.assert_array_equal(got[:tdense.N_FIELDS].numpy(),
+                                  _np(jb.planes))
+    np.testing.assert_array_equal(got[tdense.N_FIELDS:].numpy(), _np(jb.aux))
+    rp = tdense.ROW_PAD
+    occ = got[tdense.FIELD_OCC, rp:rp + g]
+    assert (occ[0] > 0).any() and (occ[-1] > 0).any()
+    assert (cell_sorted[-1] == g * g) and (slot_sorted == g * g * k).sum() > \
+        int((~torch.from_numpy(c["active"])).sum())
 
 
 def test_place_planes_rejects_unknown_devices():
     slots = torch.zeros(4, dtype=torch.int64, device="meta")
     pack = torch.zeros((4, 8), device="meta")
     with pytest.raises(RuntimeError):
-        tplace.place_planes(slots, pack, 16, 4)
+        tplace.place_planes(slots, slots, slots, pack, 16, 4)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

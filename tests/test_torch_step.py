@@ -160,7 +160,8 @@ def test_take_batch_rows_and_segment_sums():
 
 def test_unported_options_raise():
     """The gather engine is the one mode still unported; every dense-engine
-    mode of the JAX package builds, and unknown values are refused."""
+    mode of the JAX package builds, and unknown values are refused. The
+    port also refuses ``n_collision_steps < 1``, which JAX accepts."""
     with pytest.raises(NotImplementedError):
         tsolver.SolverOptions(engine="gather")
     for kw in (dict(budget_mode="ordered"), dict(budget_mode="off"),
@@ -186,10 +187,32 @@ def test_shared_option_defaults_match_jax():
     td = {f.name: f.default for f in dataclasses.fields(tsolver.SolverOptions)}
     shared = sorted(set(jd) & set(td))
     assert {"budget_mode", "dense_rebin", "cohesion_mode", "sweep_symmetric",
-            "stale_hash_compat", "wide_budget_substeps"} <= set(shared)
+            "stale_hash_compat", "wide_budget_substeps",
+            "use_pallas"} <= set(shared)
     assert {f: td[f] for f in shared if f != "engine"} == \
         {f: jd[f] for f in shared if f != "engine"}
     assert (jd["engine"], td["engine"]) == ("gather", "dense")
     j, t = jsolver.SolverOptions(engine="dense"), tsolver.SolverOptions()
+    assert {f: getattr(t, f) for f in shared} == \
+        {f: getattr(j, f) for f in shared}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(engine="dense", use_pallas=False, budget_mode="off",
+         dense_grid_dim=32, dense_slots=4, pop_caps=512),
+    dict(engine="dense", use_pallas=True, budget_mode="ordered",
+         dense_rebin="substep", dense_grid_dim=(64, 32), dense_slots=(4, 2),
+         wide_budget_substeps=0, sweep_symmetric=True),
+], ids=["pallas_off", "pallas_on"])
+def test_jax_written_options_build_in_both_packages(kw):
+    """A keyword set written for the JAX package (``use_pallas`` included)
+    builds the port's options too, and every field the two share takes the
+    same value. ``use_pallas`` has no effect in the port: the tensors'
+    device picks kernel or plain version."""
+    import dataclasses
+    j, t = jsolver.SolverOptions(**kw), tsolver.SolverOptions(**kw)
+    shared = ({f.name for f in dataclasses.fields(jsolver.SolverOptions)}
+              & {f.name for f in dataclasses.fields(tsolver.SolverOptions)})
+    assert set(kw) <= shared
     assert {f: getattr(t, f) for f in shared} == \
         {f: getattr(j, f) for f in shared}

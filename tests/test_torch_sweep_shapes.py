@@ -1,5 +1,6 @@
-"""The plain versions of kernels B, D and E at ragged shapes, where the card
-check ``chip_smoke.py`` (``check.sweep_shapes``) leans on them as oracles.
+"""The plain versions of kernels B, D, E and F at ragged shapes, where the
+card check ``chip_smoke.py`` (``check.sweep_shapes``) leans on them as
+oracles.
 
 The inputs are ``chip_smoke.sweep_shape_case``: small (G, K) grids that a
 tile of the CUDA kernels does not divide (one smaller than a tile in both
@@ -19,6 +20,10 @@ and an ordered cutoff that binds for half the slots.
   and, at the shapes the TPU kernel ``_sweep_pallas_sym`` takes in interpret
   mode (its row block divides G and holds its 8 spill rows), against that
   kernel with the same tolerance.
+- ``count_planes_plain`` (kernel F, the ordered budget's examined-pair
+  count) against the JAX golden model ``dense.count_planes_jnp`` and, where
+  its 32-row block divides G, against ``_count_pallas`` in interpret mode:
+  equal (small integers).
 - ``substep_pass_plain`` (kernel B) against a numpy reference written here
   from the pair formulas in float64, partner cell by partner cell on the
   torus (no lane offsets, no lane mask, no fixed summation order), with and
@@ -258,3 +263,38 @@ def test_substep_pass_plain_ragged_matches_cell_reference(g, k, fresh_mod,
     moved = np.abs(got.numpy() - c["xy"])
     for edge in (moved[:, 0], moved[:, -1], moved[:, :, 0], moved[:, :, -1]):
         assert float(edge.max()) > 0.1
+
+
+@pytest.mark.parametrize("g,k,fresh_mod", SHAPES)
+def test_count_planes_plain_ragged_matches_golden_model(g, k, fresh_mod):
+    """Kernel F's plain version (the examined-pair count of the ordered
+    budget) against the JAX golden model ``dense.count_planes_jnp`` at the
+    ragged grids of the card's check: equal (small integers). Seam slots
+    count partners across the torus edge in rows and lanes."""
+    c = _case(g, k, fresh_mod)
+    got = tsweep.count_planes_plain(torch.from_numpy(c["planes"]), k).numpy()
+    want = np.asarray(jax.block_until_ready(
+        jdense.count_planes_jnp(jnp.asarray(c["planes"]), k)))
+    np.testing.assert_array_equal(got, want)
+    occ = c["planes"][7, 8:8 + g] > 0
+    assert np.all(got[~occ] == 0) and got.max() >= 2
+    for edge in (got[0], got[-1], got[:, 0], got[:, -1]):
+        assert edge.max() > 0
+
+
+def _tpu_count_kernel_takes(g: int) -> bool:
+    """``_count_pallas`` cuts G into row blocks of min(32, G) rows that must
+    divide G."""
+    return g % min(jsweep._BLOCK_ROWS, g) == 0
+
+
+@pytest.mark.parametrize("g,k,fresh_mod", [
+    p for p in SHAPES if _tpu_count_kernel_takes(p.values[0])])
+def test_count_planes_plain_ragged_matches_tpu_kernel(g, k, fresh_mod):
+    """Kernel F's plain version against ``_count_pallas`` in interpret mode
+    at the ragged grids that kernel takes: equal."""
+    c = _case(g, k, fresh_mod)
+    got = tsweep.count_planes_plain(torch.from_numpy(c["planes"]), k).numpy()
+    want = np.asarray(jax.block_until_ready(
+        jsweep._count_pallas(jnp.asarray(c["planes"]), k, interpret=True)))
+    np.testing.assert_array_equal(got, want)
