@@ -39,6 +39,18 @@ Then it drives the paths through the public API:
   4 resident steps on the fused and on the plane-resident (symmetric
   sweep) variant, and 3 resident frames; ``warmup``: the state is
   unchanged by it.
+- ``gather_path``: an automatic handler at capacity 8192 (the gather
+  engine, plain PyTorch: no solver kernel) with ~8000 live particles,
+  ``update(1/60)`` x10 and an 800 x 600 ``draw`` (kernel C), then
+  ``run_steps(10)``; wall p50 by CUDA events, device ms and launches per
+  ``update`` from a ``utils.profiling.trace`` block, the collision budget's
+  drops; ``gather_reference``: the default 4k scene stepped once on the
+  card and on the CPU;
+- ``demo``: the demo session (``DemoState.run``, as ``run_demo``) for 60
+  frames on the card, a draw every 10th, then frames of update + draw
+  timed (CUDA events) and traced; ``checkpoint``: the demo's
+  handler saved mid-session, loaded on the CPU and on the card (state bit
+  for bit), one step on each (card vs CPU within the step tolerances).
 
 Kernel G (``splat_tiles``) has no caller on any path: it is checked alone
 (``check.splat_tiles``) on slot-major candidates built from the 1M scene's
@@ -85,6 +97,13 @@ RESIDENT_STEPS = 20         # run_steps on the 1M scene
 RESIDENT_FRAMES = 3         # multi_step_frames on the 1M scene
 RESIDENT_REF_STEPS = 4      # run_steps of the calm 4k lattice, card vs CPU
 RESIDENT_REF_FRAMES = 3     # multi_step_frames of the same, card vs CPU
+GATHER_CAPACITY = 8192      # the top of the gather engine's range
+GATHER_BATCHES = 8          # of 900 white + 90 yolk: ~8000 live particles
+GATHER_UPDATES = 10         # update(1/60) calls of gather_path
+GATHER_RESIDENT = 10        # run_steps of gather_path
+DEMO_FRAMES = 60            # run_demo's session on the card
+DEMO_DRAW_EVERY = 10
+VEL_TOL = 0.2               # px/s, card vs CPU
 
 # Peak rates of one H100 SXM (vendor datasheet): HBM3 bytes/s and
 # FP32 operations/s outside the tensor cores. A kernel's bound is the larger
@@ -368,6 +387,65 @@ def lattice_handler(device, **overrides):
         vel=torch.from_numpy(vel.astype(np.float32)).to(device),
         batch_radius=torch.full_like(st.batch_radius, 65536.0))
     return h
+
+
+def gather_handler(device):
+    """An automatic handler at capacity 8192 (the gather engine, the JAX
+    handler's rule) with 8 batches of 900 white + 90 yolk on a 4 x 2 grid
+    200 px apart, each spawned a little denser than the default area per
+    particle (a mild spawn transient)."""
+    from egg_fluid_simulation_tpu_torch import (SimulationHandler,
+                                                default_white_config,
+                                                default_yolk_config)
+    h = SimulationHandler(default_white_config(), default_yolk_config(),
+                          capacity=GATHER_CAPACITY, max_batches=16,
+                          device=device)
+    h.add_many([dict(x=100.0 + 200.0 * (b % 4), y=150.0 + 300.0 * (b // 4),
+                     white_radius=100.0, yolk_radius=30.0,
+                     white_n_particles=900, yolk_n_particles=90)
+                for b in range(GATHER_BATCHES)])
+    return h
+
+
+def default_scene(device):
+    """The default 4k scene: ``SimulationHandler(cfg)`` (capacity 4096, the
+    gather engine) with four default-sized batches at seeded places."""
+    from egg_fluid_simulation_tpu_torch import (SimulationHandler,
+                                                default_white_config,
+                                                default_yolk_config)
+    h = SimulationHandler(default_white_config(), default_yolk_config(),
+                          device=device)
+    rng = np.random.RandomState(SEED)
+    h.add_many([dict(x=float(x), y=float(y))
+                for x, y in rng.uniform(100.0, 700.0, (4, 2))])
+    return h
+
+
+def traced(fn, n: int) -> dict:
+    """One block of ``fn`` (``n`` units of work) under
+    ``utils.profiling.trace``: device ms (sum of the CUDA kernel events),
+    kernels and busy share per unit, and the wall time of the block."""
+    import tempfile
+    import torch
+    from egg_fluid_simulation_tpu_torch.utils.profiling import trace
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return dict(device_ms=dev_ms / n, kernels=len(kernels) / n,
+                profiled_wall_ms=wall / n,
+                busy_share=dev_ms / wall if wall else None)
+
+
+def state_err(a: dict, b: dict) -> dict:
+    """Max abs difference of two host views' pos, prev, vel."""
+    return {f: float(np.abs(a[f] - b[f]).max()) for f in ("pos", "prev", "vel")}
 
 
 def render_frame_fn(h, viewport, audits=None):
@@ -720,6 +798,57 @@ def splat_case(h, pop: int, post_mode: str, use_rgb: bool):
         h.stats.centroid[pop], torch.tensor(0.5, device=dev),
         cfg.texture_scale, cfg.motion_blur, opts)
     return payload, counts, opts, audit
+
+
+def check_path_splat(h, phase: str, results) -> None:
+    """Kernel C against its plain version on the inputs ``draw`` gives it at
+    the handler's current state: each population's payload at the frame's
+    render options (budget boost included), with the state's colours, the
+    interpolation alpha and the interpolated centroid. Alpha as the frame
+    draws it (rgb when the handler accumulates particle colour), then once
+    more with rgb on the state's colours (the demo's per-batch yolk
+    colours). Raises on a disagreement beyond ``SPLAT_TOL``."""
+    import dataclasses
+    import torch
+    from egg_fluid_simulation_tpu_torch.config import population_config
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
+    st, stats = h.state, h.stats
+    a = torch.tensor(h.interpolation_alpha, dtype=torch.float32,
+                     device=st.device)
+    active = st.active_mask()
+    opts2 = R.frame_options(h)
+    errs = {}
+    for pop, name in ((0, "white"), (1, "yolk")):
+        cap = min(h._options.pop_caps[pop], st.capacity)
+        cfg = population_config(h._device_cfg2(), pop)
+        frame_opts = opts2[pop]
+        center = (stats.last_centroid[pop]
+                  + (stats.centroid[pop] - stats.last_centroid[pop]) * a)
+        for use_rgb in sorted({frame_opts.use_particle_color, True}):
+            opts = dataclasses.replace(frame_opts, use_particle_color=use_rgb)
+            payload, audit, counts = R._splat_payload(
+                st.pos[pop, :cap], st.last_pos[pop, :cap], st.vel[pop, :cap],
+                st.radius[pop, :cap], st.color[pop, :cap], active[pop, :cap],
+                center, a, cfg.texture_scale, cfg.motion_blur, opts)
+            got = SPK.splat(payload, counts, opts, use_rgb)
+            want = SPK.splat_plain(payload, counts, opts, use_rgb)
+            err = float((got[0] - want[0]).abs().max())
+            if use_rgb:
+                err = max(err, float((got[1] - want[1]).abs().max()))
+            errs[f"{name}{'.rgb' if use_rgb else ''}"] = err
+            if not (err <= SPLAT_TOL and int(audit[0]) == 0
+                    and float(want[0].max()) > 0.0):
+                raise AssertionError(
+                    f"{phase}: splat disagrees with its plain version "
+                    f"({name}, rgb={use_rgb}, err {err}, dropped "
+                    f"{int(audit[0])})")
+    log(f"check.splat.{phase}", canvas=[o.canvas_size for o in opts2],
+        tile=[f"{o.tile_h}x{o.tile_w}" for o in opts2],
+        K=[o.tile_capacity for o in opts2], post_mode=opts2[0].post_mode,
+        max_abs_err=errs, tol=SPLAT_TOL)
+    r = results.setdefault("splat", dict(max_abs_err=0.0))
+    r["max_abs_err"] = max([r["max_abs_err"], *errs.values()])
 
 
 def splat_inside_pairs(payload, counts, opts) -> float:
@@ -1112,6 +1241,179 @@ def plane_launches(opts, n_steps: int) -> dict:
             "sweep_planes_sym": sweep if opts.sweep_symmetric else 0}
 
 
+def gather_phases(dev, results) -> None:
+    """``gather_path``, ``gather_reference``, ``demo`` and ``checkpoint``:
+    the gather engine (plain PyTorch) on the card, with kernel C in every
+    draw, held against its plain version on the draw's own inputs. Each
+    raises on a failed check."""
+    import os
+    import tempfile
+    import torch
+    from egg_fluid_simulation_tpu_torch import checkpoint
+    from egg_fluid_simulation_tpu_torch.demo import DemoState
+    from egg_fluid_simulation_tpu_torch.interop import state_to_numpy
+    from egg_fluid_simulation_tpu_torch.utils.profiling import (
+        collision_drop_stats, validate_state)
+
+    # ---- gather path: update x10 + draw, then run_steps, counters from 0 ----
+    hg = gather_handler(dev)
+    opts = hg._options
+    torch.cuda.synchronize()
+    reset_counters()
+    wall_ms, host_ms = [], []
+    for _ in range(GATHER_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        hg.update(1 / 60)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall_ms.append(ev0.elapsed_time(ev1))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    frame = hg.draw(viewport=(0, 0, 800, 600))
+    torch.cuda.synchronize()
+    path_launches = read_counters()
+    audit = hg.render_audit
+    validate_state(hg)
+    check_path_splat(hg, "gather_path", results)
+    reset_counters()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    hg.run_steps(GATHER_RESIDENT)
+    ev1.record()
+    torch.cuda.synchronize()
+    run_steps_ms = ev0.elapsed_time(ev1) / GATHER_RESIDENT
+    res_launches = read_counters()
+    validate_state(hg)
+    prof = traced(lambda: [hg.update(1 / 60) for _ in range(5)], 5)
+    drops = collision_drop_stats(hg)
+    log("gather_path", engine=opts.engine, table_size=opts.table_size,
+        slots_per_cell=opts.slots_per_cell, budget_mode=opts.budget_mode,
+        pop_caps=opts.pop_caps, particles=hg.get_n_particles(),
+        update_wall_ms=[round(x, 3) for x in wall_ms],
+        update_wall_p50_ms=round(float(np.median(wall_ms)), 3),
+        update_host_p50_ms=round(float(np.median(host_ms)), 3),
+        run_steps_ms_per_step=round(run_steps_ms, 3),
+        device_ms_per_update=round(prof["device_ms"], 3),
+        launches_per_update=prof["kernels"],
+        busy_share=round(prof["busy_share"], 3),
+        profiled_wall_ms=round(prof["profiled_wall_ms"], 3),
+        budget_dropped_pairs={k: v["budget_dropped_pairs"]
+                              for k, v in drops.items()},
+        budget_pairs={k: v["budget_pairs"] for k, v in drops.items()},
+        slot_drop_pct={k: round(v["drop_pct"], 3) for k, v in drops.items()},
+        frame=tuple(frame.shape),
+        frame_finite=bool(torch.isfinite(frame).all()),
+        render_dropped=audit[:, 0].tolist(), launches=path_launches)
+    if not (opts.engine == "gather" and opts.table_size == 16384
+            and sum(hg.get_n_particles()) >= 7900):
+        raise AssertionError(f"gather path: options {opts}")
+    if int(audit[:, 0].sum()) != 0 or not bool(torch.isfinite(frame).all()):
+        raise AssertionError("gather path: render dropped particles or the "
+                             "frame is not finite")
+    solver_kernels = {n: v for n, v in path_launches.items()
+                      if n not in ("splat",)}
+    if path_launches["splat"] < 2 or any(solver_kernels.values()) \
+            or any(res_launches.values()):
+        raise AssertionError(f"gather path: launch counts {path_launches}, "
+                             f"after run_steps {res_launches}")
+
+    # ---- gather reference: the default 4k scene, card vs CPU, one step ----
+    out = []
+    for device in (dev, torch.device("cpu")):
+        hr = default_scene(device)
+        hr.step_once()
+        validate_state(hr)
+        out.append(state_to_numpy(hr.state))
+    err = state_err(*out)
+    moved = float(np.abs(out[0]["pos"] - out[0]["last_pos"]).max())
+    log("gather_reference", engine=hr._options.engine,
+        table_size=hr._options.table_size, particles=int(out[0]["count"].sum()),
+        max_abs_err=err, tol=f"pos/prev {REF_TOL} px, vel {VEL_TOL} px/s",
+        moved_px=moved)
+    if not (err["pos"] <= REF_TOL and err["prev"] <= REF_TOL
+            and err["vel"] <= VEL_TOL and moved > 0.0
+            and hr._options.engine == "gather"):
+        raise AssertionError("gather engine on the card disagrees with the CPU")
+
+    # ---- demo: the run_demo session on the card, a draw every 10th frame ----
+    demo = DemoState(seed=SEED, capacity=GATHER_CAPACITY, device=dev)
+    drawn = []
+    draw = demo.draw
+
+    def checked_draw():
+        f = draw()
+        drawn.append((bool(np.isfinite(f).all()),
+                      int(demo.handler.render_audit[:, 0].sum())))
+        return f
+
+    demo.draw = checked_draw
+    t0 = time.perf_counter()
+    stats = demo.run(DEMO_FRAMES, draw_every=DEMO_DRAW_EVERY)
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    validate_state(demo.handler)
+    n_drawn = len(drawn)
+
+    def frames(n):
+        for _ in range(n):
+            demo.update(1 / 60)
+            demo.draw()
+
+    frame_ms = []
+    for _ in range(3):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        frames(1)
+        ev1.record()
+        torch.cuda.synchronize()
+        frame_ms.append(ev0.elapsed_time(ev1))
+    prof = traced(lambda: frames(3), 3)
+    check_path_splat(demo.handler, "demo", results)     # after a draw
+    log("demo", frames=DEMO_FRAMES, engine=demo.handler._options.engine,
+        seconds=round(demo_s, 3), overlay=stats, draws=n_drawn,
+        frames_finite=all(d[0] for d in drawn),
+        render_dropped=sum(d[1] for d in drawn),
+        frame_wall_ms=[round(x, 3) for x in frame_ms],
+        device_ms_per_frame=round(prof["device_ms"], 3),
+        launches_per_frame=prof["kernels"],
+        busy_share=round(prof["busy_share"], 3))
+    if not (n_drawn == DEMO_FRAMES // DEMO_DRAW_EVERY
+            and all(d[0] and d[1] == 0 for d in drawn)
+            and demo.handler._options.engine == "gather"):
+        raise AssertionError(f"demo: draws {drawn}")
+
+    # ---- checkpoint: the demo's card handler, loaded on the CPU and on the
+    # card, bit for bit; one step on each, card vs CPU ----
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "demo.npz")
+        checkpoint.save(demo.handler, path)
+        saved = state_to_numpy(demo.handler.state)
+        loaded = {"card": checkpoint.load(path, device=dev),
+                  "cpu": checkpoint.load(path, device="cpu")}
+    exact = all(np.array_equal(state_to_numpy(h.state)[f], v)
+                and state_to_numpy(h.state)[f].dtype == v.dtype
+                for h in loaded.values() for f, v in saved.items())
+    same_opts = all(h._options == demo.handler._options
+                    for h in loaded.values())
+    for h in loaded.values():
+        h.update(1 / 60)
+        validate_state(h)
+    after = [state_to_numpy(loaded[d].state) for d in ("card", "cpu")]
+    err = state_err(*after)
+    log("checkpoint", loaded_bit_exact=exact, same_options=same_opts,
+        particles=demo.handler.get_n_particles(), max_abs_err=err,
+        tol=f"pos/prev {REF_TOL} px, vel {VEL_TOL} px/s")
+    if not (exact and same_opts and err["pos"] <= REF_TOL
+            and err["prev"] <= REF_TOL and err["vel"] <= VEL_TOL):
+        raise AssertionError("checkpoint: the loaded state differs, or card "
+                             "and CPU disagree after a step")
+
+
 def main() -> int:
     import torch
     card = nvidia_smi()
@@ -1481,6 +1783,8 @@ def main() -> int:
         wide_state=[[int(v) for v in w] for w in hw._wide_state])
     if not (unchanged and hw.interpolation_alpha == alpha0 == 0.5):
         raise AssertionError("warmup changed the simulation state")
+
+    gather_phases(dev, results)
 
     launches.update(count_planes=plane_launches_run["count_planes"],
                     sweep_planes=plane_launches_run["sweep_planes"],

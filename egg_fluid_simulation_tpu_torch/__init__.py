@@ -9,21 +9,25 @@ hold it against.
 Public surface::
 
     from egg_fluid_simulation_tpu_torch import (
-        SimulationHandler, SolverOptions,
+        SimulationHandler, SolverOptions, Path,
         default_white_config, default_yolk_config, fluid_config,
     )
+
+plus the modules ``checkpoint`` (npz save / load, the JAX package's format)
+and ``demo`` (the scripted demo session and its command line).
 """
 
 from .config import (default_white_config, default_yolk_config, fluid_config,
                      CONFIG_SCHEMA)
 from .handler import SimulationHandler
 from .ops.solver import SolverOptions
+from .path import Path
 from .state import ParticleState, StepStats, WHITE, YOLK
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "SimulationHandler", "SolverOptions",
+    "SimulationHandler", "SolverOptions", "Path",
     "default_white_config", "default_yolk_config", "fluid_config",
     "CONFIG_SCHEMA", "ParticleState", "StepStats", "WHITE", "YOLK",
 ]

@@ -138,15 +138,16 @@ class SimulationHandler:
         self._reinitialize()
 
     def _auto_options(self, counts) -> SolverOptions:
-        """Solver options sized to the live particle counts.
+        """Solver options sized to the live particle counts (the JAX
+        handler's rule).
 
-        The dense engine at EVERY capacity: the JAX package picks its exact
-        gather engine below capacity 16384, which is not ported yet. The
-        ordered budget is off, as the JAX package sets it at dense-engine
-        scale (it costs a counting sweep and only binds below ~360 live
-        particles), so these handlers run the fused path. Per-population
-        slice caps and grids are powers of two; the grid has ``g^2 >= cap``
-        cells of K = 4 slots."""
+        Below capacity 16384 the exact gather engine with the ordered budget
+        and ``table_size = max(2048, min(16384, 2^ceil(log2(2 * max cap))))``;
+        at 16384 and above the dense engine with the budget off (it costs a
+        counting sweep and only binds below ~360 live particles), so those
+        handlers run the fused path, on a grid of ``g^2 >= cap`` cells of
+        K = 4 slots. Per-population slice caps are powers of two; a re-size
+        keeps every field but the derived ones."""
         caps, grids = [], []
         for pop in (WHITE, YOLK):
             n = max(int(counts[pop]), 1)
@@ -159,14 +160,18 @@ class SimulationHandler:
             grids.append(g)
         kw = {}
         if hasattr(self, "_options"):
-            # keep every tuning field; only the capacity-derived ones change
-            derived = {"dense_grid_dim", "dense_slots", "pop_caps",
-                       "budget_mode"}
+            derived = {"engine", "table_size", "dense_grid_dim",
+                       "dense_slots", "pop_caps", "budget_mode"}
             kw = {f.name: getattr(self._options, f.name)
                   for f in dataclasses.fields(SolverOptions)
                   if f.name not in derived}
-        return SolverOptions(dense_grid_dim=tuple(grids), dense_slots=4,
-                             budget_mode="off", pop_caps=tuple(caps), **kw)
+        if self._capacity >= 16384:
+            return SolverOptions(engine="dense", dense_grid_dim=tuple(grids),
+                                 dense_slots=4, budget_mode="off",
+                                 pop_caps=tuple(caps), **kw)
+        table = max(2048, min(16384, 1 << int(math.ceil(math.log2(2 * max(caps))))))
+        return SolverOptions(engine="gather", table_size=table,
+                             pop_caps=tuple(caps), **kw)
 
     def _refresh_auto_options(self) -> None:
         if self._auto_opts:

@@ -1,15 +1,125 @@
-"""Run-length helpers over sorted keys, and pair counting.
+"""Neighbour search: the gather engine's hash grid, run-length helpers over
+sorted keys, and pair counting.
 
-Only what the dense binning and the render binning need from
-``egg_fluid_simulation_tpu/ops/grid.py``; the gather engine's hash grid is
-not ported yet.
+The counterpart of ``egg_fluid_simulation_tpu/ops/grid.py``. The gather
+engine's grid (reference ``simulation_handler.lua:1474-1511``) is
+sort-based:
+
+1. integer cell coords ``floor(pos / cell_size)`` (:1494-1495),
+2. a multiplicative XOR hash of the cell coords into a power-of-two table
+   (a well-mixed bucket index in place of the reference's Szudzik pairing),
+3. one stable sort by bucket and the rank of each particle in its bucket,
+4. a scatter into a dense ``(table_size + 1, K)`` slot table. Particles past
+   ``K`` in a bucket are dropped: the static-capacity analog of the
+   reference's collision budget (:1749-1753, :1656-1658).
+
+Bucket collisions only add candidates that the solver's true 3x3 cell test
+rejects. The table and the candidate lists are bit-identical to the JAX
+package's.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["segmented_rank", "segment_extent", "count_pairs"]
+__all__ = ["CellGrid", "build_grid", "neighbor_candidates",
+           "NEIGHBOR_OFFSETS", "segmented_rank", "segment_extent",
+           "count_pairs"]
+
+# the JAX package's multiplicative hash constants (uint32 products there)
+_HASH_X = 0x9E3779B1
+_HASH_Y = 0x85EBCA77
+_U32 = 0xFFFFFFFF
+
+# 3x3 neighborhood, matching the reference's cell scan at :1568-1569.
+NEIGHBOR_OFFSETS = [(-1, -1), (-1, 0), (-1, 1),
+                    (0, -1), (0, 0), (0, 1),
+                    (1, -1), (1, 0), (1, 1)]
+
+
+_OFFSETS = {}
+
+
+def _offsets(device) -> torch.Tensor:
+    """``NEIGHBOR_OFFSETS`` as a (2, 9) int64 tensor on ``device`` (dx row,
+    dy row), made once a device."""
+    off = _OFFSETS.get(device)
+    if off is None:
+        off = _OFFSETS[device] = torch.tensor(
+            NEIGHBOR_OFFSETS, dtype=torch.int64, device=device).T.contiguous()
+    return off
+
+
+class CellGrid(NamedTuple):
+    table: torch.Tensor     # (table_size + 1, K) i32, -1 = empty slot
+    cell_xy: torch.Tensor   # (N, 2) i32 cell coords per particle
+    table_size: int
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x mod 2^32) * c mod 2^32`` in int64 without overflow: the product
+    is split at 16 bits of ``x``, so no partial product passes 2^48."""
+    x = x.to(torch.int64) & _U32
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _U32
+
+
+def _bucket_of(cell_x: torch.Tensor, cell_y: torch.Tensor,
+               table_size: int) -> torch.Tensor:
+    """The JAX package's bucket: the cell coords as uint32 (two's
+    complement for negative coords) times the hash constants mod 2^32,
+    XOR-ed and masked to the table. (N,) int32."""
+    h = _mul_u32(cell_x, _HASH_X) ^ _mul_u32(cell_y, _HASH_Y)
+    return (h & (table_size - 1)).to(torch.int32)
+
+
+def build_grid(pos: torch.Tensor, active: torch.Tensor,
+               cell_size: torch.Tensor, *, table_size: int,
+               slots_per_cell: int) -> CellGrid:
+    """Hash-grid slot table of ``pos`` (N, 2): the first ``slots_per_cell``
+    particles of each bucket, in particle order; inactive particles go to
+    the sentinel row ``table_size``, never queried."""
+    cell_xy = torch.floor(pos / cell_size).to(torch.int32)
+    bucket = _bucket_of(cell_xy[:, 0], cell_xy[:, 1], table_size)
+    bucket = torch.where(active, bucket, table_size)
+    # stable, as the JAX package's lax.sort_key_val: a bucket keeps its
+    # first K particles in particle order
+    bucket_sorted, idx_sorted = torch.sort(bucket, stable=True)
+    rank = segmented_rank(bucket_sorted)
+    k = slots_per_cell
+    # rank >= K goes to a dump row past the table, cut off below
+    flat = torch.where(rank < k, bucket_sorted.to(torch.int64) * k + rank,
+                       (table_size + 1) * k)
+    table = torch.full(((table_size + 2) * k,), -1, dtype=torch.int32,
+                       device=pos.device)
+    table[flat] = idx_sorted.to(torch.int32)
+    table = table[:(table_size + 1) * k].reshape(table_size + 1, k)
+    return CellGrid(table=table, cell_xy=cell_xy, table_size=table_size)
+
+
+def neighbor_candidates(grid: CellGrid) -> torch.Tensor:
+    """(N, 9 * K) int32 candidate particle indices per particle, -1 = empty.
+
+    The 3x3 scan around each particle's own cell (reference :1568-1573).
+    Distinct cells can hash to the same bucket; the reference's Szudzik
+    pairing (:1474-1483) never visits a cell twice, so a bucket repeated
+    within a particle's 9 is masked after its first visit."""
+    off = _offsets(grid.cell_xy.device)                          # (2, 9)
+    cxy = grid.cell_xy.to(torch.int64)
+    buckets = _bucket_of(cxy[:, 0, None] + off[0], cxy[:, 1, None] + off[1],
+                         grid.table_size)                          # (N, 9)
+    n_off = len(NEIGHBOR_OFFSETS)
+    earlier = torch.tril(torch.ones((n_off, n_off), dtype=torch.bool,
+                                    device=buckets.device), diagonal=-1)
+    dup = ((buckets[:, :, None] == buckets[:, None, :])
+           & earlier[None]).any(dim=2)                             # (N, 9)
+    cand = grid.table.index_select(0, buckets.reshape(-1).to(torch.int64)) \
+        .reshape(*buckets.shape, grid.table.shape[1])              # (N, 9, K)
+    cand = torch.where(dup[:, :, None], -1, cand)
+    return cand.reshape(cand.shape[0], -1)
 
 
 def _run_bounds(sorted_keys: torch.Tensor):

@@ -1,7 +1,11 @@
-"""XPBD solver core: the dense engine.
+"""XPBD solver core: the gather engine and the dense engine.
 
-The counterpart of ``egg_fluid_simulation_tpu/ops/solver.py``'s dense
-engine, reference pipeline ``simulation_handler.lua:1324-1990``. Three
+The counterpart of ``egg_fluid_simulation_tpu/ops/solver.py``, reference
+pipeline ``simulation_handler.lua:1324-1990``. The gather engine
+(``engine="gather"``, the default, and the handler's choice below capacity
+16384) runs the particle-layout :func:`substep` with a fresh hash grid and
+an exact candidate sweep per collision pass (:func:`solve_pairs`, plain
+PyTorch, as the JAX package's is plain XLA). The dense engine has three
 routes, chosen by :class:`SolverOptions` as in the JAX package:
 
 - the fused component path (``budget_mode="off"``, ``dense_rebin="step"``,
@@ -46,10 +50,12 @@ from ..config import DeviceConfig, population_config
 from ..state import ParticleState, StepStats
 from ..utils.mathx import EPS, torch_mix
 from . import dense as dense_ops
+from . import grid as grid_ops
 from .kernels import sweep_kernel
 
 __all__ = ["SolverOptions", "step", "multi_step", "multi_step_frames",
-           "substep", "pre_solve", "solve_follow", "solve_pairs_dense",
+           "substep", "pre_solve", "solve_follow", "solve_pairs",
+           "solve_pairs_dense", "post_solve",
            "strength_to_compliance", "take_batch_rows", "batch_segment_sums",
            "wide_state_init", "host_syncs", "rebins"]
 
@@ -76,28 +82,30 @@ def _per_pop(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
 class SolverOptions:
     """Static solver configuration.
 
-    Field names, meanings and defaults are the JAX package's, so one
-    constructor call configures both packages, with one exception: the
-    default ``engine`` is ``"dense"`` here, because the gather engine is not
-    ported yet (``engine="gather"`` raises ``NotImplementedError``).
-    ``use_pallas`` is accepted and has no effect (see the field).
-    ``dense_grid_dim`` / ``dense_slots`` / ``pop_caps`` take one int for
-    both populations or a (white, yolk) tuple.
+    Field names, order, meanings, defaults and checks are the JAX package's,
+    so one constructor call configures both packages. ``use_pallas`` is
+    accepted and has no effect (see the field). ``dense_grid_dim`` /
+    ``dense_slots`` / ``pop_caps`` take one int for both populations or a
+    (white, yolk) tuple.
     """
-    engine: str = "dense"
-    budget_mode: str = "ordered"    # "ordered" (reference 0.05 n^2 cutoff) | "off"
-    dense_rebin: str = "step"       # "step" (one binning per step) |
-                                    # "substep" (per substep) | "pass" (per
-                                    # collision pass, strict)
+    table_size: int = 1 << 14       # gather engine: grid buckets, power of two
+    slots_per_cell: int = 16        # gather engine: K, per-cell capacity cap
     cohesion_mode: str = "spacing"  # "spacing" (documented intent) | "literal"
-    dense_grid_dim: Union[int, Tuple[int, int]] = 512  # G per population
-    dense_slots: Union[int, Tuple[int, int]] = 4       # K per population
+    budget_mode: str = "ordered"    # "ordered" (reference 0.05 n^2 cutoff) | "off"
+    pair_chunk: int = 1 << 15       # gather engine: particles a sweep chunk
+                                    # (caps the (chunk, 9K, 6) gathered block)
+    engine: str = "gather"          # "gather" (exact, small N) | "dense" (big N)
+    dense_grid_dim: Union[int, Tuple[int, int]] = 512  # dense: G per population
+    dense_slots: Union[int, Tuple[int, int]] = 4       # dense: K per population
     use_pallas: bool = True         # accepted for the JAX package's calls and
                                     # ignored: the tensors' device decides
                                     # (CUDA: the hand-written kernels; CPU:
                                     # their plain versions)
-    n_substeps: int = 2            # reference default, simulation_handler.lua:170
-    n_collision_steps: int = 3      # reference default, :171
+    dense_rebin: str = "step"       # "step" (one binning per step) |
+                                    # "substep" (per substep) | "pass" (per
+                                    # collision pass, strict)
+    n_substeps: int = 2             # reference default, simulation_handler.lua:170
+    n_collision_steps: int = 3      # reference default, :171; 0 runs no pass
     pop_caps: Optional[Union[int, Tuple[int, int]]] = None  # per-pop particle
                                     # slice; each must be >= the live count
     adaptive_rebin: bool = True     # multi_step: keep the binned layout
@@ -118,14 +126,10 @@ class SolverOptions:
     stale_hash_compat: bool = False # the reference's substep-stale pair set:
                                     # substeps after a step's first run one
                                     # collision pass fewer (reference
-                                    # :1905-1912)
+                                    # :1905-1912); dense engine only
 
     def __post_init__(self):
-        if self.engine == "gather":
-            raise NotImplementedError(
-                "SolverOptions.engine='gather': the gather engine is not "
-                "ported to egg_fluid_simulation_tpu_torch")
-        for name, allowed in (("engine", ("dense",)),
+        for name, allowed in (("engine", ("gather", "dense")),
                               ("budget_mode", ("ordered", "off")),
                               ("dense_rebin", ("step", "substep", "pass")),
                               ("cohesion_mode", ("spacing", "literal"))):
@@ -133,8 +137,14 @@ class SolverOptions:
                 raise ValueError(f"SolverOptions.{name}="
                                  f"{getattr(self, name)!r}: expected one of "
                                  f"{allowed}")
-        if self.n_collision_steps < 1:
-            raise ValueError("n_collision_steps must be >= 1")
+        if self.table_size < 1 or self.table_size & (self.table_size - 1):
+            raise ValueError(f"SolverOptions.table_size={self.table_size}: "
+                             f"must be a power of two")
+        if self.stale_hash_compat and self.engine != "dense":
+            raise ValueError("SolverOptions.stale_hash_compat emulates the "
+                             "reference's substep-stale pair set on the dense "
+                             "engine's frozen-membership passes: it needs "
+                             "engine='dense'")
         object.__setattr__(self, "dense_grid_dim", _per_pop(self.dense_grid_dim))
         object.__setattr__(self, "dense_slots", _per_pop(self.dense_slots))
         if self.pop_caps is not None:
@@ -460,6 +470,7 @@ def _fused_component_path(options: SolverOptions) -> bool:
     test without its TPU condition: the port runs it on every device)."""
     return (options.budget_mode == "off"
             and not options.sweep_symmetric
+            and options.n_collision_steps >= 1
             and not (options.stale_hash_compat
                      and options.n_collision_steps < 2))
 
@@ -722,6 +733,144 @@ def solve_follow(pos, inv_mass, batch_slot, active, batch_target,
     return pos + torch.stack([dx, dy], dim=1)
 
 
+def _pair_candidates(pos, active, cell_size, options: SolverOptions):
+    """The gather engine's candidates of one pass: ``(grid, cand, valid)``,
+    the hash grid, the candidate indices ``cand`` (N, 9K) of each
+    particle's 3x3 buckets, and ``valid``, the live candidates of live
+    particles other than the particle itself. A pair also needs the TRUE
+    3x3 cell test, ``_in_cells``."""
+    grid = grid_ops.build_grid(pos, active, cell_size,
+                               table_size=options.table_size,
+                               slots_per_cell=options.slots_per_cell)
+    cand = grid_ops.neighbor_candidates(grid)
+    self_idx = torch.arange(pos.shape[0], dtype=torch.int32,
+                            device=pos.device)[:, None]
+    valid = (cand >= 0) & (cand != self_idx) & active[:, None]
+    return grid, cand, valid
+
+
+def _in_cells(cell_xy, safe, lo: int = 0):
+    """The TRUE 3x3 cell test of the candidates ``safe`` (C, 9K, indices
+    clamped to >= 0) of particles [lo, lo + C). A bucket collision can
+    admit a far cell whose particles still sit within the collision radius
+    (the reference's cell size under-covers it, :1756-1760); the cell test
+    keeps the pair set the reference's (an injective Szudzik hash)."""
+    o_cells = cell_xy.index_select(0, safe.reshape(-1)).reshape(
+        *safe.shape, 2)                                          # (C, 9K, 2)
+    me = cell_xy[lo:lo + safe.shape[0], None, :]
+    return ((torch.abs(o_cells[..., 0] - me[..., 0]) <= 1)
+            & (torch.abs(o_cells[..., 1] - me[..., 1]) <= 1))
+
+
+def _ordered_budget(grid, cand, valid, active):
+    """The reference's ordered collision budget (:1749-1753, :1656-1658):
+    ``(new_pairs, cum, max_pairs)``. Each pass examines unique pairs in
+    particle order and stops after ``max_pairs = 0.05 * n_live^2``; a pair
+    (p, q) is first examined while processing min(p, q), so its rank is the
+    count of pairs first seen at earlier particles: the exclusive prefix
+    ``cum`` of ``new_pairs``, each particle's pairs in its true 3x3 cells
+    with later particles. The float32 prefix counts exactly below 2^24."""
+    n_live = torch.sum(active).to(torch.float32)
+    max_pairs = torch.tensor(0.05, dtype=torch.float32,
+                             device=n_live.device) * n_live * n_live
+    near = _in_cells(grid.cell_xy, torch.clamp(cand, min=0).to(torch.int64))
+    self_idx = torch.arange(cand.shape[0], dtype=torch.int32,
+                            device=cand.device)[:, None]
+    new_pairs = torch.sum(valid & near & (cand > self_idx),
+                          dim=1).to(torch.float32)
+    cum = torch.cumsum(new_pairs, 0) - new_pairs
+    return new_pairs, cum, max_pairs
+
+
+def solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg: DeviceConfig,
+                collision_compliance, cohesion_compliance, relaxation,
+                options: SolverOptions):
+    """One grid rebuild + Jacobi pair projection pass (the gather engine).
+
+    Vectorized ``_rebuild_spatial_hash`` + ``_solve_collision`` (reference
+    :1486-1511, :1548-1666) with ``_enforce_distance``'s symmetric
+    projection (:1514-1545): correction ``-(dist - target) / (w_a + w_b +
+    alpha)`` clamped to +-|violation|, each endpoint moving by its
+    inverse-mass share. Particles are swept ``pair_chunk`` at a time, which
+    bounds the gathered (chunk, 9K, 6) block. The JAX package's masks of
+    the partner's mass and radius, and its guard of the divisor, change
+    nothing a contributing pair sees (its ``w_a + w_b >= EPS`` and the
+    compliances are >= 0), so they are left out."""
+    n = pos.shape[0]
+    max_factor = torch.maximum(cfg.collision_overlap_factor,
+                               cfg.cohesion_interaction_distance_factor)
+    cell_size = torch.clamp(cfg.max_radius * max_factor, min=1.0)  # :1756-1760
+    grid, cand, valid = _pair_candidates(pos, active, cell_size, options)
+    ordered = options.budget_mode == "ordered"
+    if ordered:
+        _, cum, max_pairs = _ordered_budget(grid, cand, valid, active)
+    else:
+        cum = torch.zeros((n,), dtype=torch.float32, device=pos.device)
+
+    # every per-particle field a candidate needs, gathered in one row; the
+    # batch slot and the budget prefix ride as floats (exact below 2^24).
+    # The cell coords stay a gather of their own: rows of 8 floats take
+    # index_select's vectorised kernel, 5.1 ms an update at N = 8192,
+    # 9K = 144 on an H100 against 0.66 ms for all the gathers of this form
+    pack = torch.stack([pos[:, 0], pos[:, 1], inv_mass, radius,
+                        batch_slot.to(torch.float32), cum], dim=1)  # (N, 6)
+    overlap = cfg.collision_overlap_factor
+    coh_factor = cfg.cohesion_interaction_distance_factor
+    spacing = options.cohesion_mode == "spacing"
+
+    def sweep(lo, hi):
+        """Correction sum (C, 2) of particles [lo, hi)."""
+        cand_c = cand[lo:hi]
+        safe = torch.clamp(cand_c, min=0).to(torch.int64)
+        g = pack.index_select(0, safe.reshape(-1)).reshape(
+            *safe.shape, pack.shape[1])                             # (C, 9K, 6)
+        me = pack[lo:hi, None, :]
+        s_w = me[..., 2]
+        ok = valid[lo:hi] & _in_cells(grid.cell_xy, safe, lo)
+        if ordered:
+            # cum[min(self, cand)] without a second gather
+            self_idx = torch.arange(lo, hi, dtype=torch.int32,
+                                    device=pos.device)[:, None]
+            cum_min = torch.where(cand_c < self_idx, g[..., 5], me[..., 5])
+            ok = ok & (cum_min < max_pairs)
+        dx = g[..., 0] - me[..., 0]
+        dy = g[..., 1] - me[..., 1]
+        dist2 = dx * dx + dy * dy
+        dist = torch.sqrt(dist2)
+        inv_dist = torch.where(dist > EPS, 1.0 / torch.clamp(dist, min=EPS),
+                               0.0)
+        w_sum = s_w + g[..., 2]
+        ok = ok & (w_sum >= EPS)                                    # :1601
+        r_sum = me[..., 3] + g[..., 3]
+
+        def half_scale(target, compliance, apply):
+            """|correction| * w_self of ``_enforce_distance`` (:1514-1545)."""
+            violation = dist - target
+            corr = -violation / (w_sum + compliance)
+            bound = torch.abs(violation)
+            corr = torch.clamp(corr, -bound, bound)                 # :1535-1536
+            return torch.where(apply & ok, corr * s_w, 0.0)         # :1538-1539
+
+        min_dist = overlap * r_sum                                  # :1632-1654
+        scale = half_scale(min_dist, collision_compliance,
+                           dist2 <= min_dist * min_dist)
+        if spacing:
+            # cohesion (:1603-1630). "literal" mode: the same-batch
+            # interaction distance is 0 (:1609-1613), so the constraint
+            # fires only for coincident particles, whose direction is the
+            # zero vector: no correction
+            coh_dist = coh_factor * r_sum
+            scale = half_scale(coh_dist, cohesion_compliance,
+                               (g[..., 4] == me[..., 4])
+                               & (dist2 <= coh_dist * coh_dist)) + scale
+        return torch.stack([torch.sum(-(dx * inv_dist) * scale, dim=1),
+                            torch.sum(-(dy * inv_dist) * scale, dim=1)], dim=1)
+
+    c = max(1, min(options.pair_chunk, n))
+    total = torch.cat([sweep(lo, min(lo + c, n)) for lo in range(0, n, c)])
+    return pos + torch.where(active[:, None], relaxation * total, 0.0)
+
+
 def solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
                       cfg: DeviceConfig, collision_compliance,
                       cohesion_compliance, relaxation,
@@ -748,9 +897,9 @@ def solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
 
 def substep(pos, prev, vel, inv_mass, radius, mass_t, batch_slot, active,
             cfg: DeviceConfig, batch_target, follow_radius, sub_dt,
-            relaxation, options: SolverOptions, g: int, k: int):
+            relaxation, options: SolverOptions, g: int = 0, k: int = 0):
     """One solver substep of one population in particle layout (reference
-    :1821-1932), the per-pass dense route."""
+    :1821-1932): the gather engine and the per-pass dense route."""
     follow_c = strength_to_compliance(cfg.follow_strength, sub_dt)
     collision_c = strength_to_compliance(cfg.collision_strength, sub_dt)
     cohesion_c = strength_to_compliance(cfg.cohesion_strength, sub_dt)
@@ -759,11 +908,31 @@ def substep(pos, prev, vel, inv_mass, radius, mass_t, batch_slot, active,
     pos = solve_follow(pos, inv_mass, batch_slot, active, batch_target,
                        follow_radius, follow_c)
     for _ in range(options.n_collision_steps):
-        pos = solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
-                                cfg, collision_c, cohesion_c, relaxation,
-                                options, g, k)
+        if options.engine == "gather":
+            pos = solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg,
+                              collision_c, cohesion_c, relaxation, options)
+        else:
+            pos = solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
+                                    cfg, collision_c, cohesion_c, relaxation,
+                                    options, g, k)
+    # true-velocity update (:1690-1693); the aggregates of post_solve are
+    # taken once per step
     vel = torch.where(active[:, None], (pos - prev) / sub_dt, 0.0)
     return pos, prev, vel, inv_mass, radius
+
+
+def post_solve(pos, prev, active, batch_slot, sub_dt, max_batches: int):
+    """True-velocity update + centroid/max aggregates (reference
+    :1669-1718). The per-batch sums of ``get_position`` are taken once per
+    step in :func:`step` (:func:`batch_segment_sums`)."""
+    del batch_slot, max_batches
+    vel = torch.where(active[:, None], (pos - prev) / sub_dt, 0.0)
+    speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
+    n_active = torch.clamp(torch.sum(active), min=1)
+    centroid = torch.sum(torch.where(active[:, None], pos, 0.0),
+                         dim=0) / n_active
+    max_velocity = torch.max(torch.where(active, speed, 0.0))
+    return vel, centroid, max_velocity
 
 
 def _aabb(pos, radius, active):
@@ -816,7 +985,9 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
                          / n_act[:, None])
 
     follow_radius = torch.sqrt(torch.clamp(state.batch_radius, min=0.0))
-    if options.dense_rebin in ("step", "substep") and follow_rows is None:
+    plane_steps = (options.engine == "dense"
+                   and options.dense_rebin in ("step", "substep"))
+    if plane_steps and follow_rows is None:
         follow_rows = _follow_rows(state, caps)
 
     new_pos, new_prev, new_vel = (state.pos.clone(), state.prev.clone(),
@@ -828,7 +999,7 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
         act = active_full[i, :cap]
         cfg = population_config(cfg2, i)
         g, k = options.dense_grid_dim[i], options.dense_slots[i]
-        if options.dense_rebin in ("step", "substep"):
+        if plane_steps:
             pos, prev, vel, inv_mass, radius, ws_out[i] = \
                 _population_step_dense(
                     state.pos[i, :cap], state.vel[i, :cap],
@@ -836,8 +1007,8 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
                     cfg, follow_rows[i], sub_dt, relaxation, options, g, k,
                     wide_state=wide_state[i] if thread_wide else None)
         else:
-            # the per-pass route has no wide machinery: the episode state
-            # passes through untouched
+            # the engines without wide machinery (gather, dense per pass)
+            # pass the episode state through untouched
             ws_out[i] = wide_state[i] if thread_wide else None
             pos, prev, vel = (state.pos[i, :cap], state.prev[i, :cap],
                               state.vel[i, :cap])
@@ -900,9 +1071,9 @@ def step(state: ParticleState, cfg2: DeviceConfig, step_delta, relaxation,
 
 
 def _resident(options: SolverOptions) -> bool:
-    """Whether multi-step residency applies (JAX ``multi_step``'s test; the
-    port has only the dense engine)."""
-    return options.dense_rebin == "step" and options.budget_mode == "off"
+    """Whether multi-step residency applies (JAX ``multi_step``'s test)."""
+    return (options.engine == "dense" and options.dense_rebin == "step"
+            and options.budget_mode == "off")
 
 
 @torch.no_grad()
@@ -912,8 +1083,9 @@ def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
     """``n_steps`` chained fixed steps (headless fast-forward).
 
     Returns ``(state, stats)``, or ``(state, stats, wide_state_out)`` when
-    ``wide_state`` is passed. With the budget off, ``dense_rebin="step"``
-    and ``adaptive_rebin``, the first ``n_steps - 1`` steps run resident
+    ``wide_state`` is passed. On the dense engine with the budget off,
+    ``dense_rebin="step"`` and ``adaptive_rebin``, the first ``n_steps - 1``
+    steps run resident
     (:func:`_population_multi_dense`); otherwise they are a loop of steps.
     Either way one full step comes last, giving the stats and ``last_pos``
     (the stats are the final step's only, as the reference reads centroids
@@ -980,11 +1152,11 @@ def multi_step_frames(state: ParticleState, cfg2: DeviceConfig, step_delta,
     renderer reads; the other fields are zero (ones for ``max_radius``).
 
     Returns ``(state, total)``, or ``(state, total, wide_state_out)`` when
-    ``wide_state`` is passed. Requires ``budget_mode='off'`` and
-    ``dense_rebin='step'``."""
+    ``wide_state`` is passed. Requires ``engine='dense'``,
+    ``budget_mode='off'`` and ``dense_rebin='step'``."""
     if not _resident(options):
         raise ValueError("multi_step_frames requires the resident dense "
-                         "configuration: budget_mode='off', "
+                         "configuration: engine='dense', budget_mode='off', "
                          "dense_rebin='step'")
     dev = state.device
     caps = _pop_caps(options, state.capacity)

@@ -105,13 +105,22 @@ def trace(dir_path: str):
 
 
 def collision_drop_stats(handler) -> dict:
-    """Host-side dense-grid budget audit for the CURRENT state.
+    """Collision-budget audit of the handler's CURRENT state.
 
-    Per population: the share of live particles past the per-cell slot
-    budget K in their torus cell ``floor(pos / cell) mod G`` — the count the
-    dense engine drops from collision at this binning. Keys: ``drop_pct``
-    (of live), ``max_cell_occupancy``, ``mean_cell_occupancy``.
+    Dense engine (host-side numpy): per population, the share of live
+    particles past the per-cell slot budget K in their torus cell
+    ``floor(pos / cell) mod G`` — the count the dense engine drops from
+    collision at this binning. Keys: ``drop_pct`` (of live),
+    ``max_cell_occupancy``, ``mean_cell_occupancy``.
+
+    Gather engine (one pass's grid on the state's device): ``drop_pct`` is
+    the share of live particles past the K slots of their hash bucket and
+    the occupancies are of buckets; ``budget_pairs`` counts the pass's
+    unique pairs in the true 3x3 cells and ``budget_dropped_pairs`` those
+    past the ordered 0.05 n^2 budget (0 with the budget off).
     """
+    if handler._options.engine == "gather":
+        return _gather_drop_stats(handler)
     state = handler.state
     options = handler._options
     active = state.active_mask().cpu().numpy()
@@ -137,6 +146,43 @@ def collision_drop_stats(handler) -> dict:
         out[name] = dict(drop_pct=100.0 * dropped / n,
                          max_cell_occupancy=int(counts.max()),
                          mean_cell_occupancy=float(occ.mean()))
+    return out
+
+
+def _gather_drop_stats(handler) -> dict:
+    from ..config import population_config
+    from ..ops import grid as grid_ops
+    from ..ops import solver as solver_ops
+    state, options = handler.state, handler._options
+    caps = solver_ops._pop_caps(options, state.capacity)
+    active = state.active_mask()
+    out = {}
+    for pop, name in ((0, "white"), (1, "yolk")):
+        cfg = population_config(handler._device_cfg2(), pop)
+        cell = torch.clamp(cfg.max_radius
+                           * torch.maximum(cfg.collision_overlap_factor,
+                                           cfg.cohesion_interaction_distance_factor),
+                           min=1.0)
+        pos, act = state.pos[pop, :caps[pop]], active[pop, :caps[pop]]
+        n = int(act.sum())
+        grid, cand, valid = solver_ops._pair_candidates(pos, act, cell,
+                                                        options)
+        new_pairs, cum, max_pairs = solver_ops._ordered_budget(grid, cand,
+                                                               valid, act)
+        past = (cum >= max_pairs) if options.budget_mode == "ordered" else \
+            torch.zeros_like(cum, dtype=torch.bool)
+        bucket = grid_ops._bucket_of(grid.cell_xy[:, 0], grid.cell_xy[:, 1],
+                                     options.table_size)[act]
+        counts = torch.bincount(bucket.to(torch.int64),
+                                minlength=options.table_size)
+        in_slots = int((grid.table[:options.table_size] >= 0).sum())
+        occ = counts[counts > 0]
+        out[name] = dict(
+            drop_pct=100.0 * (n - in_slots) / max(n, 1),
+            max_cell_occupancy=int(counts.max()) if n else 0,
+            mean_cell_occupancy=float(occ.float().mean()) if n else 0.0,
+            budget_pairs=int(new_pairs.sum()),
+            budget_dropped_pairs=int(new_pairs[past].sum()))
     return out
 
 

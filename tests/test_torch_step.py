@@ -159,42 +159,47 @@ def test_take_batch_rows_and_segment_sums():
 
 
 def test_unported_options_raise():
-    """The gather engine is the one mode still unported; every dense-engine
-    mode of the JAX package builds, and unknown values are refused. The
-    port also refuses ``n_collision_steps < 1``, which JAX accepts."""
-    with pytest.raises(NotImplementedError):
-        tsolver.SolverOptions(engine="gather")
-    for kw in (dict(budget_mode="ordered"), dict(budget_mode="off"),
-               dict(dense_rebin="substep"), dict(dense_rebin="pass"),
-               dict(cohesion_mode="literal"), dict(sweep_symmetric=True),
-               dict(stale_hash_compat=True)):
-        opts = tsolver.SolverOptions(**kw)
-        assert all(getattr(opts, f) == v for f, v in kw.items())
+    """Every engine and mode of the JAX package builds in the port, the
+    gather engine's JAX-written calls included; the values the JAX package
+    refuses (an unknown mode, a table size that is not a power of two, the
+    stale-hash emulation off the dense engine) the port refuses too, with
+    ``ValueError``. ``n_collision_steps=0`` builds (zero passes)."""
+    for kw in (dict(engine="gather"), dict(engine="dense"),
+               dict(table_size=4096, slots_per_cell=32,
+                    cohesion_mode="literal"),
+               dict(budget_mode="off", pair_chunk=1024),
+               dict(engine="dense", dense_rebin="substep"),
+               dict(engine="dense", dense_rebin="pass"),
+               dict(engine="dense", sweep_symmetric=True),
+               dict(engine="dense", stale_hash_compat=True),
+               dict(n_collision_steps=0),
+               dict(engine="dense", n_collision_steps=0)):
+        j, t = jsolver.SolverOptions(**kw), tsolver.SolverOptions(**kw)
+        assert all(getattr(t, f) == getattr(j, f) == v for f, v in kw.items())
     for kw in (dict(engine="grid"), dict(budget_mode="none"),
                dict(dense_rebin="frame"), dict(cohesion_mode="off"),
-               dict(n_collision_steps=0)):
+               dict(table_size=3000), dict(stale_hash_compat=True),
+               dict(engine="gather", stale_hash_compat=True)):
+        with pytest.raises(AssertionError):
+            jsolver.SolverOptions(**kw)
         with pytest.raises(ValueError):
             tsolver.SolverOptions(**kw)
 
 
 def test_shared_option_defaults_match_jax():
-    """One constructor call builds the same solver in both packages: every
-    field the two SolverOptions share has the same default, except
-    ``engine`` (the JAX default is its gather engine, which the port does
-    not have yet; the port's default is the dense engine)."""
+    """One constructor call builds the same solver in both packages: the
+    port has every field of the JAX SolverOptions, in the same order, and
+    every default is the JAX package's, ``engine`` (the gather engine)
+    included."""
     import dataclasses
-    jd = {f.name: f.default for f in dataclasses.fields(jsolver.SolverOptions)}
-    td = {f.name: f.default for f in dataclasses.fields(tsolver.SolverOptions)}
-    shared = sorted(set(jd) & set(td))
-    assert {"budget_mode", "dense_rebin", "cohesion_mode", "sweep_symmetric",
-            "stale_hash_compat", "wide_budget_substeps",
-            "use_pallas"} <= set(shared)
-    assert {f: td[f] for f in shared if f != "engine"} == \
-        {f: jd[f] for f in shared if f != "engine"}
-    assert (jd["engine"], td["engine"]) == ("gather", "dense")
-    j, t = jsolver.SolverOptions(engine="dense"), tsolver.SolverOptions()
-    assert {f: getattr(t, f) for f in shared} == \
-        {f: getattr(j, f) for f in shared}
+    jf = [(f.name, f.default) for f in dataclasses.fields(jsolver.SolverOptions)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tsolver.SolverOptions)]
+    assert tf == jf
+    assert dict(tf)["engine"] == "gather"
+    names = [n for n, _ in jf]
+    j, t = jsolver.SolverOptions(), tsolver.SolverOptions()
+    assert {f: getattr(t, f) for f in names} == \
+        {f: getattr(j, f) for f in names}
 
 
 @pytest.mark.parametrize("kw", [
