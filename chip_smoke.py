@@ -50,7 +50,26 @@ Then it drives the paths through the public API:
   frames on the card, a draw every 10th, then frames of update + draw
   timed (CUDA events) and traced; ``checkpoint``: the demo's
   handler saved mid-session, loaded on the CPU and on the card (state bit
-  for bit), one step on each (card vs CPU within the step tolerances).
+  for bit), one step on each (card vs CPU within the step tolerances);
+- ``spatial_1x1``: the 2D spatial layer (``parallel/``) on a one-rank mesh
+  (a 1-rank NCCL group started in the process over an in-memory store; every
+  halo a copy, no collective) at the 65,536-particle scene of bench.py's
+  ``spatial_1x1_*`` keys (``build_handler(65536, spatial=True)``: one shared
+  grid), against the dense handler on the same scene on its plane route
+  (kernel D, the spatial step's summation order): three free-running
+  steps, held after the first and the third within the step tolerances,
+  and against the automatic fused route (kernel B) after the first within
+  ``FUSED_TOL`` (its difference after the third printed); 60
+  settle steps; per-step time of ``run_steps`` blocks of the spatial
+  handler, of the bare ``spatial_multi_step`` and of the dense handler in
+  turns (CUDA events, p50 and the blocks printed), one traced block of
+  each handler; a draw.
+  Kernel D against its plain version on the run's own local window and on
+  the windows of 2 x 2 and 4 x 2 layouts of the same grid cut from it
+  (halo rows and lanes from the torus neighbours), windows 1 and 3, static
+  and through the device flag; kernel C on a ``SpatialHandler.draw``
+  payload, alpha and rgb. D's and C's launches of this phase are their own
+  entries of the kernel line (``.spatial_1x1``).
 
 Kernel G (``splat_tiles``) has no caller on any path: it is checked alone
 (``check.splat_tiles``) on slot-major candidates built from the 1M scene's
@@ -104,6 +123,16 @@ GATHER_RESIDENT = 10        # run_steps of gather_path
 DEMO_FRAMES = 60            # run_demo's session on the card
 DEMO_DRAW_EVERY = 10
 VEL_TOL = 0.2               # px/s, card vs CPU
+N_SPATIAL = 65_536          # spatial_1x1: bench.py's spatial_1x1_* scene
+SPATIAL_CHECK_STEPS = 3     # spatial vs dense step, free-running, held
+                            # after 1 and 3
+FUSED_TOL = 5e-3            # px: the spatial step against the dense
+FUSED_VEL_TOL = 0.6         # handler's fused route (kernel B, another
+                            # summation order) after one step: ~3x the
+                            # 1.59e-3 px / 0.183 px/s read on an H100
+SPATIAL_SETTLE = 60         # run_steps before timing (bench.py)
+SPATIAL_BLOCKS = 4          # timed blocks per handler, in turns
+SPATIAL_CHAIN = 10          # run_steps per timed block
 
 # Peak rates of one H100 SXM (vendor datasheet): HBM3 bytes/s and
 # FP32 operations/s outside the tensor cores. A kernel's bound is the larger
@@ -304,12 +333,14 @@ def sweep_shape_case(g: int, k: int, seed: int, fresh_mod: float = 0.0,
 
 
 def build_handler(n_target: int, device, wide_default: bool = False,
-                  **overrides):
+                  spatial: bool = False, **overrides):
     """The bench.py scene (build_handler) through the port's API: 2000-white
     batches tiled alias-free, per-population grids, dense engine, budget
-    off; ``overrides`` replace solver options."""
+    off; ``overrides`` replace solver options. ``spatial`` builds a
+    SpatialHandler on a 1 x 1 mesh with the one shared grid its layout
+    requires (``build_handler(n, spatial=1)`` of bench.py)."""
     from egg_fluid_simulation_tpu_torch import (SimulationHandler,
-                                                SolverOptions,
+                                                SolverOptions, SpatialHandler,
                                                 default_white_config,
                                                 default_yolk_config)
     per_batch = max(200, min(n_target // 4, 2000))
@@ -331,21 +362,29 @@ def build_handler(n_target: int, device, wide_default: bool = False,
 
     g_w = pick_grid(8.0, per_batch_w * n_batches)
     g_y = pick_grid(12.0, per_batch_y * n_batches)
+    if spatial:
+        g_w = g_y = max(g_w, g_y)
     kw = dict(engine="dense", budget_mode="off", dense_rebin="step",
               dense_grid_dim=(g_w, g_y), dense_slots=4, pop_caps=(cap_w, cap_y))
     if not wide_default:
         kw["wide_budget_substeps"] = 0
     options = SolverOptions(**{**kw, **overrides})
-    h = SimulationHandler(default_white_config(), default_yolk_config(),
-                          capacity=max(cap_w, cap_y),
-                          max_batches=max(n_batches, 4), options=options,
-                          device=device)
+    hk = dict(capacity=max(cap_w, cap_y), max_batches=max(n_batches, 4),
+              options=options, device=device)
     specs = [dict(x=float((b % side) * spacing + radius + 32.0),
                   y=float((b // side) * spacing + radius + 32.0),
                   white_radius=radius, yolk_radius=radius * 0.3,
                   white_n_particles=per_batch_w,
                   yolk_n_particles=per_batch_y)
              for b in range(n_batches)]
+    if spatial:
+        h = SpatialHandler(default_white_config(), default_yolk_config(),
+                           db=1, dx=1, **hk)
+        for sp in specs:
+            h.add(sp["x"], sp["y"], sp["white_radius"], sp["yolk_radius"],
+                  None, None, sp["white_n_particles"], sp["yolk_n_particles"])
+        return h
+    h = SimulationHandler(default_white_config(), default_yolk_config(), **hk)
     h.add_many(specs)
     return h
 
@@ -1414,6 +1453,332 @@ def gather_phases(dev, results) -> None:
                              "and CPU disagree after a step")
 
 
+def spatial_window_cases(torus, lay_shape, lay_k: int):
+    """The local windows of a ``(db, dx)`` layout cut from the torus planes
+    ``torus`` (8, G, G*K) with their halos: ROW_PAD rows above and below
+    from the neighbouring bands (the torus wrap in y) and ``lp`` lanes a
+    side from the neighbouring blocks, as the halo exchange fills them."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+    g, lanes = torus.shape[1], torus.shape[2]
+    db, dx = lay_shape
+    lay = S.SpatialLayout(g, lay_k, db=db, dx=dx, migrate_cap=64)
+    lay.check()
+    dev = torus.device
+    for b in range(db):
+        rows = (b * lay.gb - S.RP + torch.arange(lay.rows, device=dev)) % g
+        for x in range(dx):
+            cols = (x * lay.lb - lay.lp
+                    + torch.arange(lay.width, device=dev)) % lanes
+            yield (b, x), torus[:, rows][:, :, cols].contiguous()
+
+
+def spatial_phase(dev, results) -> dict:
+    """``spatial_1x1``: the 2D spatial layer on a one-rank mesh (a 1-rank
+    NCCL group started in the process over an in-memory store: every halo a
+    copy, no collective) at the bench.py scene of ``build_handler(65536,
+    spatial=1)``, against the dense handler on the same scene. Kernel D on
+    the run's own local window and on windows of 2 x 2 and 4 x 2 layouts
+    of the same grid, kernel C on a ``SpatialHandler.draw`` payload, each
+    against its plain version. Returns the phase's kernel launches."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from egg_fluid_simulation_tpu_torch.config import population_config
+    from egg_fluid_simulation_tpu_torch.ops import dense as D
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
+    from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+    from egg_fluid_simulation_tpu_torch.parallel.mesh import init_single_rank
+    from egg_fluid_simulation_tpu_torch.utils.profiling import validate_state
+
+    t_phase = time.perf_counter()
+    init_single_rank(dev)
+    hs = build_handler(N_SPATIAL, dev, spatial=True)
+    hd = build_handler(N_SPATIAL, dev)
+    torch.cuda.synchronize()
+    log("spatial_1x1.scene", backend=dist.get_backend(),
+        world=dist.get_world_size(), particles=hs.get_n_particles(),
+        grid=hs.layout.grid_dim, window=(hs.layout.rows, hs.layout.width),
+        dense_grids=hd._options.dense_grid_dim)
+    launches = {n: 0 for n in read_counters()}
+
+    def spatial_run(fn):
+        """``fn`` on the spatial handler, its kernel launches counted."""
+        reset_counters()
+        out = fn()
+        for n, v in read_counters().items():
+            launches[n] += v
+        return out
+
+    # ---- the spatial step against the dense step, three free-running
+    # steps, held after 1 and 3. The reference is the dense handler on its
+    # plane-resident route (kernel D, the spatial step's sweep and summation
+    # order; ``hp``). The automatic fused route (kernel B, ``hd``) sums each
+    # slot's pairs in another order, which the packed spawn's explosion
+    # amplifies, so it is held after the first step at FUSED_TOL; past K a
+    # cell's rotating winner hash reads position bits, so an ulp picks
+    # other winners and the routes part by more over later steps (ROADMAP
+    # Queue 3): its difference after steps 2 and 3 is printed ----
+    from egg_fluid_simulation_tpu_torch.ops import solver as SO
+
+    def plane_route(fn):
+        fused = SO._fused_component_path
+        SO._fused_component_path = lambda options: False
+        try:
+            return fn()
+        finally:
+            SO._fused_component_path = fused
+
+    hp = build_handler(N_SPATIAL, dev)
+
+    def state_err(a, b):
+        act = b.active_mask()
+        err = {}
+        for f in ("pos", "prev", "vel"):
+            err[f] = 0.0
+            for i in range(2):
+                live = a.batch_slot[i] >= 0
+                # one rank: redistribute keeps the prefix order and nothing
+                # migrates, so the point sets align slot for slot
+                if not torch.equal(live, act[i]):
+                    raise AssertionError("spatial_1x1: the 1 x 1 layout "
+                                         "lost the prefix order")
+                err[f] = max(err[f], float((getattr(a, f)[i][live]
+                                            - getattr(b, f)[i][live])
+                                           .abs().max()))
+        return err
+
+    n_steps = 0
+    for k in range(1, SPATIAL_CHECK_STEPS + 1):
+        spatial_run(hs.step_once)
+        plane_route(hp.step_once)
+        hd.step_once()
+        n_steps += 1
+        fused_err = state_err(hs.state, hd.state)
+        log("spatial_1x1.fused_route", steps=k, max_abs_err=fused_err,
+            tol=(f"pos/prev {FUSED_TOL} px, vel {FUSED_VEL_TOL} px/s"
+                 if k == 1 else "printed"))
+        if k == 1 and not (fused_err["pos"] <= FUSED_TOL
+                           and fused_err["prev"] <= FUSED_TOL
+                           and fused_err["vel"] <= FUSED_VEL_TOL):
+            raise AssertionError("spatial_1x1: the spatial step disagrees "
+                                 "with the dense handler's fused route")
+        if k not in (1, SPATIAL_CHECK_STEPS):
+            continue
+        err = state_err(hs.state, hp.state)
+        ss, ds = hs.stats, hp.stats
+        cent = float((ss.centroid - ds.centroid).abs().max())
+        bsum = float(((ss.batch_pos_sum - ds.batch_pos_sum).abs()
+                      - 1e-4 * ds.batch_pos_sum.abs()).max())
+        same_counts = bool(torch.equal(ss.batch_count, ds.batch_count))
+        moved = float((hs.state.pos - hs.state.last_pos).abs().max())
+        log("spatial_1x1.check", steps=k, max_abs_err=err, centroid_err=cent, batch_sum_excess=bsum,
+            batch_counts_equal=same_counts, moved_px=moved,
+            tol=f"pos/prev {REF_TOL} px, vel {VEL_TOL} px/s, centroid "
+                f"1e-3, batch sums rtol 1e-4 atol 1e-2")
+        if not (err["pos"] <= REF_TOL and err["prev"] <= REF_TOL
+                and err["vel"] <= VEL_TOL and cent <= 1e-3
+                and bsum <= 1e-2 and same_counts and moved > 0.0):
+            raise AssertionError(f"spatial_1x1: the spatial step disagrees "
+                                 f"with the dense step after {k} steps")
+    del hp
+
+    # ---- settle, then capture the run's own local window once ----
+    spatial_run(lambda: hs.run_steps(SPATIAL_SETTLE))
+    hd.run_steps(SPATIAL_SETTLE)
+    n_steps += SPATIAL_SETTLE
+    seen = []
+    sweep_local = S._sweep_local
+
+    def sweep_kept(planes, params, lay, cohesion, wide=False):
+        if not seen:
+            seen.append((planes.clone(), params.clone()))
+        return sweep_local(planes, params, lay, cohesion, wide=wide)
+
+    S._sweep_local = sweep_kept
+    try:
+        spatial_run(hs.step_once)
+    finally:
+        S._sweep_local = sweep_local
+    n_steps += 1
+
+    # ---- per-step time of resident steps, in turns: the spatial
+    # handler's run_steps, the bare spatial_multi_step under it (without
+    # the handler's host read of the migration counters and its
+    # redistribute) and the dense handler's run_steps; then one traced
+    # block of each handler ----
+    S.host_reads = 0
+    _, multi = hs._fns()
+    dt, relax = hs._inner._step_scalars(1 / 60)
+
+    def bare():
+        hs._sp_state, hs._sp_stats, _, hs._sp_wide = multi(
+            hs._sp_state, hs._inner._device_cfg2(), dt, relax, SPATIAL_CHAIN,
+            wide_state=hs._sp_wide)
+
+    times = {"spatial": [], "spatial_multi_step": [], "dense": []}
+    for _ in range(SPATIAL_BLOCKS):
+        for name, run, fn in (
+                ("spatial", spatial_run,
+                 lambda: hs.run_steps(SPATIAL_CHAIN)),
+                ("spatial_multi_step", spatial_run, bare),
+                ("dense", lambda f: f(), lambda: hd.run_steps(SPATIAL_CHAIN))):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(fn)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / SPATIAL_CHAIN)
+    n_steps += 2 * SPATIAL_BLOCKS * SPATIAL_CHAIN
+    reads = S.host_reads / (2 * SPATIAL_BLOCKS * SPATIAL_CHAIN)
+    sp_trace = spatial_run(lambda: traced(
+        lambda: hs.run_steps(SPATIAL_CHAIN), SPATIAL_CHAIN))
+    dn_trace = traced(lambda: hd.run_steps(SPATIAL_CHAIN), SPATIAL_CHAIN)
+    n_steps += SPATIAL_CHAIN
+    validate_state(hd)
+    frame = spatial_run(lambda: hs.draw(viewport=(0, 0, 1800, 1800)))
+    torch.cuda.synchronize()
+    p50 = {n: float(np.median(v)) for n, v in times.items()}
+    log("spatial_1x1", spatial_1x1_step_ms_65k=round(p50["spatial"], 4),
+        dense_step_ms_65k=round(p50["dense"], 4),
+        spatial_1x1_vs_dense=round(p50["spatial"] / p50["dense"], 4),
+        spatial_multi_step_ms=round(p50["spatial_multi_step"], 4),
+        blocks_ms={n: [round(x, 4) for x in v] for n, v in times.items()},
+        chain=SPATIAL_CHAIN, settle_steps=SPATIAL_SETTLE,
+        rebin_host_reads_per_step=reads,
+        redistributes=hs._redistribute_count, card=nvidia_smi())
+    log("spatial_1x1.trace",
+        spatial={k: round(v, 4) for k, v in sp_trace.items()},
+        dense={k: round(v, 4) for k, v in dn_trace.items()})
+    log("spatial_1x1.draw", frame=tuple(frame.shape),
+        frame_finite=bool(torch.isfinite(frame).all()),
+        alpha_max=round(float(frame[..., 3].max()), 4),
+        steps=n_steps, launches=launches)
+    per = hs._options.n_substeps * hs._options.n_collision_steps * 2
+    if not (bool(torch.isfinite(frame).all())
+            and float(frame[..., 3].max()) > 0.5):
+        raise AssertionError("spatial_1x1: frame is not finite or empty")
+    if not (launches["sweep_planes"] == per * n_steps
+            and launches["splat"] >= 2
+            and launches["place_planes"] == launches["substep_pass"]
+            == launches["count_planes"] == launches["sweep_planes_sym"]
+            == launches["splat_tiles"] == 0):
+        raise AssertionError(f"spatial_1x1: launch counts {launches}, "
+                             f"expected {per * n_steps} sweeps")
+
+    # ---- kernel D on the run's local window: window 1, window 3 with the
+    # fresh mask, each static and through the device flag ----
+    planes, params = seen[0]
+    k = hs.layout.slots_per_cell
+    rp, g, lp, lb = S.RP, hs.layout.grid_dim, hs.layout.lp, hs.layout.lb
+    errs = {}
+    r = results.setdefault("sweep_planes.spatial_1x1",
+                           dict(max_abs_err=0.0, library_ms=None))
+
+    def d_check(name, window_planes):
+        """D against plain on one window; returns the largest correction."""
+        worst, largest = 0.0, 0.0
+        for window in (1, 3):
+            kw = dict(cohesion=True, ordered_budget=False)
+            static = dict(kw, window=window, fresh_mask=window == 3)
+            want = SK.sweep_planes_plain(window_planes, params, k, **static)
+            largest = max(largest, float(want.abs().max()))
+            for gate in (static, dict(kw, wide=torch.tensor(
+                    window == 3, device=dev))):
+                got = SK.sweep_planes(window_planes, params, k, **gate)
+                worst = max(worst, float((got - want).abs().max()))
+        errs[name] = worst
+        r["max_abs_err"] = max(r["max_abs_err"], worst)
+        return largest
+
+    fired = {"1x1": d_check("1x1", planes)}
+    static1 = dict(cohesion=True, ordered_budget=False, window=1)
+    got = SK.sweep_planes(planes, params, k, **static1)
+    ms = cuda_ms(lambda: SK.sweep_planes(planes, params, k, **static1), 10)
+    plain_ms = cuda_ms(lambda: SK.sweep_planes_plain(planes, params, k,
+                                                     **static1), 2)
+    pairs = window_pairs(planes[D.FIELD_OCC, rp:rp + g, lp:lp + lb], k, 1)
+    b_ms, b_by = bound(pairs * PAIR_OPS, nbytes(planes, got))
+    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    torus = planes[:, rp:rp + g, lp:lp + lb]
+    shapes = {}
+    for shape in ((2, 2), (4, 2)):
+        name = f"{shape[0]}x{shape[1]}"
+        fired[name] = 0.0
+        for (b, x), win in spatial_window_cases(torus, shape, k):
+            fired[name] = max(fired[name], d_check(f"{name}.{b}{x}", win))
+            shapes[name] = tuple(win.shape)
+    torch.cuda.synchronize()
+    log("check.sweep_planes.spatial_1x1", window=tuple(planes.shape),
+        cut_windows=shapes, occupied=int((planes[D.FIELD_OCC] > 0).sum()),
+        fresh_mod=float(params[6]), largest_correction=fired,
+        max_abs_err=errs, tol=SWEEP_TOL,
+        ms=round(ms, 4), plain_ms=round(plain_ms, 4), bound_ms=round(b_ms, 4),
+        bound_by=b_by)
+    if not (max(errs.values()) <= SWEEP_TOL and min(fired.values()) > 0.0):
+        raise AssertionError("spatial_1x1: kernel D disagrees with its plain "
+                             "version on a local window, or no pair fired")
+
+    # ---- kernel C on the payload of SpatialHandler.draw ----
+    st, stats = hs.state, hs.stats
+    a = torch.tensor(hs.interpolation_alpha, dtype=torch.float32, device=dev)
+    opts2 = hs._frame_options()
+    rc = results.setdefault("splat.spatial_1x1",
+                            dict(max_abs_err=0.0, library_ms=None))
+    cerrs, dropped = {}, {}
+    for pop, name in ((0, "white"), (1, "yolk")):
+        cfg = population_config(hs._inner._device_cfg2(), pop)
+        center = (stats.last_centroid[pop]
+                  + (stats.centroid[pop] - stats.last_centroid[pop]) * a)
+        for use_rgb in (False, True):
+            opts = dataclasses.replace(opts2[pop], use_particle_color=use_rgb)
+            payload, audit, counts = R._splat_payload(
+                st.pos[pop], st.last_pos[pop], st.vel[pop], st.radius[pop],
+                st.color[pop], st.batch_slot[pop] >= 0, center, a,
+                cfg.texture_scale, cfg.motion_blur, opts)
+            got = SPK.splat(payload, counts, opts, use_rgb)
+            want = SPK.splat_plain(payload, counts, opts, use_rgb)
+            err = float((got[0] - want[0]).abs().max())
+            if use_rgb:
+                err = max(err, float((got[1] - want[1]).abs().max()))
+            cerrs[f"{name}{'.rgb' if use_rgb else ''}"] = err
+            # the spatial draw has no render-budget audit (nor has JAX's):
+            # the splats past a bin's budget are dropped, and counted here
+            dropped[name] = int(audit[0])
+            if not (err <= SPLAT_TOL and float(want[0].max()) > 0.0):
+                raise AssertionError(f"spatial_1x1: splat disagrees with its "
+                                     f"plain version ({name}, rgb={use_rgb})")
+            rc["max_abs_err"] = max(rc["max_abs_err"], err)
+            if (pop, use_rgb) == (0, False):
+                ms = cuda_ms(lambda: SPK.splat(payload, counts, opts, False),
+                             10)
+                plain_ms = cuda_ms(lambda: SPK.splat_plain(
+                    payload, counts, opts, False), 2)
+                in_window, _ = SPK.cull_counts(payload, counts, opts)
+                n_window = float(in_window.to(torch.float64).sum())
+                n_inside = splat_inside_pairs(payload, counts, opts)
+                filled = torch.clamp(counts, max=opts.tile_capacity)
+                moved = (float(filled[:-1].sum()) * payload.shape[-1] * 4
+                         + nbytes(counts, got[0]))
+                b_ms, b_by = bound(n_inside * SPLAT_OPS
+                                   + n_window * SPLAT_BOX_OPS, moved)
+                rc.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+    log("check.splat.spatial_1x1", canvas=[o.canvas_size for o in opts2],
+        K=[o.tile_capacity for o in opts2], render_dropped=dropped,
+        max_abs_err=cerrs, tol=SPLAT_TOL,
+        ms=round(rc["ms"], 4), plain_ms=round(rc["plain_ms"], 4),
+        bound_ms=round(rc["bound_ms"], 4), bound_by=rc["bound_by"],
+        seconds=round(time.perf_counter() - t_phase, 2))
+    del hs, hd
+    dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     import torch
     card = nvidia_smi()
@@ -1785,6 +2150,7 @@ def main() -> int:
         raise AssertionError("warmup changed the simulation state")
 
     gather_phases(dev, results)
+    spatial_launches = spatial_phase(dev, results)
 
     launches.update(count_planes=plane_launches_run["count_planes"],
                     sweep_planes=plane_launches_run["sweep_planes"],
@@ -1799,9 +2165,15 @@ def main() -> int:
              ("sweep_planes", src + "sweep_planes.cu", tpu + "sweep_kernel.py:455"),
              ("sweep_planes_sym", src + "sweep_planes.cu",
               tpu + "sweep_kernel.py:526"),
-             ("splat_tiles", src + "splat_tiles.cu", tpu + "splat_kernel.py:443")]
+             ("splat_tiles", src + "splat_tiles.cu", tpu + "splat_kernel.py:443"),
+             ("sweep_planes.spatial_1x1", src + "sweep_planes.cu",
+              tpu + "sweep_kernel.py:455"),
+             ("splat.spatial_1x1", src + "splat.cu", tpu + "splat_kernel.py:400")]
     # kernel G has no caller on any path: its launches are its check's
     launches["splat_tiles"] = results["splat_tiles"]["launches"]
+    # D and C on the spatial path: that phase's own launches
+    launches["sweep_planes.spatial_1x1"] = spatial_launches["sweep_planes"]
+    launches["splat.spatial_1x1"] = spatial_launches["splat"]
     kernels = [dict(name=n, route="cuda", source=s, replaces=r,
                     launches=launches[n],
                     **{key: results[n][key] for key in (

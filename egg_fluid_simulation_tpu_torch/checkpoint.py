@@ -17,6 +17,7 @@ from dataclasses import fields
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .handler import SimulationHandler, _compute_stats
 from .interop import state_from_numpy
@@ -27,10 +28,21 @@ __all__ = ["save", "load"]
 _FORMAT_VERSION = 1
 
 
-def save(handler: SimulationHandler, path: str) -> None:
+def save(handler, path: str) -> None:
     """Write the complete simulation state of ``handler`` to ``path`` (npz).
-    (The JAX package's multi-device handler is not ported; its checkpoints,
-    synced into this layout, load here all the same.)"""
+
+    Accepts a :class:`SimulationHandler` or a multi-device
+    :class:`~.parallel.spatial_handler.SpatialHandler`: the latter first
+    syncs its sharded state back into the prefix layout (every rank must
+    call ``save``), so the format is the same (resume on one device, or
+    wrap with ``SpatialHandler.from_handler`` on any mesh). In a
+    multi-rank program only rank 0 writes the file."""
+    sync = getattr(handler, "_sync_inner", None)
+    if sync is not None:
+        sync()
+        handler = handler._inner
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     arrays = {f"state_{k}": v for k, v in host_view(handler.state).items()}
     meta = {
         "version": _FORMAT_VERSION,

@@ -9,7 +9,12 @@
 // and below hold copies of the opposite edge rows (the torus in y); L = G*K,
 // lane = cell_x * K + slot, wrapped (the torus in x). params (8,) =
 // SweepParams.pack(), read from device memory. Output (2, G, L): the x and y
-// correction sums of every real slot (0 for empty slots).
+// correction sums of every real slot (0 for empty slots). D also takes a
+// window of a torus, as the 2D spatial layer bins one rank's cells
+// (parallel/spatial.py): G real rows whose halo rows hold the neighbouring
+// bands' rows, L any multiple of K (the block's lanes and their halo lanes);
+// nothing here assumes L = G*K, and the fresh-cell modulus comes from
+// params[6] (the global grid there; 0 means L / K).
 //
 // D: every real slot sums, over partner rows r + dy (dy in [-w, w], read
 // through the halo rows: w <= 3 <= ROW_PAD) and partner lanes (l - d) mod L,

@@ -12,8 +12,12 @@ keys and random stream, so a seed gives the JAX demo's session. Frames are
 drawn on the handler's device and read back as numpy arrays.
 
 Run on the card: ``python -m egg_fluid_simulation_tpu_torch.demo --frames
-120 --out DIR`` (``--device cpu`` runs the kernels' plain versions). The
-multi-device session (``--spatial``) is not ported yet.
+120 --out DIR`` (``--device cpu`` runs the kernels' plain versions).
+``--spatial DBxDX`` runs the session on a
+:class:`~.parallel.spatial_handler.SpatialHandler` over a ``DB x DX`` mesh
+of ranks: ``1x1`` alone, a larger mesh under ``torchrun --nproc-per-node
+DB*DX`` (one rank a card with ``--device cuda``; gloo ranks on the CPU with
+``--device cpu``); only rank 0 writes frames and prints.
 """
 
 from __future__ import annotations
@@ -30,13 +34,11 @@ import numpy as np
 
 from . import config as config_mod
 from .handler import SimulationHandler
+from .parallel.spatial_handler import SpatialHandler
 from .path import Path
 from .utils.mathx import fract, wrap
 
 __all__ = ["DemoState", "run_demo"]
-
-_NO_SPATIAL = ("the multi-device layers (--spatial) are not ported to "
-               "egg_fluid_simulation_tpu_torch yet")
 
 _COLORS = [  # the reference demo's yolk recolor cycle (test.lua:29-53)
     (0.0118, 0.8627, 0.1961, 1.0),   # green
@@ -53,20 +55,25 @@ class DemoState:
                  spatial=None, use_particle_color: bool = False,
                  **handler_kwargs):
         """A :class:`SimulationHandler` session; ``handler_kwargs`` go to
-        the handler (``device``, ``capacity``, ...). ``spatial=(db, dx)``,
-        the multi-device session of the JAX package, is not ported and
-        raises ``NotImplementedError``. ``use_particle_color`` mirrors the
+        the handler (``device``, ``capacity``, ...). ``spatial=(db, dx)``
+        runs it on a :class:`SpatialHandler` over a ``db x dx`` mesh (same
+        public API, sharded step and render; a mesh of more than one rank
+        needs its process group). ``use_particle_color`` mirrors the
         reference demo's experimental per-particle rgb accumulation toggle
         (test.lua:26) — colors persist per particle at spawn/recolor time
         and ride the splat kernel's rgb accumulators."""
-        if spatial is not None:
-            raise NotImplementedError(_NO_SPATIAL)
         self.width, self.height = width, height
         self.rng = random.Random(seed)
         handler_kwargs.setdefault("capacity", 8192)
-        self.handler = SimulationHandler(config_mod.default_white_config(),
-                                         config_mod.default_yolk_config(),
-                                         **handler_kwargs)
+        if spatial is not None:
+            db, dx = spatial
+            self.handler = SpatialHandler(config_mod.default_white_config(),
+                                          config_mod.default_yolk_config(),
+                                          db=db, dx=dx, **handler_kwargs)
+        else:
+            self.handler = SimulationHandler(config_mod.default_white_config(),
+                                             config_mod.default_yolk_config(),
+                                             **handler_kwargs)
         # the experimental toggle is a pre-spawn attribute poke in the
         # reference too (test.lua:26) — it must precede add() so spawn
         # colors materialize as per-particle arrays
@@ -229,17 +236,34 @@ def main(argv=None) -> int:
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device of the simulation (default cuda)")
     ap.add_argument("--spatial", type=str, default=None, metavar="DBxDX",
-                    help="multi-device mesh: not ported yet (exits 2)")
+                    help="run on a DB x DX spatial mesh of ranks (e.g. 2x2); "
+                         "more than one rank: under torchrun "
+                         "--nproc-per-node DB*DX")
     args = ap.parse_args(argv)
+    spatial, lead = None, True
     if args.spatial:
-        print(f"--spatial: {_NO_SPATIAL}", file=sys.stderr)
-        return 2
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-    stats = run_demo(frames=args.frames, out_dir=args.out, seed=args.seed,
-                     capacity=args.capacity, device=args.device,
-                     use_particle_color=args.particle_color)
-    print(stats)
+        db, dx = (int(v) for v in args.spatial.lower().split("x"))
+        spatial = (db, dx)
+        if db * dx > 1:
+            world = int(os.environ.get("WORLD_SIZE", "1"))
+            if world != db * dx:
+                raise SystemExit(
+                    f"--spatial {args.spatial} needs {db * dx} ranks: run "
+                    f"it under torchrun --nproc-per-node {db * dx} (this "
+                    f"process group has {world})")
+            from .parallel.mesh import init_from_env
+            init_from_env(args.device)
+            lead = int(os.environ.get("RANK", "0")) == 0
+    out_dir = args.out if lead else None
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    stats = run_demo(frames=args.frames, out_dir=out_dir, seed=args.seed,
+                     spatial=spatial, capacity=args.capacity,
+                     device=args.device,
+                     use_particle_color=args.particle_color,
+                     draw_every=1 if args.out else None)
+    if lead:
+        print(stats)
     return 0
 
 

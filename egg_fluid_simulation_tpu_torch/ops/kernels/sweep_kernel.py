@@ -442,8 +442,9 @@ def _check_planes(name: str, planes, k: int, params=None):
                                   and params.dtype == torch.float32
                                   and params.device == planes.device)))
     if not ok:
-        raise ValueError(f"{name}: float32 planes (8, G + 2*ROW_PAD, G*K)"
-                         " [and params (8,)] on one device expected")
+        raise ValueError(f"{name}: float32 planes (8, R + 2*ROW_PAD, L) with "
+                         f"R >= 1 real rows and L a multiple of K = {k} "
+                         "[and params (8,)] on one device expected")
 
 
 def sweep_planes(planes, params, k: int, *, cohesion: bool,
@@ -452,6 +453,11 @@ def sweep_planes(planes, params, k: int, *, cohesion: bool,
                  wide: Optional[torch.Tensor] = None):
     """(2, G, L) pair-correction sums of halo-padded planes.
 
+    The planes are a torus (the single-device layout: the halo rows copy
+    the opposite edge, ``L = G*K``) or a window of one (the 2D spatial
+    layer's: the halo rows and lanes hold the neighbours' slots, ``L`` any
+    multiple of K): rows are read through the halo rows, lanes wrap mod
+    ``L``, and the fresh-cell modulus is ``params[6]`` (0: ``L / K``).
     ``params``: (8,) float32 ``SweepParams.pack()``. ``symmetric`` takes
     kernel E (each unordered pair once) instead of D. ``wide``, when given
     (a 0-dim device tensor), overrides ``window``/``fresh_mask``: true

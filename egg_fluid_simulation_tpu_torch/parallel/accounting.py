@@ -1,0 +1,42 @@
+"""Collective bytes, counted where the collectives are called.
+
+The counterpart of ``egg_fluid_simulation_tpu/parallel/accounting.py``.
+The JAX package reads the bytes out of the compiled HLO of a sharded step;
+the port has no HLO, so every collective of :class:`~.mesh.Mesh` adds the
+bytes this rank sends to the mesh's :class:`~.mesh.CollectiveCounter`,
+under the category its call site names. For a spatial step the categories
+are those of ``SpatialLayout.collective_bytes_per_step`` (the analytic
+model): ``full_halo_exchange``, ``xy_refresh_per_pass``, ``migration``;
+besides them ``reductions`` (the gate's and the statistics' all-reduces,
+outside the model), ``render`` (the draw's log-space sum) and ``gather``
+(a whole state gathered for the host layout or the handler's sync). The 1D
+sharded step counts its per-pass gather under ``all_gather``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .mesh import Mesh
+
+__all__ = ["collective_bytes_from_counter", "measured_collective_bytes"]
+
+
+def collective_bytes_from_counter(counts: Dict[str, int]) -> Dict[str, int]:
+    """Per-category byte totals of a counter snapshot (or difference of two)
+    plus their ``total``: the form ``collective_bytes_from_hlo`` gives in the
+    JAX package."""
+    out = {k: int(v) for k, v in counts.items() if k != "total" and v}
+    out["total"] = sum(out.values())
+    return out
+
+
+def measured_collective_bytes(mesh: Mesh, fn, *args, **kw):
+    """Run ``fn(*args, **kw)`` and count the bytes this rank sent in its
+    collectives. Returns ``(fn's result, per-category bytes with a
+    'total')``."""
+    before = mesh.counter.snapshot()
+    out = fn(*args, **kw)
+    after = mesh.counter.snapshot()
+    diff = {k: v - before.get(k, 0) for k, v in after.items()}
+    return out, collective_bytes_from_counter(diff)

@@ -20,10 +20,14 @@ from dataclasses import dataclass, fields, replace
 import torch
 
 __all__ = ["ParticleState", "StepStats", "zeros_state", "zeros_stats",
-           "host_view", "WHITE", "YOLK"]
+           "host_view", "WHITE", "YOLK", "PARTICLE_FIELDS"]
 
 N_POPULATIONS = 2  # white, yolk
 WHITE, YOLK = 0, 1
+# the per-particle fields (a particle axis after the population axis); the
+# others are per population or per batch
+PARTICLE_FIELDS = ("pos", "prev", "vel", "last_pos", "radius", "mass_t",
+                   "inv_mass", "batch_slot", "color")
 
 
 @dataclass(frozen=True)

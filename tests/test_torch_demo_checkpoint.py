@@ -26,7 +26,8 @@ package's.
   run (gather and dense engine); files move between the packages both
   ways with the state bit for bit; the ``wide_state`` encoding (budget -1
   for ``None``) and ``render_k_boost`` survive.
-- The demo's keys and command line on the port (``--spatial`` refused).
+- The demo's keys and command line on the port (``--spatial`` over more
+  than one rank refused outside ``torchrun``).
 """
 
 import numpy as np
@@ -328,8 +329,10 @@ def test_demo_command_line(tmp_path, capsys):
     assert sorted(p.name for p in out.iterdir()) == ["frame_0000.png"]
     assert (out / "frame_0000.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     assert "n_particles" in capsys.readouterr().out
-    assert tdemo.main(["--spatial", "2x2", "--device", "cpu"]) != 0
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and "not ported" in err[0]
-    with pytest.raises(NotImplementedError):
+    # a 2 x 2 mesh outside torchrun: refused with one line, no fallback
+    with pytest.raises(SystemExit) as exc:
+        tdemo.main(["--spatial", "2x2", "--device", "cpu"])
+    msg = str(exc.value)
+    assert "\n" not in msg and "torchrun --nproc-per-node 4" in msg
+    with pytest.raises(RuntimeError, match="4 ranks"):
         tdemo.DemoState(spatial=(2, 2), device="cpu")

@@ -1,0 +1,40 @@
+"""The port stands alone: no module of ``egg_fluid_simulation_tpu_torch``,
+``parallel/`` included, imports ``jax`` or the JAX package
+``egg_fluid_simulation_tpu``. Every ``.py`` file of the package is parsed
+with ``ast`` (so a lazy import inside a function counts too) and each
+``import`` / ``from ... import`` is checked."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+import egg_fluid_simulation_tpu_torch
+
+PKG = Path(egg_fluid_simulation_tpu_torch.__file__).resolve().parent
+FILES = sorted(PKG.rglob("*.py"))
+BANNED = ("jax", "jaxlib", "egg_fluid_simulation_tpu")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_the_package_has_its_parallel_layer():
+    names = {p.relative_to(PKG).as_posix() for p in FILES}
+    assert {"parallel/mesh.py", "parallel/sharding.py", "parallel/spatial.py",
+            "parallel/spatial_handler.py", "parallel/accounting.py",
+            "parallel/dryrun.py", "parallel/spatial_bench.py"} <= names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(PKG)
+                         .as_posix())
+def test_no_jax_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported(tree)
+           if any(m == b or m.startswith(b + ".") for b in BANNED)]
+    assert not bad, f"{path.name} imports {bad}"

@@ -1,0 +1,354 @@
+"""The PyTorch side of the multi-rank twin tests, run in spawned gloo ranks.
+
+A test module writes its inputs (the JAX handler's state as a host view,
+configs, layout) to an ``.npz``, starts one set of ranks for all its
+scenarios (:func:`start`), computes the JAX side meanwhile, and reads the
+ranks' results back (:meth:`Ranks.result`: rank 0 writes them). The ranks
+import torch and the port only, never JAX. A rank set that fails, or runs
+past its time limit, is killed and fails the test.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from typing import Dict
+
+import numpy as np
+import torch
+
+from egg_fluid_simulation_tpu_torch.parallel.mesh import spawn_ranks
+
+RANK_TIMEOUT_S = 600.0      # a rank set's whole run (~60 s on an idle CPU)
+GROUP_TIMEOUT_S = 300.0     # one collective's wait on a slow peer
+
+
+class Ranks:
+    """A rank set running in the background (a thread waits on it)."""
+
+    def __init__(self, program: str, inputs: Dict[str, np.ndarray], tmp,
+                 n_ranks: int):
+        self.out = os.path.join(str(tmp), f"{program}_result.npz")
+        inp = os.path.join(str(tmp), f"{program}_inputs.npz")
+        np.savez(inp, **inputs)
+        self.error = None
+
+        def run():
+            try:
+                spawn_ranks(_program_main, (program, inp, self.out), n_ranks,
+                            "cpu", timeout_s=RANK_TIMEOUT_S,
+                            group_timeout_s=GROUP_TIMEOUT_S)
+            except BaseException as e:  # re-raised in result()
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self) -> Dict[str, np.ndarray]:
+        self.thread.join(RANK_TIMEOUT_S + 30.0)
+        assert not self.thread.is_alive(), "rank set did not end"
+        if self.error is not None:
+            raise AssertionError(f"rank set failed: {self.error!r}")
+        with np.load(self.out) as f:
+            return {k: f[k] for k in f.files}
+
+
+def start(program: str, inputs: Dict[str, np.ndarray], tmp,
+          n_ranks: int) -> Ranks:
+    return Ranks(program, inputs, tmp, n_ranks)
+
+
+def _program_main(program: str, inp: str, out: str) -> None:
+    import torch.distributed as dist
+    with np.load(inp) as f:
+        inputs = {k: f[k] for k in f.files}
+    res: Dict[str, np.ndarray] = {}
+    globals()[program](inputs, res)
+    if dist.get_rank() == 0:
+        np.savez(out, **res)
+
+
+# ------------------------------------------------------------- helpers --
+
+def _configs(inputs):
+    from egg_fluid_simulation_tpu_torch.config import (device_config_from_dict,
+                                                       stack_device_configs)
+    white = json.loads(str(inputs["white_config"]))
+    yolk = json.loads(str(inputs["yolk_config"]))
+    return white, yolk, stack_device_configs(device_config_from_dict(white),
+                                             device_config_from_dict(yolk))
+
+
+def _spatial_setup(inputs):
+    from egg_fluid_simulation_tpu_torch.interop import state_from_numpy
+    from egg_fluid_simulation_tpu_torch.ops.solver import SolverOptions
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+    g, k, db, dx, cap = (int(inputs[n]) for n in
+                         ("grid_dim", "slots", "db", "dx", "migrate_cap"))
+    mesh = S.make_spatial_mesh(db, dx, "cpu")
+    lay = S.SpatialLayout(g, k, db=db, dx=dx, migrate_cap=cap)
+    opts = SolverOptions(engine="dense", budget_mode="off", dense_rebin="step",
+                         dense_grid_dim=g, dense_slots=k)
+    state = state_from_numpy(
+        {f: inputs["state_" + f] for f in
+         ("pos", "prev", "vel", "last_pos", "radius", "mass_t", "inv_mass",
+          "batch_slot", "color", "count", "batch_target", "batch_radius",
+          "batch_used")})
+    return mesh, lay, opts, state
+
+
+def _save_state(res, prefix, state, mesh):
+    from egg_fluid_simulation_tpu_torch.parallel.sharding import unshard_state
+    from egg_fluid_simulation_tpu_torch.state import host_view
+    for k, v in host_view(unshard_state(state, mesh)).items():
+        res[f"{prefix}_{k}"] = v
+
+
+def _save_stats(res, prefix, stats, info=None):
+    for k in ("aabb_min", "aabb_max", "centroid", "last_centroid",
+              "max_radius", "max_velocity", "batch_pos_sum", "batch_count"):
+        res[f"{prefix}_{k}"] = getattr(stats, k).numpy()
+    if info is not None:
+        res[f"{prefix}_info"] = info.numpy()
+
+
+def _gathered(mesh, t):
+    """Every rank's ``t`` stacked in rank order."""
+    return mesh.all_gather(t[None].contiguous(), "test").numpy()
+
+
+# ------------------------------------------------------------ programs --
+
+def spatial_program(inputs, res):
+    """The 2D layer pieces on a db x dx mesh: redistribute, one binning and
+    halo exchange per population, three steps (the first's bytes counted),
+    the redistribute of a stepped state, and one step after a particle was
+    teleported a band down."""
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+    from egg_fluid_simulation_tpu_torch.parallel.accounting import \
+        measured_collective_bytes
+    mesh, lay, opts, state = _spatial_setup(inputs)
+    _, _, cfg2 = _configs(inputs)
+    cells = [float(c) for c in inputs["cells"]]
+    dt, relax = torch.tensor(1 / 60), torch.tensor(1.0)
+
+    st0 = S.redistribute(state, cells, lay, mesh)
+    _save_state(res, "redist", st0, mesh)
+
+    # one binning + full halo exchange per population
+    band, block = mesh.coords
+    sub_dt = dt / opts.n_substeps
+    follow_radius = torch.sqrt(torch.clamp(st0.batch_radius, min=0.0))
+    from egg_fluid_simulation_tpu_torch.config import population_config
+    for i in range(2):
+        active = st0.batch_slot[i] >= 0
+        env = S._pop_env(population_config(cfg2, i), st0.mass_t[i], active,
+                         st0.batch_slot[i], st0.batch_target,
+                         follow_radius[i], sub_dt, opts, lay)
+        aux_cols = torch.stack([st0.pos[i][:, 0], st0.pos[i][:, 1],
+                                st0.vel[i][:, 0], st0.vel[i][:, 1],
+                                env["tx"], env["ty"], env["td"]], dim=1)
+        planes, aux, slot, in_grid = S._bin_local(
+            st0.pos[i], env["inv_mass"], env["radius"], st0.batch_slot[i],
+            active, env["cell_size"], band, block, lay, aux_cols)
+        res[f"bin_planes_{i}"] = _gathered(mesh, planes)
+        res[f"bin_aux_{i}"] = _gathered(mesh, aux)
+        res[f"bin_slot_{i}"] = _gathered(mesh, slot)
+        res[f"bin_in_grid_{i}"] = _gathered(mesh, in_grid.to(torch.int32))
+        S._exchange_halos(planes, lay, mesh, "full_halo_exchange")
+        S._exchange_halos(aux, lay, mesh, "full_halo_exchange")
+        res[f"xch_planes_{i}"] = _gathered(mesh, planes)
+        res[f"xch_aux_{i}"] = _gathered(mesh, aux)
+
+    step = S.spatial_step(mesh, lay, opts)
+    st = st0
+    for s in range(3):
+        (st, stats, info), counted = measured_collective_bytes(
+            mesh, step, st, cfg2, dt, relax)
+        if s == 0:
+            for k, v in counted.items():
+                res[f"bytes_{k}"] = np.asarray(v)
+        _save_state(res, f"step{s}", st, mesh)
+        _save_stats(res, f"step{s}", stats, info)
+    st_r = S.redistribute(st, cells, lay, mesh, from_spatial=True)
+    _save_state(res, "redist_spatial", st_r, mesh)
+
+    # teleport the first live white particle one band down (same block)
+    from egg_fluid_simulation_tpu_torch.parallel import sharding
+    full = sharding.unshard_state(st0, mesh)
+    pos = full.pos.clone()
+    j = int(torch.nonzero(full.batch_slot[0] >= 0)[0, 0])
+    pos[0, j, 1] += lay.gb * cells[0]
+    full = full.replace(pos=pos, prev=pos.clone(),
+                        vel=torch.zeros_like(full.vel))
+    st_t, _, info_t = step(sharding.shard_state(full, mesh), cfg2, dt, relax)
+    res["teleport_j"] = np.asarray(j)
+    _save_state(res, "teleport", st_t, mesh)
+    res["teleport_info"] = info_t.numpy()
+
+
+def resident_program(inputs, res):
+    """Resident steps and the sharded draw on a db x dx mesh: five resident
+    steps in one call against a loop of five steps, two resident steps
+    with the first call's episode state, and the draw of a stepped state."""
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+    from egg_fluid_simulation_tpu_torch.state import StepStats
+    mesh, lay, opts, state = _spatial_setup(inputs)
+    white, yolk, cfg2 = _configs(inputs)
+    cells = [float(c) for c in inputs["cells"]]
+    dt, relax = torch.tensor(1 / 60), torch.tensor(1.0)
+
+    st0 = S.redistribute(state, cells, lay, mesh)
+    multi = S.spatial_multi_step(mesh, lay, opts)
+    S.host_reads = 0
+    st_m, stats_m, info_m, ws = multi(st0, cfg2, dt, relax, 5)
+    res["multi_host_reads"] = np.asarray(S.host_reads)
+    _save_state(res, "multi", st_m, mesh)
+    _save_stats(res, "multi", stats_m, info_m)
+    res["multi_wide"] = np.asarray([[int(v) for v in w] for w in ws])
+    step = S.spatial_step(mesh, lay, opts)
+    st_s = st0
+    for _ in range(5):
+        st_s, stats_s, info_s = step(st_s, cfg2, dt, relax)
+    _save_state(res, "loop", st_s, mesh)
+    _save_stats(res, "loop", stats_s, info_s)
+    st_2, _, _, _ = multi(st0, cfg2, dt, relax, 2, wide_state=ws)
+    _save_state(res, "multi2", st_2, mesh)
+
+    from egg_fluid_simulation_tpu_torch.interop import state_from_numpy
+    drawn = state_from_numpy({f: inputs["draw_" + f] for f in
+                              ("pos", "prev", "vel", "last_pos", "radius",
+                               "mass_t", "inv_mass", "batch_slot", "color",
+                               "count", "batch_target", "batch_radius",
+                               "batch_used")})
+    stats = StepStats(**{k: torch.from_numpy(inputs["draw_stats_" + k])
+                         for k in ("aabb_min", "aabb_max", "centroid",
+                                   "last_centroid", "max_radius",
+                                   "max_velocity", "batch_pos_sum",
+                                   "batch_count")})
+    opts2 = tuple(R.auto_render_options(c, 256) for c in (white, yolk))
+    draw = S.spatial_draw(mesh, lay, opts2, (0.0, 0.0, 256, 256), 0.3, 0.01,
+                          True)
+    res["frame"] = draw(S.redistribute(drawn, cells, lay, mesh), stats, cfg2,
+                        1.0).numpy()
+
+
+def sharding_program(inputs, res):
+    """The 1D particle-sharded step on every rank: one step (its bytes
+    counted) and five chained steps; then the dry run's checks
+    (``parallel/dryrun.py``) on the same ranks."""
+    from egg_fluid_simulation_tpu_torch.interop import state_from_numpy
+    from egg_fluid_simulation_tpu_torch.ops.solver import SolverOptions
+    from egg_fluid_simulation_tpu_torch.parallel import sharding
+    from egg_fluid_simulation_tpu_torch.parallel.accounting import \
+        measured_collective_bytes
+    from egg_fluid_simulation_tpu_torch.state import host_view
+    _, _, cfg2 = _configs(inputs)
+    mesh = sharding.make_mesh("cpu")
+    opts = SolverOptions(cohesion_mode="literal", table_size=4096,
+                         slots_per_cell=32, budget_mode="off")
+    state = state_from_numpy({k[6:]: v for k, v in inputs.items()
+                              if k.startswith("state_")})
+    st = sharding.shard_state(state, mesh)
+    step = sharding.sharded_step(mesh, opts)
+    dt, relax = torch.tensor(1 / 60), torch.tensor(1.0)
+    (new, stats), counted = measured_collective_bytes(mesh, step, st, cfg2,
+                                                      dt, relax)
+    for k, v in counted.items():
+        res[f"bytes_{k}"] = np.asarray(v)
+    for k, v in host_view(sharding.unshard_state(new, mesh)).items():
+        res[f"step_{k}"] = v
+    _save_stats(res, "step", stats)
+    for _ in range(4):
+        new, stats = step(new, cfg2, dt, relax)
+    for k, v in host_view(sharding.unshard_state(new, mesh)).items():
+        res[f"steps5_{k}"] = v
+    _save_stats(res, "steps5", stats)
+    # the dry run's checks on the same ranks (it raises on a failure)
+    import torch.distributed as dist
+    from egg_fluid_simulation_tpu_torch.parallel import dryrun
+    dryrun.check(dist.get_world_size(), "cpu")
+    res["dryrun_passed"] = np.asarray(1)
+
+
+def handler_program(inputs, res):
+    """The SpatialHandler product surface on a db x dx mesh: the flow of
+    tests/test_spatial_handler.py, its migration-overflow recovery, a demo
+    session, and a live checkpoint (rank 0 writes it)."""
+    from egg_fluid_simulation_tpu_torch import checkpoint
+    from egg_fluid_simulation_tpu_torch import demo
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+    from egg_fluid_simulation_tpu_torch.parallel.spatial_handler import \
+        SpatialHandler
+    from egg_fluid_simulation_tpu_torch.ops.solver import SolverOptions
+    white, yolk, _ = _configs(inputs)
+    db, dx, g, k = (int(inputs[n]) for n in ("db", "dx", "grid_dim", "slots"))
+    options = SolverOptions(engine="dense", budget_mode="off",
+                            dense_rebin="step", dense_grid_dim=g,
+                            dense_slots=k)
+
+    def spatial(**kw):
+        return SpatialHandler(white, yolk, db=db, dx=dx, capacity=1024,
+                              max_batches=8, options=options, device="cpu",
+                              **kw)
+
+    # ---- the product flow ----
+    hs = spatial()
+    a = hs.add(60.0, 50.0, 40.0, 12.0, None, None, 40, 10)
+    b = hs.add(150.0, 90.0, 40.0, 12.0, None, None, 40, 10)
+    hs.set_target_position(a, 120.0, 70.0)
+    hs.set_target_position(b, 80.0, 60.0)
+    res["flow_ids"] = np.asarray(hs.list_ids())
+    res["flow_n0"] = np.asarray(hs.get_n_particles())
+    hs.update(3 / 60)
+    res["flow_positions"] = np.asarray([hs.get_position(i)
+                                        for i in hs.list_ids()])
+    res["flow_frame"] = hs.draw(viewport=(0, 0, 256, 256)).numpy()
+    hs.run_steps(4)
+    res["flow_n_run"] = np.asarray(hs.get_n_particles())
+    res["flow_info_run"] = np.asarray(hs.last_migration_info)
+    c = hs.add(100.0, 120.0, 30.0, 10.0, None, None, 30, 8)
+    hs.update(1 / 60)
+    hs.remove(c)
+    hs.update(1 / 60)
+    res["flow_n_end"] = np.asarray(hs.get_n_particles())
+    hs.set_yolk_color(hs.list_ids()[0], 0.9, 0.2, 0.1)
+    hs.update(1 / 60)
+    _save_state(res, "flow_end", hs.state, hs.mesh)
+
+    # ---- migration overflow: a teleported clump through 1-slot buffers ----
+    ho = spatial(migrate_cap=1)
+    ho.add(60.0, 50.0, 40.0, 12.0, None, None, 40, 10)
+    ho.update(1 / 60)
+    res["over_n0"] = np.asarray(ho.get_n_particles())
+    band_px = ho.layout.gb * ho._cell_sizes()[0]
+    st = ho._sp_state
+    pos = st.pos.clone()
+    pos[..., 1] = torch.where(st.batch_slot >= 0, pos[..., 1] + band_px,
+                              pos[..., 1])
+    ho._sp_state = st.replace(pos=pos, prev=pos.clone())
+    ho.update(1 / 60)
+    res["over_info"] = np.asarray(ho.last_migration_info)
+    res["over_redistributed"] = np.asarray(ho._redistribute_count)
+    res["over_cells"] = np.asarray(ho._cell_sizes(), np.float32)
+    _save_state(res, "over", ho._sp_state, ho.mesh)
+
+    # ---- the demo session on the mesh ----
+    d = demo.DemoState(capacity=1024, spatial=(db, dx), device="cpu")
+    d.spawn_batch()
+    d.spawn_batch()
+    for _ in range(3):
+        d.update()
+    res["demo_frame"] = d.draw()
+    res["demo_n"] = np.asarray(d.overlay_stats()["n_particles"])
+
+    # ---- a live checkpoint ----
+    sh = spatial()
+    a = sh.add(60.0, 50.0, 20.0, 6.0, None, None, 40, 10)
+    sh.set_target_position(a, 100.0, 70.0)
+    sh.run_steps(3)
+    checkpoint.save(sh, str(inputs["ckpt_path"]))
+    res["ckpt_n"] = np.asarray(sh.get_n_particles())
+    res["ckpt_pos"] = sh.state.pos.numpy()     # synced: the prefix layout
