@@ -39,16 +39,31 @@ Then it drives the paths through the public API:
   4 resident steps on the fused and on the plane-resident (symmetric
   sweep) variant, and 3 resident frames; ``warmup``: the state is
   unchanged by it.
+- ``step_graph``: on the two 1M handlers (fused and plane) the update
+  replays the fixed step from a CUDA graph (``ops/step_graph.py``); it is
+  held bit for bit against ``solver.step`` run eagerly from the same state
+  (stats but the atomically summed ``batch_pos_sum``, at ``STATS_RTOL``),
+  and timed against eager updates in alternating blocks (wall, device ms,
+  kernels, busy share of each);
 - ``gather_path``: an automatic handler at capacity 8192 (the gather
-  engine, plain PyTorch: no solver kernel) with ~8000 live particles,
+  engine: kernel H, ``csrc/gather_pairs.cu``, for the ordered budget's
+  count and the sweep of each collision pass) with ~8000 live particles;
+  ``check.gather_pairs`` first (H against its plain version on the
+  scene's state, both populations, budget on and off, binding, literal
+  cohesion and on a 16-bucket table: the count bit for bit, the sweep
+  within ``GATHER_TOL``; timed from a CUDA graph); then
   ``update(1/60)`` x10 and an 800 x 600 ``draw`` (kernel C), then
-  ``run_steps(10)``; wall p50 by CUDA events, device ms and launches per
-  ``update`` from a ``utils.profiling.trace`` block, the collision budget's
-  drops; ``gather_reference``: the default 4k scene stepped once on the
-  card and on the CPU;
+  ``run_steps(10)`` (H's launches asserted: a count and a sweep each
+  collision pass and population, no other solver kernel); wall p50 by
+  CUDA events, device ms and launches per ``update`` from a
+  ``utils.profiling.trace`` block, the collision budget's drops; the
+  replayed step against the eager one as in ``step_graph``, and ``update``
+  replayed against eager; ``gather_reference``: the default 4k scene
+  stepped once on the card and on the CPU;
 - ``demo``: the demo session (``DemoState.run``, as ``run_demo``) for 60
-  frames on the card, a draw every 10th, then frames of update + draw
-  timed (CUDA events) and traced; ``checkpoint``: the demo's
+  frames on the card, a draw every 10th, then ``check.gather_pairs`` on
+  its state, then frames of update + draw timed (CUDA events) and traced,
+  replayed and eager in turns; ``checkpoint``: the demo's
   handler saved mid-session, loaded on the CPU and on the card (state bit
   for bit), one step on each (card vs CPU within the step tolerances);
 - ``spatial_1x1``: the 2D spatial layer (``parallel/``) on a one-rank mesh
@@ -71,11 +86,21 @@ Then it drives the paths through the public API:
   payload, alpha and rgb. D's and C's launches of this phase are their own
   entries of the kernel line (``.spatial_1x1``).
 
+Kernel H has no TPU counterpart (XLA fuses the JAX package's
+``solve_pairs``); its two entry points are the kernel line's
+``gather_sweep`` and ``gather_count``, with the gather path's launches.
 Kernel G (``splat_tiles``) has no caller on any path: it is checked alone
 (``check.splat_tiles``) on slot-major candidates built from the 1M scene's
 render payload. The kernel line gives, per kernel, its launches on its
 path, its time and its plain version's, its bound on the card (``bound``)
 and, where one PyTorch call computes the same function, that call's time.
+A handler's fixed step is replayed from a CUDA graph, which runs its
+launches without the wrappers, so the launches of a path that replays
+(``main_path``, ``plane_path``, ``plane_modes``, ``gather_path``) are
+counted in a ``torch.profiler`` trace of its run, by kernel symbol
+(``launches_run``); the wrappers' counters, which count the eager first
+step and the capture, are printed beside them and must not be zero where
+the run captured.
 
 Every phase prints its own line; any failure raises, so the script exits
 non-zero. Without a CUDA card it exits non-zero before doing anything. The
@@ -85,6 +110,7 @@ line before the last is the card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -112,6 +138,15 @@ CUM_EXACT = 2.0 ** 24       # FIELD_CUM, a float32 prefix of counts, is
 REF_TOL = 1e-3              # px after a few steps, card vs CPU (the CPU
                             # tests' tolerance against the JAX package)
 SPLAT_TOL = 1e-4            # alpha: products taken in another order
+GATHER_TOL = 1e-4           # px a pass: kernel H sums a particle's
+                            # candidates in another order than its plain
+                            # version (each pair's term rounds alike)
+STRESS_TABLE = 16           # kernel H's check on a small hash table:
+STRESS_SLOTS = 4            # repeated and crowded buckets
+STATS_RTOL = 1e-5           # batch_pos_sum, replayed vs eager step:
+                            # index_add_ sums with atomics in any order
+GRAPH_UNITS = 6             # updates (frames) a timed block, graph vs eager
+GRAPH_BLOCKS = 4            # timed blocks of each, in turns
 RESIDENT_STEPS = 20         # run_steps on the 1M scene
 RESIDENT_FRAMES = 3         # multi_step_frames on the 1M scene
 RESIDENT_REF_STEPS = 4      # run_steps of the calm 4k lattice, card vs CPU
@@ -480,6 +515,114 @@ def traced(fn, n: int) -> dict:
     return dict(device_ms=dev_ms / n, kernels=len(kernels) / n,
                 profiled_wall_ms=wall / n,
                 busy_share=dev_ms / wall if wall else None)
+
+
+@contextlib.contextmanager
+def eager_steps(h):
+    """The handler's fixed steps run eagerly inside the block (one launch
+    per op, as before the step was captured); its captured steps are kept
+    for after."""
+    from egg_fluid_simulation_tpu_torch.ops.step_graph import EAGER
+    saved = h._step_graphs
+    h._step_graphs = EAGER
+    try:
+        yield
+    finally:
+        h._step_graphs = saved
+
+
+def check_step_graph(h, phase: str, updates: int = 2) -> dict:
+    """``update(1/60)`` through the handler's captured step against
+    ``solver.step`` run eagerly from the same state, ``updates`` times:
+    pos, prev, vel, last_pos, inv_mass, radius and the wide-gate state bit
+    for bit; the stats bit for bit but ``batch_pos_sum``, which
+    ``index_add_`` sums with atomics in any order (``STATS_RTOL``)."""
+    import dataclasses
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import solver as S
+    cfg2 = h._device_cfg2()
+    dt, relax = h._step_scalars(1 / 60)
+    unequal, stats_err = set(), 0.0
+    for _ in range(updates):
+        s0, w0 = h.state, h._wide_or_init()
+        want, want_stats, want_wide = S.step(s0, cfg2, dt, relax, h._options,
+                                             wide_state=w0)
+        h.update(1 / 60)
+        got, got_stats = h.state, h.stats
+        if not torch.equal(got.last_pos, s0.pos):
+            raise AssertionError(f"{phase}: update(1/60) ran other than one "
+                                 "step")
+        for f in ("pos", "prev", "vel", "last_pos", "inv_mass", "radius"):
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                unequal.add(f)
+        if [[int(v) for v in w] for w in h._wide_state] != \
+                [[int(v) for v in w] for w in want_wide]:
+            unequal.add("wide_state")
+        for f in dataclasses.fields(want_stats):
+            a, b = getattr(got_stats, f.name), getattr(want_stats, f.name)
+            if f.name == "batch_pos_sum":
+                stats_err = max(stats_err, float(
+                    ((a - b).abs() / b.abs().clamp(min=1.0)).max()))
+            elif not torch.equal(a, b):
+                unequal.add(f.name)
+    graphs = h._step_graphs
+    out = dict(updates=updates, captures=graphs.captures if graphs else 0,
+               unequal=sorted(unequal), batch_sum_rel_err=stats_err,
+               tol=f"bit for bit; batch_pos_sum rtol {STATS_RTOL}")
+    log(f"step_graph.{phase}", **out)
+    if unequal or stats_err > STATS_RTOL or not out["captures"]:
+        raise AssertionError(f"{phase}: the replayed step differs from the "
+                             f"eager step ({sorted(unequal)}, batch sums "
+                             f"{stats_err}) or nothing was captured")
+    return out
+
+
+def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2) -> dict:
+    """``unit`` (an ``update``, or an ``update`` and a draw) of handler
+    ``h`` with its fixed step replayed and run eagerly, in alternating
+    blocks of ``n``: host-clock wall ms a unit (around work that ends in
+    ``torch.cuda.synchronize()``) and CUDA-event ms between the block's
+    ends; then one traced block of each (device ms, kernels, busy share a
+    unit)."""
+    import torch
+    walls = {"replay": [], "eager": []}
+    events = {"replay": [], "eager": []}
+
+    def block(mode):
+        ctx = eager_steps(h) if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev0.record()
+            for _ in range(n):
+                unit()
+            ev1.record()
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1e3 / n)
+            events[mode].append(ev0.elapsed_time(ev1) / n)
+
+    for b in range(blocks):
+        for mode in (("replay", "eager") if b % 2 == 0
+                     else ("eager", "replay")):
+            block(mode)
+    out = {}
+    for mode in ("replay", "eager"):
+        ctx = eager_steps(h) if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            prof = traced(lambda: [unit() for _ in range(n)], n)
+        out[mode] = dict(
+            wall_p50_ms=float(np.median(walls[mode])),
+            wall_ms=[round(x, 3) for x in walls[mode]],
+            event_ms=[round(x, 3) for x in events[mode]],
+            device_ms=round(prof["device_ms"], 4),
+            kernels=prof["kernels"], busy_share=round(prof["busy_share"], 3))
+    log(f"step_graph.{phase}.time", n=n, blocks=blocks, **out,
+        eager_over_replay_wall=round(out["eager"]["wall_p50_ms"]
+                                     / out["replay"]["wall_p50_ms"], 3),
+        card=nvidia_smi())
+    return out
 
 
 def state_err(a: dict, b: dict) -> dict:
@@ -890,6 +1033,170 @@ def check_path_splat(h, phase: str, results) -> None:
     r["max_abs_err"] = max([r["max_abs_err"], *errs.values()])
 
 
+def gather_pass_inputs(h, pop: int):
+    """One collision pass's inputs of population ``pop`` at the handler's
+    state, as ``solver.substep`` gives them to ``solve_pairs`` at
+    ``update(1/60)``: fields, config, compliances at the substep's dt, and
+    the hash grid."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.config import population_config
+    from egg_fluid_simulation_tpu_torch.ops import grid as G
+    from egg_fluid_simulation_tpu_torch.ops import solver as S
+    st, opts = h.state, h._options
+    cap = S._pop_caps(opts, st.capacity)[pop]
+    cfg = population_config(h._device_cfg2(), pop)
+    dt, relax = h._step_scalars(1 / 60)
+    sub_dt = torch.clamp(dt / opts.n_substeps, min=1e-8)
+    act = st.active_mask()[pop, :cap]
+    cell = torch.clamp(cfg.max_radius
+                       * torch.maximum(cfg.collision_overlap_factor,
+                                       cfg.cohesion_interaction_distance_factor),
+                       min=1.0)
+    pos = st.pos[pop, :cap].contiguous()
+    grid = G.build_grid(pos, act, cell, table_size=opts.table_size,
+                        slots_per_cell=opts.slots_per_cell)
+    return dict(pos=pos, cell=cell,
+                inv_mass=st.inv_mass[pop, :cap].contiguous(),
+                radius=st.radius[pop, :cap].contiguous(),
+                batch_slot=st.batch_slot[pop, :cap].contiguous(), active=act,
+                grid=grid, cfg=cfg, relaxation=relax,
+                collision_c=S.strength_to_compliance(cfg.collision_strength,
+                                                     sub_dt),
+                cohesion_c=S.strength_to_compliance(cfg.cohesion_strength,
+                                                    sub_dt))
+
+
+def check_gather_pairs(h, phase: str, results) -> None:
+    """Kernel H (``csrc/gather_pairs.cu``) against its plain version on the
+    inputs of one collision pass at the handler's state, both populations,
+    at the handler's options (ordered budget, spacing cohesion) and with the
+    budget off; then where the scene's own pass leaves branches idle: the
+    budget set to half the pass's pairs (it binds), the literal cohesion
+    mode, and a grid of the same positions with ``STRESS_TABLE`` buckets of
+    ``STRESS_SLOTS`` slots (buckets repeated among a particle's nine,
+    buckets crowded past K, far cells sharing a bucket), budget on and off:
+    ``gather_count`` bit for bit, ``gather_sweep`` within ``GATHER_TOL``
+    (the candidate sums run in another order). Times from a
+    CUDA graph of 20 calls (a launch takes a few microseconds) with the
+    one-by-one time beside; the bound counts PAIR_OPS for each candidate
+    pair in the true 3x3 cells (this data's work) and the table, the
+    per-particle fields and the output once."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import grid as G
+    from egg_fluid_simulation_tpu_torch.ops import solver as S
+    from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
+    opts = h._options
+    errs, count_exact, rows, stress = {}, True, [], {}
+    for pop, name in ((0, "white"), (1, "yolk")):
+        d = gather_pass_inputs(h, pop)
+        grid, act = d["grid"], d["active"]
+        got_n = GK.gather_count(grid, act)
+        want_n = GK.gather_count_plain(grid, act)
+        count_exact &= bool(torch.equal(got_n, want_n))
+        cum = torch.cumsum(want_n, 0) - want_n
+        max_pairs = S._max_pairs(act)
+        cfg = d["cfg"]
+        args = (d["pos"], d["inv_mass"], d["radius"], d["batch_slot"], act,
+                grid)
+        scal = (d["collision_c"], d["cohesion_c"],
+                cfg.collision_overlap_factor,
+                cfg.cohesion_interaction_distance_factor, d["relaxation"])
+        for budget in ("ordered", "off"):
+            cm = (cum, max_pairs) if budget == "ordered" else (None, None)
+            spacing = opts.cohesion_mode == "spacing"
+            got = GK.gather_sweep(*args, *cm, *scal, spacing=spacing)
+            want = GK.gather_sweep_plain(*args, *cm, *scal, spacing=spacing)
+            errs[f"{name}.{budget}"] = float((got - want).abs().max())
+            moved = float((want - d["pos"]).abs().max())
+            if not moved > 0.0:
+                raise AssertionError(f"{phase}: the pass moved nothing")
+
+        def held(key, grid_c, cm, spacing):
+            """H against plain on one variant of the pass: the error."""
+            got = GK.gather_sweep(*args[:5], grid_c, *cm, *scal,
+                                  spacing=spacing)
+            want = GK.gather_sweep_plain(*args[:5], grid_c, *cm, *scal,
+                                         spacing=spacing)
+            errs[f"{name}.{key}"] = float((got - want).abs().max())
+
+        # the budget binds: half the pass's pairs
+        half = want_n.sum() * 0.5
+        held("budget_half", grid, (cum, half), True)
+        held("literal", grid, (cum, max_pairs), False)
+        # a small table: repeats among the nine, crowds past K, collisions
+        small = G.build_grid(d["pos"], act, d["cell"],
+                             table_size=STRESS_TABLE,
+                             slots_per_cell=STRESS_SLOTS)
+        got_s = GK.gather_count(small, act)
+        want_s = GK.gather_count_plain(small, act)
+        count_exact &= bool(torch.equal(got_s, want_s))
+        cum_s = torch.cumsum(want_s, 0) - want_s
+        held("small_table.ordered", small, (cum_s, max_pairs), True)
+        held("small_table.off", small, (None, None), True)
+        live = int(act.sum())
+        stress[name] = dict(
+            pairs=float(want_n.sum()), half_budget=float(half),
+            cut_particles=int(((cum >= half) & act).sum()),
+            small_table_pairs=float(want_s.sum()), live=live,
+            crowded=live > STRESS_TABLE * STRESS_SLOTS)
+        if not (stress[name]["cut_particles"] > 0 and stress[name]["crowded"]
+                and stress[name]["small_table_pairs"] > 0):
+            raise AssertionError(f"{phase}: a stress case of kernel H does "
+                                 f"not stress it ({stress[name]})")
+        cand, valid = GK.candidates(grid, act)
+        near = GK.in_cells(grid.cell_xy, torch.clamp(cand, min=0).long())
+        pairs = int((valid & near).sum())
+        n, k = act.shape[0], grid.table.shape[1]
+        ordered = (cum, max_pairs)
+
+        def sweep():
+            GK.gather_sweep(*args, *ordered, *scal, spacing=True)
+
+        def sweep_plain():
+            GK.gather_sweep_plain(*args, *ordered, *scal, spacing=True)
+
+        ms = graph_ms(sweep, 20)
+        one_by_one = cuda_ms(sweep, 20)
+        count_ms = graph_ms(lambda: GK.gather_count(grid, act), 20)
+        plain_ms = cuda_ms(sweep_plain, 5)
+        count_plain_ms = cuda_ms(lambda: GK.gather_count_plain(grid, act), 5)
+        field_bytes = nbytes(d["pos"], d["inv_mass"], d["radius"],
+                             d["batch_slot"], act, grid.cell_xy, cum)
+        b_ms, b_by = bound(pairs * PAIR_OPS,
+                           nbytes(grid.table) + field_bytes + n * 8)
+        c_ms, c_by = bound(pairs * COUNT_OPS,
+                           nbytes(grid.table, grid.cell_xy, act) + n * 4)
+        rows.append(dict(pop=name, n=n, k=k, slots=n * 9 * k,
+                         pairs_in_cells=pairs, ms=ms, one_by_one_ms=one_by_one,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         count_ms=count_ms, count_plain_ms=count_plain_ms,
+                         count_bound_ms=c_ms, count_bound_by=c_by))
+    err = max(errs.values())
+    log(f"check.gather_pairs.{phase}", table_size=opts.table_size,
+        slots_per_cell=opts.slots_per_cell, max_abs_err=errs, tol=GATHER_TOL,
+        count_bit_exact=count_exact, stress=stress,
+        stress_grid=dict(table_size=STRESS_TABLE, slots=STRESS_SLOTS),
+        per_pop=[{k_: (float(f"{v:.6g}") if isinstance(v, float) else v)
+                  for k_, v in r.items()} for r in rows])
+    if not (err <= GATHER_TOL and count_exact):
+        raise AssertionError(f"{phase}: kernel H disagrees with its plain "
+                             f"version (err {errs}, count exact "
+                             f"{count_exact})")
+    white = rows[0]
+    for key, row in (("gather_sweep", dict(
+            ms=white["ms"], plain_ms=white["plain_ms"],
+            bound_ms=white["bound_ms"], bound_by=white["bound_by"])),
+            ("gather_count", dict(
+                ms=white["count_ms"], plain_ms=white["count_plain_ms"],
+                bound_ms=white["count_bound_ms"],
+                bound_by=white["count_bound_by"]))):
+        r = results.setdefault(key, dict(max_abs_err=0.0, library_ms=None))
+        if "ms" not in r:           # the first scene's (gather_path) times
+            r.update(row)
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               err if key == "gather_sweep" else 0.0)
+
+
 def splat_inside_pairs(payload, counts, opts) -> float:
     """The (candidate, pixel) pairs of the splat whose factor is not 1.0 by
     construction: occupied candidates of a tile's window at the pixels of
@@ -1243,15 +1550,17 @@ def check_sweep(ordered_planes, results) -> None:
 
 
 def reset_counters() -> None:
+    from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
     from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
     from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
     PK.launches = SPK.launches = SPK.tiles_launches = 0
     SK.launches = SK.sweep_launches = SK.sweep_sym_launches = 0
-    SK.count_launches = 0
+    SK.count_launches = GK.launches = GK.count_launches = 0
 
 
 def read_counters() -> dict:
+    from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
     from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
     from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
@@ -1259,7 +1568,57 @@ def read_counters() -> dict:
             "splat": SPK.launches, "count_planes": SK.count_launches,
             "sweep_planes": SK.sweep_launches,
             "sweep_planes_sym": SK.sweep_sym_launches,
-            "splat_tiles": SPK.tiles_launches}
+            "splat_tiles": SPK.tiles_launches,
+            "gather_sweep": GK.launches, "gather_count": GK.count_launches}
+
+
+# each kernel's symbol in csrc/, as a profiler trace names its launches
+KERNEL_SYMBOLS = {"place_planes": "place_planes_kernel",
+                  "substep_pass": "substep_pass_kernel",
+                  "splat": "splat_kernel",
+                  "count_planes": "count_planes_kernel",
+                  "sweep_planes": "sweep_planes_kernel",
+                  "sweep_planes_sym": "sweep_planes_sym_kernel",
+                  "splat_tiles": "splat_tiles_kernel",
+                  "gather_sweep": "gather_sweep_kernel",
+                  "gather_count": "gather_count_kernel"}
+
+
+def kernel_counts(prof) -> dict:
+    """Launches of each kernel of the library among a ``torch.profiler``
+    trace's CUDA kernel events, by symbol: what ran on the card, the
+    kernels of replayed CUDA graphs included."""
+    import re
+    import torch
+    by_symbol = {v: k for k, v in KERNEL_SYMBOLS.items()}
+    pattern = re.compile(r"(?<![\w])(" + "|".join(by_symbol) + r")(?![\w])")
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = pattern.search(e.name)
+            if m:
+                counts[by_symbol[m.group(1)]] += 1
+    return counts
+
+
+@contextlib.contextmanager
+def launches_run():
+    """The block's launches, counted two ways into the dict it yields:
+    ``wrappers``, the wrappers' counters from 0 (an eager step, or a
+    capture, which records its launches and runs none; a replay moves no
+    counter), and ``trace``, the launches that ran on the card, from a
+    ``torch.profiler`` trace of the block (:func:`kernel_counts`)."""
+    import torch
+    out = {}
+    torch.cuda.synchronize()
+    reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        yield out
+        torch.cuda.synchronize()
+    out["wrappers"] = read_counters()
+    out["trace"] = kernel_counts(prof)
 
 
 def plane_launches(opts, n_steps: int) -> dict:
@@ -1275,6 +1634,7 @@ def plane_launches(opts, n_steps: int) -> dict:
     ordered = opts.budget_mode == "ordered"
     return {"place_planes": 0 if ordered else 2 * n_steps * bins,
             "substep_pass": 0, "splat": 0, "splat_tiles": 0,
+            "gather_sweep": 0, "gather_count": 0,
             "count_planes": 2 * n_steps * bins if ordered else 0,
             "sweep_planes": 0 if opts.sweep_symmetric else sweep,
             "sweep_planes_sym": sweep if opts.sweep_symmetric else 0}
@@ -1294,38 +1654,39 @@ def gather_phases(dev, results) -> None:
     from egg_fluid_simulation_tpu_torch.utils.profiling import (
         collision_drop_stats, validate_state)
 
-    # ---- gather path: update x10 + draw, then run_steps, counters from 0 ----
+    # ---- gather path: kernel H on the scene, then update x10 + draw, then
+    # run_steps, each counted from 0 and traced (the step captured at the
+    # first update, replayed after); the replayed step against the eager
+    # one ----
     hg = gather_handler(dev)
     opts = hg._options
-    torch.cuda.synchronize()
-    reset_counters()
+    check_gather_pairs(hg, "gather_path", results)
     wall_ms, host_ms = [], []
-    for _ in range(GATHER_UPDATES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        hg.update(1 / 60)
-        ev1.record()
-        torch.cuda.synchronize()
-        wall_ms.append(ev0.elapsed_time(ev1))
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    frame = hg.draw(viewport=(0, 0, 800, 600))
-    torch.cuda.synchronize()
-    path_launches = read_counters()
+    with launches_run() as run:
+        for _ in range(GATHER_UPDATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            hg.update(1 / 60)
+            ev1.record()
+            torch.cuda.synchronize()
+            wall_ms.append(ev0.elapsed_time(ev1))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        frame = hg.draw(viewport=(0, 0, 800, 600))
+    path_launches, path_wrappers = run["trace"], run["wrappers"]
     audit = hg.render_audit
     validate_state(hg)
     check_path_splat(hg, "gather_path", results)
-    reset_counters()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    hg.run_steps(GATHER_RESIDENT)
-    ev1.record()
-    torch.cuda.synchronize()
+    with launches_run() as run:
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        hg.run_steps(GATHER_RESIDENT)
+        ev1.record()
     run_steps_ms = ev0.elapsed_time(ev1) / GATHER_RESIDENT
-    res_launches = read_counters()
+    res_launches, res_wrappers = run["trace"], run["wrappers"]
     validate_state(hg)
     prof = traced(lambda: [hg.update(1 / 60) for _ in range(5)], 5)
     drops = collision_drop_stats(hg)
@@ -1346,19 +1707,46 @@ def gather_phases(dev, results) -> None:
         slot_drop_pct={k: round(v["drop_pct"], 3) for k, v in drops.items()},
         frame=tuple(frame.shape),
         frame_finite=bool(torch.isfinite(frame).all()),
-        render_dropped=audit[:, 0].tolist(), launches=path_launches)
+        render_dropped=audit[:, 0].tolist(), launches=path_launches,
+        wrapper_counts=path_wrappers, run_steps_launches=res_launches,
+        run_steps_wrapper_counts=res_wrappers, profiled=True)
     if not (opts.engine == "gather" and opts.table_size == 16384
             and sum(hg.get_n_particles()) >= 7900):
         raise AssertionError(f"gather path: options {opts}")
     if int(audit[:, 0].sum()) != 0 or not bool(torch.isfinite(frame).all()):
         raise AssertionError("gather path: render dropped particles or the "
                              "frame is not finite")
-    solver_kernels = {n: v for n, v in path_launches.items()
-                      if n not in ("splat",)}
-    if path_launches["splat"] < 2 or any(solver_kernels.values()) \
-            or any(res_launches.values()):
+    # kernel H alone: a sweep each collision pass of each population and,
+    # under the ordered budget, a count before it, in the trace; the
+    # wrappers ran at the first update (its eager step and the capture),
+    # and run_steps replayed the capture without them
+    passes = 2 * opts.n_substeps * opts.n_collision_steps
+    counted = opts.budget_mode == "ordered"
+
+    def want_h(n_steps):
+        return {n: (passes * n_steps if n == "gather_sweep" or
+                    (n == "gather_count" and counted) else 0)
+                for n in path_launches if n != "splat"}
+
+    if (path_launches["splat"] < 2
+            or {n: v for n, v in path_launches.items() if n != "splat"}
+            != want_h(GATHER_UPDATES)
+            or res_launches != {**want_h(GATHER_RESIDENT), "splat": 0}
+            or {n: v for n, v in path_wrappers.items() if n != "splat"}
+            != want_h(2) or any(res_wrappers.values())):
         raise AssertionError(f"gather path: launch counts {path_launches}, "
-                             f"after run_steps {res_launches}")
+                             f"after run_steps {res_launches}, expected "
+                             f"{want_h(GATHER_UPDATES)} and "
+                             f"{want_h(GATHER_RESIDENT)}; wrappers "
+                             f"{path_wrappers} (expected {want_h(2)}: the "
+                             f"first step and its capture), after run_steps "
+                             f"{res_wrappers} (expected none)")
+    for n in ("gather_sweep", "gather_count"):
+        results[n]["launches"] = path_launches[n]
+    check_step_graph(hg, "gather_path")
+    graph_vs_eager(hg, "gather_path.update", lambda: hg.update(1 / 60),
+                   GRAPH_UNITS, GRAPH_BLOCKS)
+    del hg
 
     # ---- gather reference: the default 4k scene, card vs CPU, one step ----
     out = []
@@ -1396,6 +1784,7 @@ def gather_phases(dev, results) -> None:
     demo_s = time.perf_counter() - t0
     validate_state(demo.handler)
     n_drawn = len(drawn)
+    check_gather_pairs(demo.handler, "demo", results)
 
     def frames(n):
         for _ in range(n):
@@ -1413,6 +1802,8 @@ def gather_phases(dev, results) -> None:
         frame_ms.append(ev0.elapsed_time(ev1))
     prof = traced(lambda: frames(3), 3)
     check_path_splat(demo.handler, "demo", results)     # after a draw
+    graph_vs_eager(demo.handler, "demo.frame", lambda: frames(1),
+                   GRAPH_UNITS, GRAPH_BLOCKS)
     log("demo", frames=DEMO_FRAMES, engine=demo.handler._options.engine,
         seconds=round(demo_s, 3), overlay=stats, draws=n_drawn,
         frames_finite=all(d[0] for d in drawn),
@@ -1790,7 +2181,6 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from egg_fluid_simulation_tpu_torch.ops.kernels import library
-    from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
     from egg_fluid_simulation_tpu_torch.utils.profiling import (
         collision_drop_stats, validate_state)
 
@@ -1826,24 +2216,26 @@ def main() -> int:
     check_sweep(check_count(hp, results), results)
     check_sweep_shapes(dev, results)
 
-    # ---- main path: update(1/60) x N + draw, counters from zero ----
-    reset_counters()
+    # ---- main path: update(1/60) x N + draw, counters from zero and a
+    # trace of the run; the step captured inside it (the first update) ----
     step_ms, frame_ms = [], []
     viewport = (0, 0, 2560, 2560)
-    for i in range(MAIN_UPDATES):
-        torch.cuda.synchronize()
-        t_start = torch.cuda.Event(enable_timing=True)
-        t_step = torch.cuda.Event(enable_timing=True)
-        t_draw = torch.cuda.Event(enable_timing=True)
-        t_start.record()
-        h.update(1 / 60)
-        t_step.record()
-        frame = h.draw(viewport=viewport)
-        t_draw.record()
-        torch.cuda.synchronize()
-        step_ms.append(t_start.elapsed_time(t_step))
-        frame_ms.append(t_start.elapsed_time(t_draw))
-    launches = read_counters()
+    h._step_graphs = None
+    with launches_run() as run:
+        for i in range(MAIN_UPDATES):
+            torch.cuda.synchronize()
+            t_start = torch.cuda.Event(enable_timing=True)
+            t_step = torch.cuda.Event(enable_timing=True)
+            t_draw = torch.cuda.Event(enable_timing=True)
+            t_start.record()
+            h.update(1 / 60)
+            t_step.record()
+            frame = h.draw(viewport=viewport)
+            t_draw.record()
+            torch.cuda.synchronize()
+            step_ms.append(t_start.elapsed_time(t_step))
+            frame_ms.append(t_start.elapsed_time(t_draw))
+    launches = run["trace"]
     validate_state(h)
     audit = h.render_audit
     drops = collision_drop_stats(h)
@@ -1857,7 +2249,7 @@ def main() -> int:
         drop_pct_yolk=round(drops["yolk"]["drop_pct"], 3),
         max_cell_occupancy=(drops["white"]["max_cell_occupancy"],
                             drops["yolk"]["max_cell_occupancy"]),
-        launches=launches)
+        launches=launches, wrapper_counts=run["wrappers"], profiled=True)
     if int(audit[:, 0].sum()) != 0:
         raise AssertionError("render overflow dropped particles")
     if not (bool(torch.isfinite(frame).all()) and float(frame[..., 3].max()) > 0.5):
@@ -1867,8 +2259,11 @@ def main() -> int:
             and launches["substep_pass"] == per * n_steps
             and launches["splat"] >= 2 * n_steps
             and launches["count_planes"] == launches["sweep_planes"]
-            == launches["sweep_planes_sym"] == launches["splat_tiles"] == 0):
-        raise AssertionError(f"unexpected kernel launch counts {launches}")
+            == launches["sweep_planes_sym"] == launches["splat_tiles"] == 0
+            and all(run["wrappers"][n] > 0
+                    for n in ("place_planes", "substep_pass", "splat"))):
+        raise AssertionError(f"unexpected kernel launch counts {launches}, "
+                             f"wrappers {run['wrappers']}")
 
     # ---- resident steps: run_steps on the same 1M handler ----
     from egg_fluid_simulation_tpu_torch.ops import solver as S
@@ -1956,19 +2351,20 @@ def main() -> int:
     hd.add_many([dict(x=float(400 + 40 * rng.randn()), y=float(300 + 40 * rng.randn()))
                  for _ in range(8)])
     wide_substeps = [0, 0]
-    SK.launches = 0
-    for _ in range(10):
-        before = [int(w[1]) for w in hd._wide_or_init()]
-        hd.step_once()
-        after = [int(w[1]) for w in hd._wide_state]
-        for pop in range(2):
-            if after[pop] <= before[pop]:
-                wide_substeps[pop] += before[pop] - after[pop]
+    with launches_run() as run:
+        for _ in range(10):
+            before = [int(w[1]) for w in hd._wide_or_init()]
+            hd.step_once()
+            after = [int(w[1]) for w in hd._wide_state]
+            for pop in range(2):
+                if after[pop] <= before[pop]:
+                    wide_substeps[pop] += before[pop] - after[pop]
     frame_d = hd.draw(viewport=(0, 0, 800, 600))
     validate_state(hd)
     log("default_options", particles=hd.get_n_particles(),
         wide_budget_substeps=hd._options.wide_budget_substeps,
-        wide_substeps_run=wide_substeps, substep_launches=SK.launches,
+        wide_substeps_run=wide_substeps,
+        substep_launches=run["trace"]["substep_pass"],
         frame_finite=bool(torch.isfinite(frame_d).all()),
         render_dropped=hd.render_audit[:, 0].tolist())
     if sum(wide_substeps) == 0:
@@ -1976,34 +2372,42 @@ def main() -> int:
 
     # ---- plane path: the ordered budget at 1M, default gate, 3 updates +
     # one draw, counters from zero; every binning's FIELD_CUM maximum is
-    # kept on the device and read after the run ----
+    # folded into a running maximum on the device, and the binnings are
+    # counted there, in place: the update replays a captured step, which
+    # runs this wrapper's ops without calling it. Read after the run ----
     from egg_fluid_simulation_tpu_torch.ops import dense as D
-    cum_max, add_cum = [], S._dense_add_cum
+    add_cum = S._dense_add_cum
+    cum_peak = torch.zeros((), dtype=torch.float32, device=dev)
+    cum_seen = torch.zeros((), dtype=torch.int64, device=dev)
 
     def add_cum_kept(binning, k):
         binning = add_cum(binning, k)
-        cum_max.append(binning.planes[D.FIELD_CUM].max())
+        torch.maximum(cum_peak, binning.planes[D.FIELD_CUM].max(),
+                      out=cum_peak)
+        cum_seen.add_(1)
         return binning
 
     S._dense_add_cum = add_cum_kept
-    reset_counters()
+    hp._step_graphs = None          # captured with the wrapper in place
     plane_ms = []
     try:
-        for _ in range(MAIN_UPDATES):
-            torch.cuda.synchronize()
-            t_start = torch.cuda.Event(enable_timing=True)
-            t_step = torch.cuda.Event(enable_timing=True)
-            t_start.record()
-            hp.update(1 / 60)
-            t_step.record()
-            torch.cuda.synchronize()
-            plane_ms.append(t_start.elapsed_time(t_step))
-        frame_p = hp.draw(viewport=viewport)
-        torch.cuda.synchronize()
+        with launches_run() as run:
+            for _ in range(MAIN_UPDATES):
+                torch.cuda.synchronize()
+                t_start = torch.cuda.Event(enable_timing=True)
+                t_step = torch.cuda.Event(enable_timing=True)
+                t_start.record()
+                hp.update(1 / 60)
+                t_step.record()
+                torch.cuda.synchronize()
+                plane_ms.append(t_start.elapsed_time(t_step))
+            frame_p = hp.draw(viewport=viewport)
     finally:
         S._dense_add_cum = add_cum
-    plane_launches_run = read_counters()
-    plane_cum_max = float(torch.stack(cum_max).max())
+        hp._step_graphs = None      # recaptured without the watcher
+    plane_launches_run = run["trace"]
+    plane_cum_max = float(cum_peak)
+    n_binnings = int(cum_seen)
     validate_state(hp)
     audit_p = hp.render_audit
     want = plane_launches(hp._options, MAIN_UPDATES)
@@ -2013,13 +2417,14 @@ def main() -> int:
         wide_state=[[int(v) for v in w] for w in hp._wide_state],
         frame_finite=bool(torch.isfinite(frame_p).all()),
         alpha_max=round(float(frame_p[..., 3].max()), 4),
-        render_dropped=audit_p[:, 0].tolist(), binnings=len(cum_max),
+        render_dropped=audit_p[:, 0].tolist(), binnings=n_binnings,
         cum_max=plane_cum_max, cum_exact_in_f32=plane_cum_max < CUM_EXACT,
-        launches=plane_launches_run)
-    if not (len(cum_max) == plane_launches_run["count_planes"]
+        launches=plane_launches_run, wrapper_counts=run["wrappers"],
+        profiled=True)
+    if not (n_binnings == plane_launches_run["count_planes"]
             and plane_cum_max < CUM_EXACT):
         raise AssertionError(f"plane path: FIELD_CUM max {plane_cum_max} "
-                             f"over {len(cum_max)} binnings, 2^24 or more")
+                             f"over {n_binnings} binnings, 2^24 or more")
     if int(audit_p[:, 0].sum()) != 0:
         raise AssertionError("plane path: render overflow dropped particles")
     if not (bool(torch.isfinite(frame_p).all())
@@ -2027,9 +2432,17 @@ def main() -> int:
         raise AssertionError("plane path: frame is not finite or empty")
     if ({n: v for n, v in plane_launches_run.items() if n != "splat"}
             != {n: v for n, v in want.items() if n != "splat"}
-            or plane_launches_run["splat"] < 2):
+            or plane_launches_run["splat"] < 2
+            or not all(run["wrappers"][n] > 0 for n, v in want.items() if v)):
         raise AssertionError(f"plane path: launch counts {plane_launches_run}"
                              f", expected {want} and >= 2 splats")
+
+    # ---- the fixed step replayed from its CUDA graph against the eager
+    # step on both 1M handlers (bit for bit), then update walls of each ----
+    for name, hx in (("main_path", h), ("plane_path", hp)):
+        check_step_graph(hx, name)
+        graph_vs_eager(hx, f"{name}.update", lambda hx=hx: hx.update(1 / 60),
+                       GRAPH_UNITS, GRAPH_BLOCKS)
     del hp, h
 
     # ---- plane modes at 65k white: each mode's own launch counts ----
@@ -2040,21 +2453,21 @@ def main() -> int:
     for mode in modes:
         hm = build_handler(N_WHITE_MODES, dev, wide_default=True,
                            budget_mode="ordered", **mode)
-        torch.cuda.synchronize()
-        reset_counters()
-        t0 = time.perf_counter()
-        for _ in range(MODE_STEPS):
-            hm.step_once()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / MODE_STEPS
-        got = read_counters()
+        with launches_run() as run:
+            t0 = time.perf_counter()
+            for _ in range(MODE_STEPS):
+                hm.step_once()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / MODE_STEPS
+        got = run["trace"]
         validate_state(hm)
         want = plane_launches(hm._options, MODE_STEPS)
         name = ",".join(f"{k_}={v}" for k_, v in mode.items())
         mode_launches[name] = got
         log("plane_modes", mode=name, particles=hm.get_n_particles(),
             grids=hm._options.dense_grid_dim, steps=MODE_STEPS,
-            host_ms_per_step=round(ms, 3), launches=got)
+            host_ms_per_step=round(ms, 3), launches=got,
+            wrapper_counts=run["wrappers"], profiled=True)
         if got != want:
             raise AssertionError(f"plane mode {name}: launch counts {got}, "
                                  f"expected {want}")
@@ -2158,6 +2571,9 @@ def main() -> int:
                         "sweep_symmetric=True"]["sweep_planes_sym"])
     src = "egg_fluid_simulation_tpu_torch/csrc/"
     tpu = "egg_fluid_simulation_tpu/ops/pallas/"
+    # kernel H: no TPU kernel; XLA fuses the JAX package's solve_pairs
+    no_tpu = ("none (XLA fuses solve_pairs, "
+              "egg_fluid_simulation_tpu/ops/solver.py:343)")
     table = [("place_planes", src + "place_planes.cu", tpu + "place_kernel.py:124"),
              ("substep_pass", src + "substep_pass.cu", tpu + "sweep_kernel.py:771"),
              ("splat", src + "splat.cu", tpu + "splat_kernel.py:400"),
@@ -2168,12 +2584,17 @@ def main() -> int:
              ("splat_tiles", src + "splat_tiles.cu", tpu + "splat_kernel.py:443"),
              ("sweep_planes.spatial_1x1", src + "sweep_planes.cu",
               tpu + "sweep_kernel.py:455"),
-             ("splat.spatial_1x1", src + "splat.cu", tpu + "splat_kernel.py:400")]
+             ("splat.spatial_1x1", src + "splat.cu", tpu + "splat_kernel.py:400"),
+             ("gather_sweep", src + "gather_pairs.cu", no_tpu),
+             ("gather_count", src + "gather_pairs.cu", no_tpu)]
     # kernel G has no caller on any path: its launches are its check's
     launches["splat_tiles"] = results["splat_tiles"]["launches"]
     # D and C on the spatial path: that phase's own launches
     launches["sweep_planes.spatial_1x1"] = spatial_launches["sweep_planes"]
     launches["splat.spatial_1x1"] = spatial_launches["splat"]
+    # H on the gather path (the small-scene default): that phase's launches
+    for n in ("gather_sweep", "gather_count"):
+        launches[n] = results[n]["launches"]
     kernels = [dict(name=n, route="cuda", source=s, replaces=r,
                     launches=launches[n],
                     **{key: results[n][key] for key in (

@@ -9,6 +9,10 @@ butterworth masses) run on the host in numpy, bit for bit as in the JAX
 package; the per-step compute runs on ``device`` (``ops/solver.py``,
 ``ops/render.py``). Live particles always occupy the prefix ``[0, count)``
 of the fixed-capacity arrays.
+
+On a CUDA device the fixed step of ``update``, ``step_once`` and the
+loop routes of ``run_steps`` is captured once in a CUDA graph and replayed
+(``ops/step_graph.py``); on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from . import config as config_mod
 from .config import DeviceConfig, device_config_from_dict, stack_device_configs
 from .ops import solver as solver_ops
 from .ops.solver import SolverOptions
+from .ops.step_graph import EAGER, StepGraphs
 from .state import ParticleState, StepStats, WHITE, YOLK, zeros_state, zeros_stats
 from .utils import log
 from .utils.mathx import clamp, is_nan, mix
@@ -95,7 +100,8 @@ class SimulationHandler:
     Parameters mirror the reference constructor (:425-459); keyword-only
     arguments set the static capacities and the ``device`` the state lives
     on (default ``"cuda"``; the kernels run there, and ``"cpu"`` runs their
-    plain PyTorch versions).
+    plain PyTorch versions). On a CUDA device the fixed step is replayed
+    from a CUDA graph (``ops/step_graph.py``).
     """
 
     def __init__(self, white_config: Dict, yolk_config: Optional[Dict] = None, *,
@@ -135,6 +141,10 @@ class SimulationHandler:
         self._jacobi_relaxation = float(jacobi_relaxation)
 
         self._max_batches = int(max_batches)
+        # the captured steps: made at the first step on a CUDA device;
+        # step_graph.EAGER steps eagerly there too (how a measurement times
+        # the eager step beside the replayed one)
+        self._step_graphs = None
         self._reinitialize()
 
     def _auto_options(self, counts) -> SolverOptions:
@@ -478,25 +488,23 @@ class SimulationHandler:
         self._elapsed += delta
         n_steps = 0
         max_n_steps = max(4, 4 * math.ceil((1 / 60) / step_delta))  # :203
-        stepped = False
         while self._elapsed >= step_delta:
-            self._state, self._stats, self._wide_state = solver_ops.step(
-                self._state, cfg2, dt, relax, self._options,
-                wide_state=self._wide_or_init())
-            stepped = True
             self._elapsed -= step_delta
             n_steps += 1
             if n_steps > max_n_steps:
                 self._elapsed = 0.0
                 break
+        if n_steps:
+            self._advance(n_steps, cfg2, dt, relax)
 
         self._interpolation_alpha = clamp(self._elapsed / step_delta, 0.0, 1.0)
-        if stepped:
+        if n_steps:
             self._frames = None  # canvases dirty (:1984)
 
     def warmup(self, viewport=(0.0, 0.0, 800, 600)) -> None:
-        """Build the kernel library (on a CUDA device) and run one step and
-        one draw, so the first frame pays neither (the reference's shader
+        """Build the kernel library (on a CUDA device) and run one step,
+        which captures the fixed step there, and one draw, so the first
+        frame pays none of it (the reference's shader
         warm-up draw, simulation_handler.lua:600-615). The state, stats,
         time accumulator and interpolation alpha are restored afterwards;
         as in the JAX package, the wide-sweep episode state keeps the
@@ -517,24 +525,55 @@ class SimulationHandler:
         self._flush_targets()
         self._check_caps()
         dt, relax = self._step_scalars(step_delta)
-        self._state, self._stats, self._wide_state = solver_ops.step(
-            self._state, self._device_cfg2(), dt, relax, self._options,
-            wide_state=self._wide_or_init())
+        self._advance(1, self._device_cfg2(), dt, relax)
         self._frames = None
 
     def run_steps(self, n_steps: int, step_delta: float = 1 / 60) -> None:
-        """Advance ``n_steps`` fixed steps through ``solver.multi_step``
-        (headless fast-forward; the binned layout stays resident across the
-        steps where the options allow). A no-op for ``n_steps <= 0``."""
+        """Advance ``n_steps`` fixed steps (headless fast-forward): through
+        ``solver.multi_step`` where the binned layout stays resident across
+        the steps, else as ``n_steps`` fixed steps (on a CUDA device the
+        captured step replayed), which is what ``multi_step`` gives there.
+        A no-op for ``n_steps <= 0``."""
         if n_steps <= 0:
             return
         self._flush_targets()
         self._check_caps()
         dt, relax = self._step_scalars(step_delta)
-        self._state, self._stats, self._wide_state = solver_ops.multi_step(
-            self._state, self._device_cfg2(), dt, relax, self._options,
-            int(n_steps), wide_state=self._wide_or_init())
+        if solver_ops.multi_step_is_loop(self._options):
+            self._advance(int(n_steps), self._device_cfg2(), dt, relax)
+        else:
+            self._state, self._stats, self._wide_state = solver_ops.multi_step(
+                self._state, self._device_cfg2(), dt, relax, self._options,
+                int(n_steps), wide_state=self._wide_or_init())
         self._frames = None
+
+    def _graphs(self) -> Optional[StepGraphs]:
+        """The handler's captured steps, made at the first step on a CUDA
+        device; None on the CPU and while ``_step_graphs`` is
+        ``step_graph.EAGER``, where steps run eagerly (a test may set
+        ``_step_graphs`` to ``StepGraphs(capture=False)`` to run the graph
+        plumbing on the CPU)."""
+        if self._step_graphs is EAGER:
+            return None
+        if self._step_graphs is None and self._device.type == "cuda":
+            self._step_graphs = StepGraphs()
+        return self._step_graphs
+
+    def _advance(self, n_steps: int, cfg2, dt, relax) -> None:
+        """``n_steps >= 1`` calls of ``solver.step`` from the handler's state,
+        the episode state of the wide gate threaded through: on a CUDA device
+        one captured step replayed (``ops/step_graph.py``), on the CPU
+        eagerly."""
+        wide = self._wide_or_init()
+        graphs = self._graphs()
+        if graphs is not None:
+            self._state, self._stats, self._wide_state = graphs.run(
+                self._state, cfg2, dt, relax, self._options, wide, n_steps)
+            return
+        for _ in range(n_steps):
+            self._state, self._stats, wide = solver_ops.step(
+                self._state, cfg2, dt, relax, self._options, wide_state=wide)
+        self._wide_state = wide
 
     def _wide_or_init(self):
         """Persisted violence-episode state of the wide-sweep gate; reset by

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.mathx import torch_scalar
 from .grid import segment_extent, segmented_rank
 
 __all__ = ["DenseBinning", "SweepParams", "bin_to_planes", "sort_bin", "fill_halo",
@@ -76,9 +77,9 @@ class SweepParams(NamedTuple):
     occ_boost_cap: torch.Tensor = np.float32(8.0)
 
     def pack(self, device) -> torch.Tensor:
-        return torch.stack([torch.as_tensor(v, dtype=torch.float32,
-                                            device=device).reshape(())
-                            for v in self])
+        """The (8,) float32 tensor the sweeps read (no host copy: a CUDA
+        graph can capture it)."""
+        return torch.stack([torch_scalar(v, device) for v in self])
 
 
 def fill_halo(t: torch.Tensor) -> torch.Tensor:

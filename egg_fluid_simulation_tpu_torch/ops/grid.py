@@ -31,7 +31,6 @@ __all__ = ["CellGrid", "build_grid", "neighbor_candidates",
 # the JAX package's multiplicative hash constants (uint32 products there)
 _HASH_X = 0x9E3779B1
 _HASH_Y = 0x85EBCA77
-_U32 = 0xFFFFFFFF
 
 # 3x3 neighborhood, matching the reference's cell scan at :1568-1569.
 NEIGHBOR_OFFSETS = [(-1, -1), (-1, 0), (-1, 1),
@@ -58,22 +57,22 @@ class CellGrid(NamedTuple):
     table_size: int
 
 
-def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``(x mod 2^32) * c mod 2^32`` in int64 without overflow: the product
-    is split at 16 bits of ``x``, so no partial product passes 2^48."""
-    x = x.to(torch.int64) & _U32
-    lo = (x & 0xFFFF) * c
-    hi = ((x >> 16) * c) & 0xFFFF
-    return (lo + (hi << 16)) & _U32
-
-
 def _bucket_of(cell_x: torch.Tensor, cell_y: torch.Tensor,
                table_size: int) -> torch.Tensor:
     """The JAX package's bucket: the cell coords as uint32 (two's
     complement for negative coords) times the hash constants mod 2^32,
-    XOR-ed and masked to the table. (N,) int32."""
-    h = _mul_u32(cell_x, _HASH_X) ^ _mul_u32(cell_y, _HASH_Y)
-    return (h & (table_size - 1)).to(torch.int32)
+    XOR-ed and masked to the table (a power of two up to 2^31). (N,) int32.
+
+    Only the low log2(table_size) bits survive the mask, and the low bits
+    of a product depend only on the low bits of its factors, so each
+    product runs on the masked coordinate and the masked constant: in
+    int32 up to a table of 2^15 (products below 2^30), in int64 above
+    (below 2^62). Bit-identical to the 32-bit products, in a few ops."""
+    m = table_size - 1
+    dtype = torch.int32 if table_size <= 1 << 15 else torch.int64
+    hx = (cell_x & m).to(dtype) * (_HASH_X & m)
+    hy = (cell_y & m).to(dtype) * (_HASH_Y & m)
+    return ((hx ^ hy) & m).to(torch.int32)
 
 
 def build_grid(pos: torch.Tensor, active: torch.Tensor,
@@ -136,9 +135,11 @@ def _run_bounds(sorted_keys: torch.Tensor):
 
 
 def segmented_rank(sorted_keys: torch.Tensor) -> torch.Tensor:
-    """(N,) int32 rank of each element within its run of equal sorted keys."""
-    idx, run_start, _ = _run_bounds(sorted_keys)
-    return (idx - run_start).to(torch.int32)
+    """(N,) int32 rank of each element within its run of equal sorted keys
+    (the run's start only: one binary search)."""
+    keys = sorted_keys.contiguous()
+    idx = torch.arange(keys.shape[0], dtype=torch.int64, device=keys.device)
+    return (idx - torch.searchsorted(keys, keys, right=False)).to(torch.int32)
 
 
 def segment_extent(sorted_keys: torch.Tensor):

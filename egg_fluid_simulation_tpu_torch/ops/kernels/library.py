@@ -53,6 +53,8 @@ _SIGNATURES = {
     "egg_sweep_planes_sym": [_C_PTR] * 4 + [_C_INT] * 7 + [_C_PTR],
     "egg_count_planes": [_C_PTR] * 2 + [_C_INT] * 3 + [_C_PTR],
     "egg_splat_tiles": [_C_PTR] * 3 + [_C_INT] * 6 + [_C_PTR],
+    "egg_gather_count": [_C_PTR] * 4 + [_C_INT] * 3 + [_C_PTR],
+    "egg_gather_sweep": [_C_PTR] * 15 + [_C_INT] * 4 + [_C_PTR],
 }
 
 _lock = threading.Lock()

@@ -4,9 +4,10 @@ The counterpart of ``egg_fluid_simulation_tpu/ops/solver.py``, reference
 pipeline ``simulation_handler.lua:1324-1990``. The gather engine
 (``engine="gather"``, the default, and the handler's choice below capacity
 16384) runs the particle-layout :func:`substep` with a fresh hash grid and
-an exact candidate sweep per collision pass (:func:`solve_pairs`, plain
-PyTorch, as the JAX package's is plain XLA). The dense engine has three
-routes, chosen by :class:`SolverOptions` as in the JAX package:
+an exact candidate sweep per collision pass (:func:`solve_pairs`: the grid
+in PyTorch, the ordered budget's count and the sweep in kernel H, where
+the JAX package's pass is plain XLA). The dense engine has three routes,
+chosen by :class:`SolverOptions` as in the JAX package:
 
 - the fused component path (``budget_mode="off"``, ``dense_rebin="step"``,
   the handler's automatic options): per population, once per step,
@@ -28,7 +29,8 @@ sub_dt``). Particles over the per-cell budget K integrate without collision
 
 The two populations run as one Python loop. Everything dynamic (configs,
 dt, the violence gate) stays in device tensors, so a step never waits on
-the device.
+the device: a CUDA handler captures :func:`step` once in a CUDA graph and
+replays it (``ops/step_graph.py``).
 
 Multi-step residency (:func:`multi_step`, :func:`multi_step_frames`) keeps
 the binned layout across steps and rebins only when the drift since bin
@@ -51,13 +53,13 @@ from ..state import ParticleState, StepStats
 from ..utils.mathx import EPS, torch_mix
 from . import dense as dense_ops
 from . import grid as grid_ops
-from .kernels import sweep_kernel
+from .kernels import gather_kernel, sweep_kernel
 
 __all__ = ["SolverOptions", "step", "multi_step", "multi_step_frames",
            "substep", "pre_solve", "solve_follow", "solve_pairs",
            "solve_pairs_dense", "post_solve",
            "strength_to_compliance", "take_batch_rows", "batch_segment_sums",
-           "wide_state_init", "host_syncs", "rebins"]
+           "wide_state_init", "multi_step_is_loop", "host_syncs", "rebins"]
 
 host_syncs = 0      # device-to-host reads of the resident rebin flag
 rebins = [0, 0]     # resident rebins per population (white, yolk)
@@ -204,9 +206,7 @@ def _dense_params(cfg: DeviceConfig, active, collision_compliance,
                                cfg.cohesion_interaction_distance_factor)
     cell_size = torch.clamp(cfg.max_radius * max_factor, min=1.0)  # :1756-1760
     if options.budget_mode == "ordered":
-        n_live = torch.sum(active).to(torch.float32)
-        max_pairs = torch.tensor(0.05, dtype=torch.float32,
-                                 device=n_live.device) * n_live * n_live
+        max_pairs = _max_pairs(active)
     else:
         max_pairs = _BIG
     params = dense_ops.SweepParams(
@@ -734,52 +734,36 @@ def solve_follow(pos, inv_mass, batch_slot, active, batch_target,
 
 
 def _pair_candidates(pos, active, cell_size, options: SolverOptions):
-    """The gather engine's candidates of one pass: ``(grid, cand, valid)``,
-    the hash grid, the candidate indices ``cand`` (N, 9K) of each
-    particle's 3x3 buckets, and ``valid``, the live candidates of live
-    particles other than the particle itself. A pair also needs the TRUE
-    3x3 cell test, ``_in_cells``."""
+    """The gather engine's candidates of one pass, in the plain version's
+    form: ``(grid, cand, valid)``, the hash grid, the candidate indices
+    ``cand`` (N, 9K) of each particle's 3x3 buckets, and ``valid``, the live
+    candidates of live particles other than the particle itself. A pair
+    also needs the TRUE 3x3 cell test (``gather_kernel.in_cells``)."""
     grid = grid_ops.build_grid(pos, active, cell_size,
                                table_size=options.table_size,
                                slots_per_cell=options.slots_per_cell)
-    cand = grid_ops.neighbor_candidates(grid)
-    self_idx = torch.arange(pos.shape[0], dtype=torch.int32,
-                            device=pos.device)[:, None]
-    valid = (cand >= 0) & (cand != self_idx) & active[:, None]
-    return grid, cand, valid
+    return (grid, *gather_kernel.candidates(grid, active))
 
 
-def _in_cells(cell_xy, safe, lo: int = 0):
-    """The TRUE 3x3 cell test of the candidates ``safe`` (C, 9K, indices
-    clamped to >= 0) of particles [lo, lo + C). A bucket collision can
-    admit a far cell whose particles still sit within the collision radius
-    (the reference's cell size under-covers it, :1756-1760); the cell test
-    keeps the pair set the reference's (an injective Szudzik hash)."""
-    o_cells = cell_xy.index_select(0, safe.reshape(-1)).reshape(
-        *safe.shape, 2)                                          # (C, 9K, 2)
-    me = cell_xy[lo:lo + safe.shape[0], None, :]
-    return ((torch.abs(o_cells[..., 0] - me[..., 0]) <= 1)
-            & (torch.abs(o_cells[..., 1] - me[..., 1]) <= 1))
+def _max_pairs(active):
+    """The reference's ordered collision budget, ``0.05 * n_live^2``
+    examined pairs a pass (:1749-1753), as a 0-dim float32 tensor."""
+    n_live = torch.sum(active).to(torch.float32)
+    return 0.05 * n_live * n_live
 
 
 def _ordered_budget(grid, cand, valid, active):
     """The reference's ordered collision budget (:1749-1753, :1656-1658):
-    ``(new_pairs, cum, max_pairs)``. Each pass examines unique pairs in
-    particle order and stops after ``max_pairs = 0.05 * n_live^2``; a pair
-    (p, q) is first examined while processing min(p, q), so its rank is the
-    count of pairs first seen at earlier particles: the exclusive prefix
-    ``cum`` of ``new_pairs``, each particle's pairs in its true 3x3 cells
-    with later particles. The float32 prefix counts exactly below 2^24."""
-    n_live = torch.sum(active).to(torch.float32)
-    max_pairs = torch.tensor(0.05, dtype=torch.float32,
-                             device=n_live.device) * n_live * n_live
-    near = _in_cells(grid.cell_xy, torch.clamp(cand, min=0).to(torch.int64))
-    self_idx = torch.arange(cand.shape[0], dtype=torch.int32,
-                            device=cand.device)[:, None]
-    new_pairs = torch.sum(valid & near & (cand > self_idx),
-                          dim=1).to(torch.float32)
+    ``(new_pairs, cum, max_pairs)`` from the plain version's candidates.
+    Each pass examines unique pairs in particle order and stops after
+    ``max_pairs = 0.05 * n_live^2``; a pair (p, q) is first examined while
+    processing min(p, q), so its rank is the count of pairs first seen at
+    earlier particles: the exclusive prefix ``cum`` of ``new_pairs``, each
+    particle's pairs in its true 3x3 cells with later particles. The float32
+    prefix counts exactly below 2^24."""
+    new_pairs = gather_kernel.count_from_candidates(grid, cand, valid)
     cum = torch.cumsum(new_pairs, 0) - new_pairs
-    return new_pairs, cum, max_pairs
+    return new_pairs, cum, _max_pairs(active)
 
 
 def solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg: DeviceConfig,
@@ -791,84 +775,26 @@ def solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg: DeviceConfig,
     :1486-1511, :1548-1666) with ``_enforce_distance``'s symmetric
     projection (:1514-1545): correction ``-(dist - target) / (w_a + w_b +
     alpha)`` clamped to +-|violation|, each endpoint moving by its
-    inverse-mass share. Particles are swept ``pair_chunk`` at a time, which
-    bounds the gathered (chunk, 9K, 6) block. The JAX package's masks of
-    the partner's mass and radius, and its guard of the divisor, change
-    nothing a contributing pair sees (its ``w_a + w_b >= EPS`` and the
-    compliances are >= 0), so they are left out."""
-    n = pos.shape[0]
+    inverse-mass share. The grid is built here; the ordered budget's count
+    and the pass itself are kernel H (``ops/kernels/gather_kernel.py``) on
+    CUDA tensors and its plain version on CPU tensors."""
     max_factor = torch.maximum(cfg.collision_overlap_factor,
                                cfg.cohesion_interaction_distance_factor)
     cell_size = torch.clamp(cfg.max_radius * max_factor, min=1.0)  # :1756-1760
-    grid, cand, valid = _pair_candidates(pos, active, cell_size, options)
-    ordered = options.budget_mode == "ordered"
-    if ordered:
-        _, cum, max_pairs = _ordered_budget(grid, cand, valid, active)
-    else:
-        cum = torch.zeros((n,), dtype=torch.float32, device=pos.device)
-
-    # every per-particle field a candidate needs, gathered in one row; the
-    # batch slot and the budget prefix ride as floats (exact below 2^24).
-    # The cell coords stay a gather of their own: rows of 8 floats take
-    # index_select's vectorised kernel, 5.1 ms an update at N = 8192,
-    # 9K = 144 on an H100 against 0.66 ms for all the gathers of this form
-    pack = torch.stack([pos[:, 0], pos[:, 1], inv_mass, radius,
-                        batch_slot.to(torch.float32), cum], dim=1)  # (N, 6)
-    overlap = cfg.collision_overlap_factor
-    coh_factor = cfg.cohesion_interaction_distance_factor
-    spacing = options.cohesion_mode == "spacing"
-
-    def sweep(lo, hi):
-        """Correction sum (C, 2) of particles [lo, hi)."""
-        cand_c = cand[lo:hi]
-        safe = torch.clamp(cand_c, min=0).to(torch.int64)
-        g = pack.index_select(0, safe.reshape(-1)).reshape(
-            *safe.shape, pack.shape[1])                             # (C, 9K, 6)
-        me = pack[lo:hi, None, :]
-        s_w = me[..., 2]
-        ok = valid[lo:hi] & _in_cells(grid.cell_xy, safe, lo)
-        if ordered:
-            # cum[min(self, cand)] without a second gather
-            self_idx = torch.arange(lo, hi, dtype=torch.int32,
-                                    device=pos.device)[:, None]
-            cum_min = torch.where(cand_c < self_idx, g[..., 5], me[..., 5])
-            ok = ok & (cum_min < max_pairs)
-        dx = g[..., 0] - me[..., 0]
-        dy = g[..., 1] - me[..., 1]
-        dist2 = dx * dx + dy * dy
-        dist = torch.sqrt(dist2)
-        inv_dist = torch.where(dist > EPS, 1.0 / torch.clamp(dist, min=EPS),
-                               0.0)
-        w_sum = s_w + g[..., 2]
-        ok = ok & (w_sum >= EPS)                                    # :1601
-        r_sum = me[..., 3] + g[..., 3]
-
-        def half_scale(target, compliance, apply):
-            """|correction| * w_self of ``_enforce_distance`` (:1514-1545)."""
-            violation = dist - target
-            corr = -violation / (w_sum + compliance)
-            bound = torch.abs(violation)
-            corr = torch.clamp(corr, -bound, bound)                 # :1535-1536
-            return torch.where(apply & ok, corr * s_w, 0.0)         # :1538-1539
-
-        min_dist = overlap * r_sum                                  # :1632-1654
-        scale = half_scale(min_dist, collision_compliance,
-                           dist2 <= min_dist * min_dist)
-        if spacing:
-            # cohesion (:1603-1630). "literal" mode: the same-batch
-            # interaction distance is 0 (:1609-1613), so the constraint
-            # fires only for coincident particles, whose direction is the
-            # zero vector: no correction
-            coh_dist = coh_factor * r_sum
-            scale = half_scale(coh_dist, cohesion_compliance,
-                               (g[..., 4] == me[..., 4])
-                               & (dist2 <= coh_dist * coh_dist)) + scale
-        return torch.stack([torch.sum(-(dx * inv_dist) * scale, dim=1),
-                            torch.sum(-(dy * inv_dist) * scale, dim=1)], dim=1)
-
-    c = max(1, min(options.pair_chunk, n))
-    total = torch.cat([sweep(lo, min(lo + c, n)) for lo in range(0, n, c)])
-    return pos + torch.where(active[:, None], relaxation * total, 0.0)
+    grid = grid_ops.build_grid(pos, active, cell_size,
+                               table_size=options.table_size,
+                               slots_per_cell=options.slots_per_cell)
+    cum = max_pairs = None
+    if options.budget_mode == "ordered":
+        new_pairs = gather_kernel.gather_count(grid, active)
+        cum = torch.cumsum(new_pairs, 0) - new_pairs
+        max_pairs = _max_pairs(active)
+    return gather_kernel.gather_sweep(
+        pos, inv_mass, radius, batch_slot, active, grid, cum, max_pairs,
+        collision_compliance, cohesion_compliance,
+        cfg.collision_overlap_factor, cfg.cohesion_interaction_distance_factor,
+        relaxation, spacing=options.cohesion_mode == "spacing",
+        pair_chunk=options.pair_chunk)
 
 
 def solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
@@ -1076,6 +1002,14 @@ def _resident(options: SolverOptions) -> bool:
             and options.budget_mode == "off")
 
 
+def multi_step_is_loop(options: SolverOptions) -> bool:
+    """Whether :func:`multi_step` is a loop of :func:`step` calls (the
+    gather engine, the ordered budget, ``dense_rebin != "step"`` or
+    ``adaptive_rebin=False``), with the same result as calling ``step``
+    ``n_steps`` times."""
+    return not (_resident(options) and options.adaptive_rebin)
+
+
 @torch.no_grad()
 def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
                relaxation, options: SolverOptions, n_steps: int,
@@ -1097,7 +1031,7 @@ def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
     ws = (list(wide_state) if thread_wide
           else [wide_state_init(options, state.device)] * 2)
     n_res = max(int(n_steps) - 1, 0)
-    if _resident(options) and options.adaptive_rebin:
+    if not multi_step_is_loop(options):
         # no resident step: the final step reads only pos and vel, so
         # skipping the binning gives JAX's zero-step result
         if n_res:

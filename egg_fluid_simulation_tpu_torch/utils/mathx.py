@@ -24,6 +24,7 @@ __all__ = [
     "EPS", "clamp", "mix", "mix2", "round_half_up", "normalize2", "magnitude",
     "dot2", "cross2", "distance", "squared_distance", "is_nan", "fract", "wrap",
     "torch_clamp", "torch_mix", "torch_normalize2", "torch_magnitude",
+    "torch_scalar",
 ]
 
 
@@ -95,6 +96,15 @@ def wrap(index, n_elements):
 
 
 # -------------------------------------------------------------- device-side --
+
+def torch_scalar(v, device) -> torch.Tensor:
+    """``v`` (a number or a one-element tensor) as a 0-dim float32 tensor on
+    ``device``. A number becomes a fill there, not a copy from the host, so
+    a CUDA graph can capture the call."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(v), dtype=torch.float32, device=device)
+
 
 def torch_clamp(x, lo, hi):
     return torch.clamp(x, lo, hi)

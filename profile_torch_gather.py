@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""What the gather engine costs the small scenes against the dense fused
-path, on one card.
+"""What the gather engine costs the small scenes, replayed from its CUDA
+graph and run eagerly, against the dense fused path, on one card.
 
     python3 profile_torch_gather.py [--blocks 4] [--n 6]
-        [--scenes gather_path demo] [--rules gather dense]
+        [--scenes gather_path demo] [--rules gather gather_eager dense]
 
 Below capacity 16384 the automatic handler options pick the gather engine
-(plain PyTorch), as the JAX handler does. Before the gather engine was
-ported they picked the dense engine with the budget off at every capacity
-(the fused path, kernels A and B). This script builds each scene twice,
-once per rule, and times both in one process:
+(kernel H for each collision pass), as the JAX handler does. Before the
+gather engine was ported they picked the dense engine with the budget off
+at every capacity (the fused path, kernels A and B). This script builds
+each scene once per rule and times them in one process. Rules: ``gather``
+(the automatic options; the handler replays its captured step),
+``gather_eager`` (the same stepping eagerly: one launch per op)
+and ``dense`` (the dense rule, replayed). Scenes:
 
 - ``gather_path``: ``chip_smoke.gather_handler`` (capacity 8192, 8 batches
   of 900 white + 90 yolk), after 3 settling updates;
 - ``demo``: ``DemoState(seed=0, capacity=8192)`` after ``run(60)``.
 
-Modes, in alternating blocks of ``--n`` units (the rule order flips every
-block): ``update`` (``update(1/60)``) and ``frame`` (``update`` + the
-800 x 600 ``draw``). Each block is timed with the host clock around work
-that ends in ``torch.cuda.synchronize()``; one more block of each runs
-under ``utils.profiling.trace`` for the device ms (sum of the kernel
-events), kernels, busy share and the top kernels per unit. Run from the
+Before the timing, kernel H is held against its plain version on each
+scene's state (``chip_smoke.check_gather_pairs``: its ms per call from a
+CUDA graph of 20 calls, its bound and the plain version's ms, both
+populations). Modes, in alternating blocks of ``--n`` units (the rule
+order reverses every block): ``update`` (``update(1/60)``) and ``frame``
+(``update`` + the 800 x 600 ``draw``). Each block is timed with the host
+clock around work that ends in ``torch.cuda.synchronize()``; one more
+block of each runs under ``utils.profiling.trace`` for the device ms (sum
+of the kernel events), kernels, busy share and the top kernels per unit.
+Prints the gather / dense and eager / replay wall ratios. Run from the
 root of another tree (an older commit unpacked with ``git archive``), it
-times that tree's package. Prints one JSON object per line and needs a
-CUDA card (exits 1 without one).
+times that tree's package (there ``gather_eager`` is ``gather``, and the
+check of H is skipped where the tree has none). Prints one JSON object per
+line and needs a CUDA card (exits 1 without one).
 """
 
 from __future__ import annotations
@@ -62,12 +70,13 @@ def dense_rule(base):
 
 @contextlib.contextmanager
 def handler_rule(rule: str):
-    """Build handlers under ``rule`` ("gather": the automatic options as
-    they are; "dense": ``dense_rule``) inside the block."""
+    """Build handlers under ``rule`` ("gather" and "gather_eager": the
+    automatic options as they are; "dense": ``dense_rule``) inside the
+    block."""
     import egg_fluid_simulation_tpu_torch as P
     from egg_fluid_simulation_tpu_torch import demo as D
     base = P.SimulationHandler
-    cls = base if rule == "gather" else dense_rule(base)
+    cls = dense_rule(base) if rule == "dense" else base
     P.SimulationHandler = D.SimulationHandler = cls
     try:
         yield
@@ -75,18 +84,34 @@ def handler_rule(rule: str):
         P.SimulationHandler = D.SimulationHandler = base
 
 
+def step_eagerly(h) -> None:
+    """``h`` runs its fixed steps eagerly on the card (a tree without the
+    captured step always does)."""
+    try:
+        from egg_fluid_simulation_tpu_torch.ops.step_graph import EAGER
+    except ImportError:
+        return
+    h._step_graphs = EAGER
+
+
 def build(scene: str, rule: str, dev):
-    """(handler, update, draw) of ``scene`` under ``rule``."""
+    """(handler, update, draw) of ``scene`` under ``rule``; with
+    "gather_eager" the handler steps eagerly from its first step."""
     import chip_smoke as C
     from egg_fluid_simulation_tpu_torch.demo import DemoState
+    eager = rule == "gather_eager"
     with handler_rule(rule):
         if scene == "gather_path":
             h = C.gather_handler(dev)
+            if eager:
+                step_eagerly(h)
             for _ in range(3):
                 h.update(1 / 60)
             return (h, lambda: h.update(1 / 60),
                     lambda: h.draw(viewport=VIEWPORT))
         d = DemoState(seed=C.SEED, capacity=C.GATHER_CAPACITY, device=dev)
+        if eager:
+            step_eagerly(d.handler)
         d.run(C.DEMO_FRAMES)
         return d.handler, lambda: d.update(1 / 60), d.draw
 
@@ -123,8 +148,9 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=6)
     ap.add_argument("--scenes", nargs="+", default=["gather_path", "demo"],
                     choices=["gather_path", "demo"])
-    ap.add_argument("--rules", nargs="+", default=["gather", "dense"],
-                    choices=["gather", "dense"])
+    ap.add_argument("--rules", nargs="+",
+                    default=["gather", "gather_eager", "dense"],
+                    choices=["gather", "gather_eager", "dense"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -140,6 +166,11 @@ def main() -> int:
         for rule in args.rules:
             h, update, draw = build(scene, rule, dev)
             o = h._options
+            if rule == "gather" and hasattr(C, "check_gather_pairs"):
+                results = {}
+                C.check_gather_pairs(h, scene, results)
+                print(json.dumps({"scene": scene, "kernel_h": results}),
+                      flush=True)
             print(json.dumps({"scene": scene, "rule": rule, "engine": o.engine,
                               "budget_mode": o.budget_mode,
                               "pop_caps": list(o.pop_caps),
@@ -174,11 +205,15 @@ def main() -> int:
                    "wall_p50_ms": statistics.median(v), "wall_ms": v, **prof}
             print(json.dumps(row), flush=True)
             summary[f"{scene}.{rule}.{mode}"] = row
-        for mode in ("update", "frame") if len(runs) == 2 else ():
-            g = summary[f"{scene}.gather.{mode}"]["wall_p50_ms"]
-            d = summary[f"{scene}.dense.{mode}"]["wall_p50_ms"]
-            print(json.dumps({"scene": scene, "mode": mode,
-                              "gather_over_dense_wall": g / d}), flush=True)
+        for mode in ("update", "frame"):
+            wall = {r: summary[f"{scene}.{r}.{mode}"]["wall_p50_ms"]
+                    for r in runs}
+            ratios = {f"{a}_over_{b}_wall": wall[a] / wall[b]
+                      for a, b in (("gather", "dense"),
+                                   ("gather_eager", "gather"))
+                      if a in wall and b in wall}
+            print(json.dumps({"scene": scene, "mode": mode, **ratios}),
+                  flush=True)
     print(json.dumps({"card": card}), flush=True)
     return 0
 
