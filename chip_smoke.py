@@ -46,15 +46,17 @@ Then it drives the paths through the public API:
   and timed against eager updates in alternating blocks (wall, device ms,
   kernels, busy share of each);
 - ``gather_path``: an automatic handler at capacity 8192 (the gather
-  engine: kernel H, ``csrc/gather_pairs.cu``, for the ordered budget's
-  count and the sweep of each collision pass) with ~8000 live particles;
-  ``check.gather_pairs`` first (H against its plain version on the
-  scene's state, both populations, budget on and off, binding, literal
-  cohesion and on a 16-bucket table: the count bit for bit, the sweep
-  within ``GATHER_TOL``; timed from a CUDA graph); then
+  engine: kernel H, ``csrc/gather_pairs.cu``, for the front of each
+  collision pass's grid, the ordered budget's count and the sweep) with
+  ~8000 live particles; ``check.gather_pairs`` first (H against its plain
+  versions on the scene's state, both populations: the front bit for bit
+  against ``build_grid``; budget on and off, binding, literal cohesion, a
+  16-bucket table, a K read at run time, the owned range of the sharded
+  step: the count bit for bit, the sweep within ``GATHER_TOL``; timed from
+  a CUDA graph beside an empty kernel's time); then
   ``update(1/60)`` x10 and an 800 x 600 ``draw`` (kernel C), then
-  ``run_steps(10)`` (H's launches asserted: a count and a sweep each
-  collision pass and population, no other solver kernel); wall p50 by
+  ``run_steps(10)`` (H's launches asserted: a front, a count and a sweep
+  each collision pass and population, no other solver kernel); wall p50 by
   CUDA events, device ms and launches per ``update`` from a
   ``utils.profiling.trace`` block, the collision budget's drops; the
   replayed step against the eager one as in ``step_graph``, and ``update``
@@ -87,8 +89,9 @@ Then it drives the paths through the public API:
   entries of the kernel line (``.spatial_1x1``).
 
 Kernel H has no TPU counterpart (XLA fuses the JAX package's
-``solve_pairs``); its two entry points are the kernel line's
-``gather_sweep`` and ``gather_count``, with the gather path's launches.
+``solve_pairs``); its three entry points are the kernel line's
+``gather_front``, ``gather_count`` and ``gather_sweep``, with the gather
+path's launches.
 Kernel G (``splat_tiles``) has no caller on any path: it is checked alone
 (``check.splat_tiles``) on slot-major candidates built from the 1M scene's
 render payload. The kernel line gives, per kernel, its launches on its
@@ -143,6 +146,8 @@ GATHER_TOL = 1e-4           # px a pass: kernel H sums a particle's
                             # version (each pair's term rounds alike)
 STRESS_TABLE = 16           # kernel H's check on a small hash table:
 STRESS_SLOTS = 4            # repeated and crowded buckets
+ODD_SLOTS = 12              # kernel H at a K it does not compile in (K
+                            # read at run time)
 STATS_RTOL = 1e-5           # batch_pos_sum, replayed vs eager step:
                             # index_add_ sums with atomics in any order
 GRAPH_UNITS = 6             # updates (frames) a timed block, graph vs eager
@@ -180,10 +185,13 @@ PAIR_OPS = 36        # one (self, partner) term of pair_terms.cuh's
                      # projection with its accumulation (B, D, E)
 PROLOGUE_OPS = 20    # kernel B's integrate + follow prologue, per slot
 COUNT_OPS = 4        # kernel F: one partner's adjacency test and count
+FRONT_OPS = 12       # kernel H's front, a particle: two divides, two
+                     # floors, the hash's products, XOR, mask and select
 SPLAT_OPS = 28       # kernel C: one candidate at one pixel, exp as one
 SPLAT_BOX_OPS = 27   # kernel C: one window candidate's extent box against
                      # its tile (splat_kernel.extent_box and the four tests)
 TILES_OPS = 26       # kernel G: the same with the normalised box test
+TILES_CULL_OPS = 10  # kernel G: one candidate's box against the tile
 
 
 def log(phase: str, **kw) -> None:
@@ -514,7 +522,40 @@ def traced(fn, n: int) -> dict:
     dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     return dict(device_ms=dev_ms / n, kernels=len(kernels) / n,
                 profiled_wall_ms=wall / n,
-                busy_share=dev_ms / wall if wall else None)
+                busy_share=dev_ms / wall if wall else None,
+                by_kernel=kernel_counts(prof))
+
+
+def graph_nodes(h):
+    """The nodes of the handler's captured step by type (kernel, memcpy,
+    memset, other), counted with libcuda's ``cuGraphGetNodes`` in a second
+    capture of the same step body kept as a graph (``keep_graph``): what
+    one replay launches, counted without a profiler. None where this
+    PyTorch cannot keep a captured graph."""
+    import ctypes
+    import torch
+    sg = next(reversed(h._step_graphs._graphs.values()))
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    with torch.cuda.graph(graph):
+        sg._body()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    num = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(num)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * num.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(num))
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}
+    out = dict(kernel=0, memcpy=0, memset=0, other=0)
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        out[names.get(kind.value, "other")] += 1
+    del graph
+    return out
 
 
 @contextlib.contextmanager
@@ -577,13 +618,18 @@ def check_step_graph(h, phase: str, updates: int = 2) -> dict:
     return out
 
 
-def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2) -> dict:
+def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2,
+                   expect_sweeps: int = 0) -> dict:
     """``unit`` (an ``update``, or an ``update`` and a draw) of handler
     ``h`` with its fixed step replayed and run eagerly, in alternating
     blocks of ``n``: host-clock wall ms a unit (around work that ends in
     ``torch.cuda.synchronize()``) and CUDA-event ms between the block's
     ends; then one traced block of each (device ms, kernels, busy share a
-    unit)."""
+    unit). With ``expect_sweeps`` (kernel H's sweeps a unit) the traced
+    blocks are checked against it: a block whose trace holds fewer H
+    launches than the unit ran lost records, and is traced again (up to
+    three blocks; each attempt is printed, ``trace_attempts``); the
+    replayed step's graph nodes are counted beside (:func:`graph_nodes`)."""
     import torch
     walls = {"replay": [], "eager": []}
     events = {"replay": [], "eager": []}
@@ -610,15 +656,28 @@ def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2) -> dict:
     out = {}
     for mode in ("replay", "eager"):
         ctx = eager_steps(h) if mode == "eager" else contextlib.nullcontext()
+        attempts = []
         with ctx:
-            prof = traced(lambda: [unit() for _ in range(n)], n)
+            for _ in range(3 if expect_sweeps else 1):
+                prof = traced(lambda: [unit() for _ in range(n)], n)
+                attempts.append(dict(
+                    kernels=prof["kernels"],
+                    device_ms=round(prof["device_ms"], 4),
+                    h_sweeps=prof["by_kernel"]["gather_sweep"] / n))
+                if attempts[-1]["h_sweeps"] == expect_sweeps:
+                    break
         out[mode] = dict(
             wall_p50_ms=float(np.median(walls[mode])),
             wall_ms=[round(x, 3) for x in walls[mode]],
             event_ms=[round(x, 3) for x in events[mode]],
             device_ms=round(prof["device_ms"], 4),
             kernels=prof["kernels"], busy_share=round(prof["busy_share"], 3))
-    log(f"step_graph.{phase}.time", n=n, blocks=blocks, **out,
+        if expect_sweeps:
+            out[mode]["trace_attempts"] = attempts
+    extra = {}
+    if expect_sweeps:
+        extra["graph_nodes"] = graph_nodes(h)
+    log(f"step_graph.{phase}.time", n=n, blocks=blocks, **out, **extra,
         eager_over_replay_wall=round(out["eager"]["wall_p50_ms"]
                                      / out["replay"]["wall_p50_ms"], 3),
         card=nvidia_smi())
@@ -1033,16 +1092,21 @@ def check_path_splat(h, phase: str, results) -> None:
     r["max_abs_err"] = max([r["max_abs_err"], *errs.values()])
 
 
-def gather_pass_inputs(h, pop: int):
+def gather_pass_inputs(h, pop: int, table_size: int = 0, slots: int = 0):
     """One collision pass's inputs of population ``pop`` at the handler's
     state, as ``solver.substep`` gives them to ``solve_pairs`` at
-    ``update(1/60)``: fields, config, compliances at the substep's dt, and
-    the hash grid."""
+    ``update(1/60)``: fields, config, compliances at the substep's dt; the
+    pass's record, bucket and slot table as ``solve_pairs`` builds them (kernel H's front on the card; ``hgrid`` is the table with
+    the record's cells); and ``grid``, ``build_grid``'s plain build of the
+    same table. ``table_size`` / ``slots`` replace the handler's."""
     import torch
     from egg_fluid_simulation_tpu_torch.config import population_config
     from egg_fluid_simulation_tpu_torch.ops import grid as G
     from egg_fluid_simulation_tpu_torch.ops import solver as S
+    from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
     st, opts = h.state, h._options
+    ts = table_size or opts.table_size
+    k = slots or opts.slots_per_cell
     cap = S._pop_caps(opts, st.capacity)[pop]
     cfg = population_config(h._device_cfg2(), pop)
     dt, relax = h._step_scalars(1 / 60)
@@ -1053,92 +1117,143 @@ def gather_pass_inputs(h, pop: int):
                                        cfg.cohesion_interaction_distance_factor),
                        min=1.0)
     pos = st.pos[pop, :cap].contiguous()
-    grid = G.build_grid(pos, act, cell, table_size=opts.table_size,
-                        slots_per_cell=opts.slots_per_cell)
-    return dict(pos=pos, cell=cell,
-                inv_mass=st.inv_mass[pop, :cap].contiguous(),
-                radius=st.radius[pop, :cap].contiguous(),
-                batch_slot=st.batch_slot[pop, :cap].contiguous(), active=act,
-                grid=grid, cfg=cfg, relaxation=relax,
+    fields = dict(pos=pos, inv_mass=st.inv_mass[pop, :cap].contiguous(),
+                  radius=st.radius[pop, :cap].contiguous(),
+                  batch_slot=st.batch_slot[pop, :cap].contiguous(),
+                  active=act)
+    record, bucket = GK.gather_front(*fields.values(), cell, ts)
+    table = G.slot_table(bucket, ts, k)
+    return dict(**fields, cell=cell, record=record, bucket=bucket,
+                table_size=ts,
+                hgrid=G.CellGrid(table=table, cell_xy=GK.record_cells(record),
+                                 table_size=ts),
+                grid=G.build_grid(pos, act, cell, table_size=ts,
+                                  slots_per_cell=k),
+                cfg=cfg, relaxation=relax,
                 collision_c=S.strength_to_compliance(cfg.collision_strength,
                                                      sub_dt),
                 cohesion_c=S.strength_to_compliance(cfg.cohesion_strength,
                                                     sub_dt))
 
 
-def check_gather_pairs(h, phase: str, results) -> None:
-    """Kernel H (``csrc/gather_pairs.cu``) against its plain version on the
-    inputs of one collision pass at the handler's state, both populations,
-    at the handler's options (ordered budget, spacing cohesion) and with the
-    budget off; then where the scene's own pass leaves branches idle: the
-    budget set to half the pass's pairs (it binds), the literal cohesion
-    mode, and a grid of the same positions with ``STRESS_TABLE`` buckets of
-    ``STRESS_SLOTS`` slots (buckets repeated among a particle's nine,
-    buckets crowded past K, far cells sharing a bucket), budget on and off:
-    ``gather_count`` bit for bit, ``gather_sweep`` within ``GATHER_TOL``
-    (the candidate sums run in another order). Times from a
-    CUDA graph of 20 calls (a launch takes a few microseconds) with the
-    one-by-one time beside; the bound counts PAIR_OPS for each candidate
-    pair in the true 3x3 cells (this data's work) and the table, the
-    per-particle fields and the output once."""
+def front_exact(d) -> dict:
+    """Kernel H's front on the card against the plain build, bit for bit:
+    the record's cells against ``build_grid``'s ``cell_xy`` and the plain
+    front's, its bucket against ``grid.cells_and_buckets``'s, the slot
+    table of its buckets against ``build_grid``'s, the record's other
+    fields against their inputs (as int32 bits: an int field's bits may
+    read as a float NaN) and the whole record against
+    ``gather_front_plain``'s."""
     import torch
     from egg_fluid_simulation_tpu_torch.ops import grid as G
+    from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
+    rec, bits = d["record"], d["record"].view(torch.int32)
+    cells, bucket = G.cells_and_buckets(d["pos"], d["active"], d["cell"],
+                                        d["table_size"])
+    plain, plain_bucket = GK.gather_front_plain(
+        d["pos"], d["inv_mass"], d["radius"], d["batch_slot"], d["active"],
+        d["cell"], d["table_size"])
+
+    def same_bits(a, b):
+        return bool(torch.equal(a.contiguous().view(torch.int32),
+                                b.contiguous().view(torch.int32)))
+
+    return dict(
+        cells=bool(torch.equal(GK.record_cells(rec), d["grid"].cell_xy)
+                   and torch.equal(GK.record_cells(rec), cells)),
+        bucket=bool(torch.equal(d["bucket"], bucket)
+                    and torch.equal(d["bucket"], plain_bucket)),
+        table=bool(torch.equal(d["hgrid"].table, d["grid"].table)),
+        fields=all(same_bits(rec[:, i], f) for i, f in enumerate(
+            (d["pos"][:, 0], d["pos"][:, 1], d["inv_mass"], d["radius"])))
+        and bool(torch.equal(bits[:, 6], d["batch_slot"])
+                 and torch.equal(bits[:, 7], d["active"].to(torch.int32))),
+        record=same_bits(rec, plain))
+
+
+def check_gather_pairs(h, phase: str, results) -> None:
+    """Kernel H (``csrc/gather_pairs.cu``) against its plain versions on the
+    inputs of one collision pass at the handler's state, both populations:
+    the front (record, bucket; bit for bit, :func:`front_exact`); the count
+    (bit for bit) and the sweep (within ``GATHER_TOL``: the candidate sums
+    run in another order) at the handler's options (ordered budget, spacing
+    cohesion) and with the budget off; then where the scene's own pass
+    leaves branches idle: the budget set to half the pass's pairs (it
+    binds), the literal cohesion mode, a grid of the same positions with
+    ``STRESS_TABLE`` buckets of ``STRESS_SLOTS`` slots (buckets repeated
+    among a particle's nine, buckets crowded past K, far cells sharing a
+    bucket), budget on and off, a table of ``ODD_SLOTS`` slots a bucket (a
+    K read at run time), and the owned range of the particle-sharded step
+    (the second half of the particles, budget off) on the scene's grid and
+    the stress grid. Every launch is the one ``solve_pairs`` and the
+    sharded step make. Times from a CUDA graph of 20 calls (a launch takes
+    a few microseconds) with the one-by-one time beside, and an empty
+    kernel's time from a graph of 20 as the latency floor. The bound
+    counts PAIR_OPS for each candidate pair in the true 3x3 cells (this
+    data's work) and the table, the records and the output once."""
+    import torch
     from egg_fluid_simulation_tpu_torch.ops import solver as S
     from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
+    from egg_fluid_simulation_tpu_torch.ops.kernels import library
     opts = h._options
-    errs, count_exact, rows, stress = {}, True, [], {}
+    errs, count_exact, rows, stress, fronts = {}, True, [], {}, {}
     for pop, name in ((0, "white"), (1, "yolk")):
         d = gather_pass_inputs(h, pop)
-        grid, act = d["grid"], d["active"]
-        got_n = GK.gather_count(grid, act)
-        want_n = GK.gather_count_plain(grid, act)
-        count_exact &= bool(torch.equal(got_n, want_n))
+        small = gather_pass_inputs(h, pop, STRESS_TABLE, STRESS_SLOTS)
+        odd = gather_pass_inputs(h, pop, slots=ODD_SLOTS)
+        fronts[name] = front_exact(d)
+        fronts[name + ".small_table"] = front_exact(small)
+        rec, grid, act = d["record"], d["hgrid"], d["active"]
+        want_n = GK.gather_count_plain(rec, grid)
         cum = torch.cumsum(want_n, 0) - want_n
+        want_s = GK.gather_count_plain(small["record"], small["hgrid"])
+        cum_s = torch.cumsum(want_s, 0) - want_s
+        want_o = GK.gather_count_plain(odd["record"], odd["hgrid"])
+        cum_o = torch.cumsum(want_o, 0) - want_o
         max_pairs = S._max_pairs(act)
+        half = want_n.sum() * 0.5
         cfg = d["cfg"]
-        args = (d["pos"], d["inv_mass"], d["radius"], d["batch_slot"], act,
-                grid)
         scal = (d["collision_c"], d["cohesion_c"],
                 cfg.collision_overlap_factor,
                 cfg.cohesion_interaction_distance_factor, d["relaxation"])
+        spacing = opts.cohesion_mode == "spacing"
+        n = act.shape[0]
+        owned = (n // 2, n - n // 2)
+
+        def held(key, dd, cm, spacing, own=None):
+            """H against plain on one variant of the pass (count, when the
+            budget is on, and sweep): the sweep's error."""
+            nonlocal count_exact
+            if cm[0] is not None:
+                got_c = GK.gather_count(dd["record"], dd["hgrid"])
+                count_exact &= bool(torch.equal(
+                    got_c, GK.gather_count_plain(dd["record"], dd["hgrid"])))
+            got = GK.gather_sweep(dd["record"], dd["hgrid"], *cm, *scal,
+                                  spacing=spacing, owned=own)
+            want = GK.gather_sweep_plain(dd["record"], dd["hgrid"], *cm,
+                                         *scal, spacing=spacing, owned=own)
+            errs[f"{name}.{key}"] = float((got - want).abs().max())
+            return want
+
         for budget in ("ordered", "off"):
             cm = (cum, max_pairs) if budget == "ordered" else (None, None)
-            spacing = opts.cohesion_mode == "spacing"
-            got = GK.gather_sweep(*args, *cm, *scal, spacing=spacing)
-            want = GK.gather_sweep_plain(*args, *cm, *scal, spacing=spacing)
-            errs[f"{name}.{budget}"] = float((got - want).abs().max())
-            moved = float((want - d["pos"]).abs().max())
-            if not moved > 0.0:
+            want = held(budget, d, cm, spacing)
+            if not float((want - d["pos"]).abs().max()) > 0.0:
                 raise AssertionError(f"{phase}: the pass moved nothing")
-
-        def held(key, grid_c, cm, spacing):
-            """H against plain on one variant of the pass: the error."""
-            got = GK.gather_sweep(*args[:5], grid_c, *cm, *scal,
-                                  spacing=spacing)
-            want = GK.gather_sweep_plain(*args[:5], grid_c, *cm, *scal,
-                                         spacing=spacing)
-            errs[f"{name}.{key}"] = float((got - want).abs().max())
-
-        # the budget binds: half the pass's pairs
-        half = want_n.sum() * 0.5
-        held("budget_half", grid, (cum, half), True)
-        held("literal", grid, (cum, max_pairs), False)
-        # a small table: repeats among the nine, crowds past K, collisions
-        small = G.build_grid(d["pos"], act, d["cell"],
-                             table_size=STRESS_TABLE,
-                             slots_per_cell=STRESS_SLOTS)
-        got_s = GK.gather_count(small, act)
-        want_s = GK.gather_count_plain(small, act)
-        count_exact &= bool(torch.equal(got_s, want_s))
-        cum_s = torch.cumsum(want_s, 0) - want_s
+        held("budget_half", d, (cum, half), True)
+        held("literal", d, (cum, max_pairs), False)
         held("small_table.ordered", small, (cum_s, max_pairs), True)
         held("small_table.off", small, (None, None), True)
+        held("owned_half", d, (None, None), spacing, own=owned)
+        held("small_table.owned_half", small, (None, None), True, own=owned)
+        held("odd_slots.ordered", odd, (cum_o, max_pairs), spacing)
         live = int(act.sum())
         stress[name] = dict(
             pairs=float(want_n.sum()), half_budget=float(half),
             cut_particles=int(((cum >= half) & act).sum()),
             small_table_pairs=float(want_s.sum()), live=live,
-            crowded=live > STRESS_TABLE * STRESS_SLOTS)
+            crowded=live > STRESS_TABLE * STRESS_SLOTS,
+            owned=owned)
         if not (stress[name]["cut_particles"] > 0 and stress[name]["crowded"]
                 and stress[name]["small_table_pairs"] > 0):
             raise AssertionError(f"{phase}: a stress case of kernel H does "
@@ -1146,55 +1261,68 @@ def check_gather_pairs(h, phase: str, results) -> None:
         cand, valid = GK.candidates(grid, act)
         near = GK.in_cells(grid.cell_xy, torch.clamp(cand, min=0).long())
         pairs = int((valid & near).sum())
-        n, k = act.shape[0], grid.table.shape[1]
-        ordered = (cum, max_pairs)
+        k = grid.table.shape[1]
 
         def sweep():
-            GK.gather_sweep(*args, *ordered, *scal, spacing=True)
+            GK.gather_sweep(rec, grid, cum, max_pairs, *scal, spacing=True)
 
         def sweep_plain():
-            GK.gather_sweep_plain(*args, *ordered, *scal, spacing=True)
+            GK.gather_sweep_plain(rec, grid, cum, max_pairs, *scal,
+                                  spacing=True)
 
+        fields = (d["pos"], d["inv_mass"], d["radius"], d["batch_slot"],
+                  act)
         ms = graph_ms(sweep, 20)
         one_by_one = cuda_ms(sweep, 20)
-        count_ms = graph_ms(lambda: GK.gather_count(grid, act), 20)
+        count_ms = graph_ms(lambda: GK.gather_count(rec, grid), 20)
+        front_ms = graph_ms(lambda: GK.gather_front(
+            *fields, d["cell"], d["table_size"]), 20)
         plain_ms = cuda_ms(sweep_plain, 5)
-        count_plain_ms = cuda_ms(lambda: GK.gather_count_plain(grid, act), 5)
-        field_bytes = nbytes(d["pos"], d["inv_mass"], d["radius"],
-                             d["batch_slot"], act, grid.cell_xy, cum)
+        count_plain_ms = cuda_ms(lambda: GK.gather_count_plain(rec, grid), 5)
+        front_plain_ms = cuda_ms(lambda: GK.gather_front_plain(
+            *fields, d["cell"], d["table_size"]), 5)
         b_ms, b_by = bound(pairs * PAIR_OPS,
-                           nbytes(grid.table) + field_bytes + n * 8)
+                           nbytes(grid.table, rec, cum) + n * 8)
         c_ms, c_by = bound(pairs * COUNT_OPS,
-                           nbytes(grid.table, grid.cell_xy, act) + n * 4)
+                           nbytes(grid.table) + n * 16 + n * 4)
+        f_ms, f_by = bound(n * FRONT_OPS,
+                           nbytes(*fields, rec, d["bucket"]))
         rows.append(dict(pop=name, n=n, k=k, slots=n * 9 * k,
                          pairs_in_cells=pairs, ms=ms, one_by_one_ms=one_by_one,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          count_ms=count_ms, count_plain_ms=count_plain_ms,
-                         count_bound_ms=c_ms, count_bound_by=c_by))
+                         count_bound_ms=c_ms, count_bound_by=c_by,
+                         front_ms=front_ms, front_plain_ms=front_plain_ms,
+                         front_bound_ms=f_ms, front_bound_by=f_by))
     err = max(errs.values())
+    lib = library.load()
+    stream = library.stream_handle(torch.device("cuda"))
+    floor_ms = graph_ms(lambda: library.check("empty", lib.egg_empty(stream)),
+                        20)
+    front_ok = all(all(v.values()) for v in fronts.values())
     log(f"check.gather_pairs.{phase}", table_size=opts.table_size,
         slots_per_cell=opts.slots_per_cell, max_abs_err=errs, tol=GATHER_TOL,
-        count_bit_exact=count_exact, stress=stress,
+        count_bit_exact=count_exact, front_bit_exact=fronts, stress=stress,
         stress_grid=dict(table_size=STRESS_TABLE, slots=STRESS_SLOTS),
+        launch_floor_ms=round(floor_ms, 5),
         per_pop=[{k_: (float(f"{v:.6g}") if isinstance(v, float) else v)
-                  for k_, v in r.items()} for r in rows])
-    if not (err <= GATHER_TOL and count_exact):
+                  for k_, v in r.items()} for r in rows],
+        card=nvidia_smi())
+    if not (err <= GATHER_TOL and count_exact and front_ok):
         raise AssertionError(f"{phase}: kernel H disagrees with its plain "
                              f"version (err {errs}, count exact "
-                             f"{count_exact})")
+                             f"{count_exact}, front {fronts})")
     white = rows[0]
-    for key, row in (("gather_sweep", dict(
-            ms=white["ms"], plain_ms=white["plain_ms"],
-            bound_ms=white["bound_ms"], bound_by=white["bound_by"])),
-            ("gather_count", dict(
-                ms=white["count_ms"], plain_ms=white["count_plain_ms"],
-                bound_ms=white["count_bound_ms"],
-                bound_by=white["count_bound_by"]))):
+    for key, pre, err_k in (("gather_sweep", "", err),
+                            ("gather_count", "count_", 0.0),
+                            ("gather_front", "front_", 0.0)):
         r = results.setdefault(key, dict(max_abs_err=0.0, library_ms=None))
         if "ms" not in r:           # the first scene's (gather_path) times
-            r.update(row)
-        r["max_abs_err"] = max(r["max_abs_err"],
-                               err if key == "gather_sweep" else 0.0)
+            r.update(ms=white[pre + "ms"], plain_ms=white[pre + "plain_ms"],
+                     bound_ms=white[pre + "bound_ms"],
+                     bound_by=white[pre + "bound_by"],
+                     launch_floor_ms=floor_ms)
+        r["max_abs_err"] = max(r["max_abs_err"], err_k)
 
 
 def splat_inside_pairs(payload, counts, opts) -> float:
@@ -1337,28 +1465,79 @@ def slot_major_candidates(payload, counts, opts):
     return cand.contiguous(), trips, n_occ
 
 
-def check_splat_tiles(h, results) -> None:
-    """Kernel G against its plain version on slot-major candidates built
-    from the 1M scene's render payload at the main path's render options;
-    once more with garbage in every chunk past a tile's trips."""
+def splat_tiles_case(h):
+    """Kernel G's arguments ``(cand, trips, th, tw, ntx, max_splat_px)``
+    on the white render payload of handler ``h`` at its render options
+    (:func:`slot_major_candidates`), then the occupied count a tile and the
+    options."""
     import torch
     from egg_fluid_simulation_tpu_torch.config import population_config
     from egg_fluid_simulation_tpu_torch.ops import render as R
-    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
     st = h.state
-    dev = st.device
     cap = h._options.pop_caps[0]
     cfg = population_config(h._device_cfg2(), 0)
     opts = R.frame_options(h)[0]
-    payload, audit, counts = R._splat_payload(
+    payload, _, counts = R._splat_payload(
         st.pos[0, :cap], st.last_pos[0, :cap], st.vel[0, :cap],
         st.radius[0, :cap], st.color[0, :cap], st.active_mask()[0, :cap],
-        h.stats.centroid[0], torch.tensor(0.5, device=dev),
+        h.stats.centroid[0], torch.tensor(0.5, device=st.device),
         cfg.texture_scale, cfg.motion_blur, opts)
     cand, trips, n_occ = slot_major_candidates(payload, counts, opts)
-    th, tw = opts.tile_h, opts.tile_w
-    ntx = opts.eff_size // tw
-    msp = int(opts.max_splat_px)
+    return (cand, trips, opts.tile_h, opts.tile_w,
+            opts.eff_size // opts.tile_w, int(opts.max_splat_px), n_occ,
+            opts)
+
+
+def tiles_work(cand, n_occ, th: int, tw: int, ntx: int, msp: int):
+    """What kernel G's function needs on its slot-major input: ``(staged,
+    inside)``, the occupied candidates that its cull keeps
+    (``splat_kernel.tiles_cull``) and the (candidate, pixel) pairs that
+    pass the exact test (``max(|nx|, |ny|, max(|dx|, |dy|) / msp) <= 1``),
+    summed over the tiles."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
+    dev = cand.device
+    n_tiles, n_chunks = cand.shape[0], cand.shape[1]
+    n_cand = n_chunks * 128
+    f = cand.permute(0, 1, 3, 2).reshape(n_tiles, n_cand, 9)
+    keep = SPK.tiles_cull(cand, th, tw, ntx, msp) & (
+        torch.arange(n_cand, device=dev)[None, :] < n_occ[:, None])
+    pix = torch.arange(th * tw, device=dev)
+    px_t = ((pix % tw).to(torch.float32) + 0.5)[None, :, None]
+    py_t = ((pix // tw).to(torch.float32) + 0.5)[None, :, None]
+    icap = 1.0 / float(msp)
+    tc = max(1, (8 << 20) // (th * tw * n_cand))           # tiles per chunk
+    inside = 0.0
+    for t0 in range(0, n_tiles, tc):
+        ids = torch.arange(t0, min(t0 + tc, n_tiles), device=dev)
+        w = f[ids]
+        dx = (px_t + ((ids % ntx) * tw).to(torch.float32)[:, None, None]
+              - w[:, None, :, 0])
+        dy = (py_t + ((ids // ntx) * th).to(torch.float32)[:, None, None]
+              - w[:, None, :, 1])
+        cax = (w[..., 2] * w[..., 6])[:, None, :]
+        sax = (w[..., 3] * w[..., 6])[:, None, :]
+        cay = (w[..., 2] * w[..., 7])[:, None, :]
+        say = (w[..., 3] * w[..., 7])[:, None, :]
+        nx = dx * cax + dy * sax
+        ny = dy * cay - dx * say
+        m = torch.maximum(torch.maximum(nx.abs(), ny.abs()),
+                          icap * torch.maximum(dx.abs(), dy.abs()))
+        inside += float(((m <= 1.0) & keep[ids][:, None, :]).sum())
+    return float(keep.sum()), inside
+
+
+def check_splat_tiles(h, results) -> None:
+    """Kernel G against its plain version on slot-major candidates built
+    from the 1M scene's render payload at the main path's render options;
+    once more with garbage in every chunk past a tile's trips. Prints the
+    share of the occupied candidates G's cull stages and the share of the
+    staged (candidate, pixel) pairs that pass the exact test (what
+    ``bound_ms`` counts, :func:`tiles_work`)."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
+    dev = h.state.device
+    cand, trips, th, tw, ntx, msp, n_occ, opts = splat_tiles_case(h)
     SPK.tiles_launches = 0
     got = SPK.splat_tiles(cand, trips, th, tw, ntx, msp)
     want = SPK.splat_tiles_plain(cand, trips, th, tw, ntx, msp)
@@ -1377,12 +1556,19 @@ def check_splat_tiles(h, results) -> None:
     plain_ms = cuda_ms(lambda: SPK.splat_tiles_plain(cand, trips, th, tw,
                                                      ntx, msp), 2)
     launches = SPK.tiles_launches
-    # work: every occupied candidate of a tile at each of its pixels (the
-    # zero tail of a tile's last chunk is not part of the function)
+    # work, as kernel C's bound counts it: the full term at the (candidate,
+    # pixel) pairs that pass the exact test and the cull a candidate (the
+    # zero tail of a tile's last chunk is not part of the function); the
+    # wider counts beside: every staged candidate, every occupied one, at
+    # every pixel of the tile
     occupied = float(n_occ.to(torch.float64).sum())
-    n_pairs = occupied * th * tw
+    staged, inside = tiles_work(cand, n_occ, th, tw, ntx, msp)
     read = occupied * 7 * 4
-    b_ms, b_by = bound(n_pairs * TILES_OPS, read + nbytes(trips, got))
+    out_bytes = nbytes(trips, got)
+    b_ms, b_by = bound(inside * TILES_OPS + occupied * TILES_CULL_OPS,
+                       read + out_bytes)
+    staged_ms, _ = bound(staged * th * tw * TILES_OPS, read + out_bytes)
+    all_ms, _ = bound(occupied * th * tw * TILES_OPS, read + out_bytes)
     log("check.splat_tiles", eff=opts.eff_size, tile=f"{th}x{tw}",
         tiles=int(cand.shape[0]), n_chunks=int(cand.shape[1]),
         trips_max=int(trips.max()), trips_mean=round(float(trips.float().mean()), 3),
@@ -1390,7 +1576,11 @@ def check_splat_tiles(h, results) -> None:
         garbage_unchanged=same_g, tol=SPLAT_TOL,
         alpha_max=round(float(want.max()), 4), ms=round(ms, 4),
         plain_ms=round(plain_ms, 4), bound_ms=round(b_ms, 4), bound_by=b_by,
-        launches=launches)
+        bound_staged_pixels_ms=round(staged_ms, 4),
+        bound_all_pixels_ms=round(all_ms, 4),
+        staged_share=round(staged / occupied, 4),
+        inside_share=round(inside / max(staged * th * tw, 1.0), 4),
+        launches=launches, card=nvidia_smi())
     if not (err <= SPLAT_TOL and err_g <= SPLAT_TOL and same_g
             and float(want.max()) > 0.5):
         raise AssertionError("splat_tiles disagrees with its plain version")
@@ -1557,6 +1747,7 @@ def reset_counters() -> None:
     PK.launches = SPK.launches = SPK.tiles_launches = 0
     SK.launches = SK.sweep_launches = SK.sweep_sym_launches = 0
     SK.count_launches = GK.launches = GK.count_launches = 0
+    GK.front_launches = 0
 
 
 def read_counters() -> dict:
@@ -1569,7 +1760,8 @@ def read_counters() -> dict:
             "sweep_planes": SK.sweep_launches,
             "sweep_planes_sym": SK.sweep_sym_launches,
             "splat_tiles": SPK.tiles_launches,
-            "gather_sweep": GK.launches, "gather_count": GK.count_launches}
+            "gather_sweep": GK.launches, "gather_count": GK.count_launches,
+            "gather_front": GK.front_launches}
 
 
 # each kernel's symbol in csrc/, as a profiler trace names its launches
@@ -1581,7 +1773,8 @@ KERNEL_SYMBOLS = {"place_planes": "place_planes_kernel",
                   "sweep_planes_sym": "sweep_planes_sym_kernel",
                   "splat_tiles": "splat_tiles_kernel",
                   "gather_sweep": "gather_sweep_kernel",
-                  "gather_count": "gather_count_kernel"}
+                  "gather_count": "gather_count_kernel",
+                  "gather_front": "gather_front_kernel"}
 
 
 def kernel_counts(prof) -> dict:
@@ -1634,7 +1827,7 @@ def plane_launches(opts, n_steps: int) -> dict:
     ordered = opts.budget_mode == "ordered"
     return {"place_planes": 0 if ordered else 2 * n_steps * bins,
             "substep_pass": 0, "splat": 0, "splat_tiles": 0,
-            "gather_sweep": 0, "gather_count": 0,
+            "gather_sweep": 0, "gather_count": 0, "gather_front": 0,
             "count_planes": 2 * n_steps * bins if ordered else 0,
             "sweep_planes": 0 if opts.sweep_symmetric else sweep,
             "sweep_planes_sym": sweep if opts.sweep_symmetric else 0}
@@ -1724,8 +1917,8 @@ def gather_phases(dev, results) -> None:
     counted = opts.budget_mode == "ordered"
 
     def want_h(n_steps):
-        return {n: (passes * n_steps if n == "gather_sweep" or
-                    (n == "gather_count" and counted) else 0)
+        return {n: (passes * n_steps if n in ("gather_sweep", "gather_front")
+                    or (n == "gather_count" and counted) else 0)
                 for n in path_launches if n != "splat"}
 
     if (path_launches["splat"] < 2
@@ -1741,11 +1934,11 @@ def gather_phases(dev, results) -> None:
                              f"{path_wrappers} (expected {want_h(2)}: the "
                              f"first step and its capture), after run_steps "
                              f"{res_wrappers} (expected none)")
-    for n in ("gather_sweep", "gather_count"):
+    for n in ("gather_sweep", "gather_count", "gather_front"):
         results[n]["launches"] = path_launches[n]
     check_step_graph(hg, "gather_path")
     graph_vs_eager(hg, "gather_path.update", lambda: hg.update(1 / 60),
-                   GRAPH_UNITS, GRAPH_BLOCKS)
+                   GRAPH_UNITS, GRAPH_BLOCKS, expect_sweeps=passes)
     del hg
 
     # ---- gather reference: the default 4k scene, card vs CPU, one step ----
@@ -1802,8 +1995,11 @@ def gather_phases(dev, results) -> None:
         frame_ms.append(ev0.elapsed_time(ev1))
     prof = traced(lambda: frames(3), 3)
     check_path_splat(demo.handler, "demo", results)     # after a draw
+    d_opts = demo.handler._options
     graph_vs_eager(demo.handler, "demo.frame", lambda: frames(1),
-                   GRAPH_UNITS, GRAPH_BLOCKS)
+                   GRAPH_UNITS, GRAPH_BLOCKS,
+                   expect_sweeps=2 * d_opts.n_substeps
+                   * d_opts.n_collision_steps)
     log("demo", frames=DEMO_FRAMES, engine=demo.handler._options.engine,
         seconds=round(demo_s, 3), overlay=stats, draws=n_drawn,
         frames_finite=all(d[0] for d in drawn),
@@ -2043,8 +2239,10 @@ def spatial_phase(dev, results) -> dict:
         rebin_host_reads_per_step=reads,
         redistributes=hs._redistribute_count, card=nvidia_smi())
     log("spatial_1x1.trace",
-        spatial={k: round(v, 4) for k, v in sp_trace.items()},
-        dense={k: round(v, 4) for k, v in dn_trace.items()})
+        spatial={k: round(v, 4) for k, v in sp_trace.items()
+                 if k != "by_kernel"},
+        dense={k: round(v, 4) for k, v in dn_trace.items()
+               if k != "by_kernel"})
     log("spatial_1x1.draw", frame=tuple(frame.shape),
         frame_finite=bool(torch.isfinite(frame).all()),
         alpha_max=round(float(frame[..., 3].max()), 4),
@@ -2586,14 +2784,15 @@ def main() -> int:
               tpu + "sweep_kernel.py:455"),
              ("splat.spatial_1x1", src + "splat.cu", tpu + "splat_kernel.py:400"),
              ("gather_sweep", src + "gather_pairs.cu", no_tpu),
-             ("gather_count", src + "gather_pairs.cu", no_tpu)]
+             ("gather_count", src + "gather_pairs.cu", no_tpu),
+             ("gather_front", src + "gather_pairs.cu", no_tpu)]
     # kernel G has no caller on any path: its launches are its check's
     launches["splat_tiles"] = results["splat_tiles"]["launches"]
     # D and C on the spatial path: that phase's own launches
     launches["sweep_planes.spatial_1x1"] = spatial_launches["sweep_planes"]
     launches["splat.spatial_1x1"] = spatial_launches["splat"]
     # H on the gather path (the small-scene default): that phase's launches
-    for n in ("gather_sweep", "gather_count"):
+    for n in ("gather_sweep", "gather_count", "gather_front"):
         launches[n] = results[n]["launches"]
     kernels = [dict(name=n, route="cuda", source=s, replaces=r,
                     launches=launches[n],

@@ -24,7 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["CellGrid", "build_grid", "neighbor_candidates",
+__all__ = ["CellGrid", "build_grid", "cells_and_buckets", "slot_table",
+           "neighbor_candidates",
            "NEIGHBOR_OFFSETS", "segmented_rank", "segment_extent",
            "count_pairs"]
 
@@ -75,15 +76,20 @@ def _bucket_of(cell_x: torch.Tensor, cell_y: torch.Tensor,
     return ((hx ^ hy) & m).to(torch.int32)
 
 
-def build_grid(pos: torch.Tensor, active: torch.Tensor,
-               cell_size: torch.Tensor, *, table_size: int,
-               slots_per_cell: int) -> CellGrid:
-    """Hash-grid slot table of ``pos`` (N, 2): the first ``slots_per_cell``
-    particles of each bucket, in particle order; inactive particles go to
-    the sentinel row ``table_size``, never queried."""
+def cells_and_buckets(pos: torch.Tensor, active: torch.Tensor,
+                      cell_size: torch.Tensor, table_size: int):
+    """The front of :func:`build_grid`: ``(cell_xy, bucket)``, the (N, 2)
+    int32 cell coords ``floor(pos / cell_size)`` and the (N,) int32 bucket
+    of each particle, ``table_size`` (the sentinel row) where inactive."""
     cell_xy = torch.floor(pos / cell_size).to(torch.int32)
     bucket = _bucket_of(cell_xy[:, 0], cell_xy[:, 1], table_size)
-    bucket = torch.where(active, bucket, table_size)
+    return cell_xy, torch.where(active, bucket, table_size)
+
+
+def slot_table(bucket: torch.Tensor, table_size: int, slots_per_cell: int):
+    """The rest of :func:`build_grid`: the ``(table_size + 1, K)`` int32
+    slot table of the buckets ``bucket`` (N,) (the first ``K`` particles of
+    each bucket, in particle order)."""
     # stable, as the JAX package's lax.sort_key_val: a bucket keeps its
     # first K particles in particle order
     bucket_sorted, idx_sorted = torch.sort(bucket, stable=True)
@@ -93,9 +99,19 @@ def build_grid(pos: torch.Tensor, active: torch.Tensor,
     flat = torch.where(rank < k, bucket_sorted.to(torch.int64) * k + rank,
                        (table_size + 1) * k)
     table = torch.full(((table_size + 2) * k,), -1, dtype=torch.int32,
-                       device=pos.device)
+                       device=bucket.device)
     table[flat] = idx_sorted.to(torch.int32)
-    table = table[:(table_size + 1) * k].reshape(table_size + 1, k)
+    return table[:(table_size + 1) * k].reshape(table_size + 1, k)
+
+
+def build_grid(pos: torch.Tensor, active: torch.Tensor,
+               cell_size: torch.Tensor, *, table_size: int,
+               slots_per_cell: int) -> CellGrid:
+    """Hash-grid slot table of ``pos`` (N, 2): the first ``slots_per_cell``
+    particles of each bucket, in particle order; inactive particles go to
+    the sentinel row ``table_size``, never queried."""
+    cell_xy, bucket = cells_and_buckets(pos, active, cell_size, table_size)
+    table = slot_table(bucket, table_size, slots_per_cell)
     return CellGrid(table=table, cell_xy=cell_xy, table_size=table_size)
 
 

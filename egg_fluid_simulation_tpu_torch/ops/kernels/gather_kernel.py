@@ -2,12 +2,17 @@
 
 H has no TPU counterpart: in the JAX package XLA fuses ``solve_pairs``
 (``egg_fluid_simulation_tpu/ops/solver.py``) by itself, and the port's plain
-PyTorch version of the same pass (:func:`gather_sweep_plain`,
-:func:`gather_count_plain`) issues a few hundred small ops on (N, 9K)
-candidate arrays. H computes the pass per particle from the hash grid of
-:func:`..grid.build_grid` (the slot table and the cell coords), without
-materialising the (N, 9K) candidate array or the (C, 9K, 6) gathered block:
+PyTorch version of the same pass (:func:`gather_front_plain`,
+:func:`gather_count_plain`, :func:`gather_sweep_plain`) issues a few
+hundred small ops on (N, 9K) candidate arrays. A pass is three launches:
 
+- :func:`gather_front`: each particle's **record**, (N, 8) float32, 32
+  bytes a particle: ``x, y, inv_mass, radius`` and, stored as their int32
+  bits, ``cell_x, cell_y, batch, active`` (:func:`record_cells`,
+  :func:`record_active`), with the cell ``floor(pos / cell_size)``; and its
+  (N,) int32 bucket, ``table_size`` where inactive. Bit-identical to
+  :func:`..grid.cells_and_buckets`, the front of ``build_grid``; the sort,
+  rank and scatter of :func:`..grid.slot_table` stay PyTorch;
 - :func:`gather_count` (the ordered budget only): ``new_pairs`` per
   particle, its pairs in its TRUE 3x3 cells with later particles, as an
   (N,) float32 count. The caller takes the exclusive prefix
@@ -18,49 +23,71 @@ materialising the (N, 9K) candidate array or the (C, 9K, 6) gathered block:
   than itself, ``w_sum >= EPS``, under the ordered budget
   ``cum[min(self, cand)] < max_pairs``): the collision term and, in the
   ``spacing`` cohesion mode, the same-batch cohesion term, each clamped to
-  +-|violation|; then ``pos + where(active, relaxation * total, 0)``.
+  +-|violation|; then ``pos + where(active, relaxation * total, 0)``. An
+  owned range ``(offset, count)`` sweeps particles ``offset + i`` of the
+  record (the particle-sharded step's local slice).
 
-On the H100 a 16-lane group owns a particle: lane ``s`` reads slot ``s``
-of each of the nine table rows (one coalesced 64-byte row at K = 16) and
-the candidate's fields, and a shuffle reduction sums the group's partial
-sums, so each particle writes its own output and nothing is atomic. The
-pass is bound by the latency of those dependent loads (table row, then the
-candidate's cell, then its fields), all of which fit in L2 at the gather
-engine's sizes (N <= 16384), not by bytes or arithmetic. The per-pair
-arithmetic is the plain version's, op for op (``--fmad=false``, IEEE
-division and square root), so a pair's term rounds alike; only the order of
-the sum differs.
+The count and the sweep read every per-particle field from the record, one
+32-byte load a candidate. On the H100 a group of lanes owns a particle (16
+in the sweep, 8 in the count) and keeps its nine table rows in flight: a lane issues its nine
+slot loads, then its nine candidates' cell and budget loads, before it uses
+any (the pass is bound by those dependent loads, all from L2 at the gather
+engine's sizes, and by the index work each lane repeats, not by bytes or
+arithmetic); the sweep lists the candidates that pass the cell test and the
+budget in shared memory and the group's lanes share out the pair
+arithmetic; a shuffle tree sums the group's partial sums, so each particle
+writes its own output and nothing is atomic. K = 4, 8, 16 and 32 slots a
+bucket are compiled in, any other K is read at run time. The groups take
+the particles in index order. The per-pair arithmetic is
+the plain version's, op for op (``--fmad=false``, IEEE division and square
+root), so a pair's term rounds alike; only the order of the sum differs.
 
 The dispatchers take the tensors' device: CPU tensors take the ``*_plain``
 version; CUDA tensors launch the kernel, or raise. ``launches`` counts the
-sweep's launches, ``count_launches`` the count's.
+sweep's launches, ``count_launches`` the count's, ``front_launches`` the
+front's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ...utils.mathx import EPS, torch_scalar
 from .. import grid as grid_ops
 
-__all__ = ["gather_sweep", "gather_sweep_plain", "gather_count",
-           "gather_count_plain", "candidates", "in_cells",
-           "count_from_candidates", "launches", "count_launches"]
+__all__ = ["gather_front", "gather_front_plain", "gather_sweep",
+           "gather_sweep_plain", "gather_count", "gather_count_plain",
+           "record_cells", "record_active", "candidates", "in_cells",
+           "count_from_candidates", "launches", "count_launches", "front_launches"]
 
 launches = 0         # kernel H, sweep
 count_launches = 0   # kernel H, count
+front_launches = 0   # kernel H, front (record and bucket)
+
+RECORD_WORDS = 8     # float32 words a particle record
 
 
-def candidates(grid: grid_ops.CellGrid, active: torch.Tensor):
-    """``(cand, valid)``: the candidate indices (N, 9K) of each particle's
-    3x3 buckets, and the live candidates of live particles other than the
-    particle itself. A pair also needs the TRUE 3x3 cell test,
-    :func:`in_cells`."""
+def record_cells(record: torch.Tensor) -> torch.Tensor:
+    """(N, 2) int32 cell coords of a record (a view)."""
+    return record.view(torch.int32)[:, 4:6]
+
+
+def record_active(record: torch.Tensor) -> torch.Tensor:
+    """(N,) bool liveness of a record."""
+    return record.view(torch.int32)[:, 7] != 0
+
+
+def candidates(grid: grid_ops.CellGrid, active: torch.Tensor, lo: int = 0):
+    """``(cand, valid)``: the candidate indices (C, 9K) of the 3x3 buckets
+    of the grid's particles (``grid.cell_xy``, C of them, particles
+    ``lo + i``), and the live candidates of live particles other than the
+    particle itself (``active`` (C,)). A pair also needs the TRUE 3x3 cell
+    test, :func:`in_cells`."""
     cand = grid_ops.neighbor_candidates(grid)
-    self_idx = torch.arange(cand.shape[0], dtype=torch.int32,
-                            device=cand.device)[:, None]
+    self_idx = lo + torch.arange(cand.shape[0], dtype=torch.int32,
+                                 device=cand.device)[:, None]
     valid = (cand >= 0) & (cand != self_idx) & active[:, None]
     return cand, valid
 
@@ -88,50 +115,68 @@ def count_from_candidates(grid: grid_ops.CellGrid, cand, valid):
                      dim=1).to(torch.float32)
 
 
-def gather_count_plain(grid: grid_ops.CellGrid, active: torch.Tensor):
+def gather_front_plain(pos, inv_mass, radius, batch_slot, active, cell_size,
+                       table_size: int):
+    """Plain PyTorch :func:`gather_front`."""
+    cell_xy, bucket = grid_ops.cells_and_buckets(pos, active, cell_size,
+                                                 table_size)
+    ints = torch.stack([cell_xy[:, 0], cell_xy[:, 1],
+                        batch_slot.to(torch.int32), active.to(torch.int32)],
+                       dim=1)
+    record = torch.cat([torch.stack([pos[:, 0], pos[:, 1], inv_mass, radius],
+                                    dim=1), ints.view(torch.float32)], dim=1)
+    return record, bucket
+
+
+def gather_count_plain(record, grid: grid_ops.CellGrid):
     """Plain PyTorch :func:`gather_count`."""
-    return count_from_candidates(grid, *candidates(grid, active))
+    rgrid = grid._replace(cell_xy=record_cells(record))
+    return count_from_candidates(rgrid,
+                                 *candidates(rgrid, record_active(record)))
 
 
-def gather_sweep_plain(pos, inv_mass, radius, batch_slot, active,
-                       grid: grid_ops.CellGrid, cum, max_pairs,
+def gather_sweep_plain(record, grid: grid_ops.CellGrid, cum, max_pairs,
                        collision_compliance, cohesion_compliance, overlap,
                        coh_factor, relaxation, *, spacing: bool,
+                       owned: Optional[Tuple[int, int]] = None,
                        pair_chunk: int = 1 << 15):
     """Plain PyTorch :func:`gather_sweep`. Particles are swept
-    ``pair_chunk`` at a time, which bounds the gathered (chunk, 9K, 6)
-    block. The JAX package's masks of the partner's mass and radius, and its
-    guard of the divisor, change nothing a contributing pair sees (its
-    ``w_a + w_b >= EPS`` and the compliances are >= 0), so they are left
-    out."""
-    n = pos.shape[0]
-    cand, valid = candidates(grid, active)
+    ``pair_chunk`` at a time, which bounds the gathered (chunk, 9K, 8)
+    block of records. The JAX package's masks of the partner's mass and
+    radius, and its guard of the divisor, change nothing a contributing
+    pair sees (its ``w_a + w_b >= EPS`` and the compliances are >= 0), so
+    they are left out."""
+    n = record.shape[0]
+    off, cnt = owned if owned is not None else (0, n)
+    if cnt == 0:
+        return record.new_empty((0, 2))
+    rec_i = record.view(torch.int32)
+    cells = record_cells(record)
+    cand, valid = candidates(
+        grid_ops.CellGrid(table=grid.table, cell_xy=cells[off:off + cnt],
+                          table_size=grid.table_size),
+        rec_i[off:off + cnt, 7] != 0, off)
     ordered = cum is not None
-    if not ordered:
-        cum = torch.zeros((n,), dtype=torch.float32, device=pos.device)
-
-    # every per-particle field a candidate needs, gathered in one row; the
-    # batch slot and the budget prefix ride as floats (exact below 2^24).
-    # The cell coords stay a gather of their own: rows of 8 floats take
-    # index_select's vectorised kernel, 5.1 ms an update at N = 8192,
-    # 9K = 144 on an H100 against 0.66 ms for all the gathers of this form
-    pack = torch.stack([pos[:, 0], pos[:, 1], inv_mass, radius,
-                        batch_slot.to(torch.float32), cum], dim=1)  # (N, 6)
 
     def sweep(lo, hi):
-        """Correction sum (C, 2) of particles [lo, hi)."""
+        """Correction sum (C, 2) of owned particles [lo, hi)."""
         cand_c = cand[lo:hi]
         safe = torch.clamp(cand_c, min=0).to(torch.int64)
-        g = pack.index_select(0, safe.reshape(-1)).reshape(
-            *safe.shape, pack.shape[1])                             # (C, 9K, 6)
-        me = pack[lo:hi, None, :]
+        # every per-particle field a candidate needs, in one gathered row
+        g = record.index_select(0, safe.reshape(-1)).reshape(
+            *safe.shape, RECORD_WORDS)                              # (C, 9K, 8)
+        g_i = g.view(torch.int32)
+        me = record[off + lo:off + hi, None, :]
+        me_i = me.view(torch.int32)
         s_w = me[..., 2]
-        ok = valid[lo:hi] & in_cells(grid.cell_xy, safe, lo)
+        ok = (valid[lo:hi]
+              & (torch.abs(g_i[..., 4] - me_i[..., 4]) <= 1)
+              & (torch.abs(g_i[..., 5] - me_i[..., 5]) <= 1))
         if ordered:
-            # cum[min(self, cand)] without a second gather
-            self_idx = torch.arange(lo, hi, dtype=torch.int32,
-                                    device=pos.device)[:, None]
-            cum_min = torch.where(cand_c < self_idx, g[..., 5], me[..., 5])
+            self_idx = off + torch.arange(lo, hi, dtype=torch.int32,
+                                          device=record.device)[:, None]
+            cum_min = torch.where(cand_c < self_idx, cum[safe],
+                                  cum[off + lo:off + hi, None])
             ok = ok & (cum_min < max_pairs)
         dx = g[..., 0] - me[..., 0]
         dy = g[..., 1] - me[..., 1]
@@ -161,105 +206,160 @@ def gather_sweep_plain(pos, inv_mass, radius, batch_slot, active,
             # zero vector: no correction
             coh_dist = coh_factor * r_sum
             scale = half_scale(coh_dist, cohesion_compliance,
-                               (g[..., 4] == me[..., 4])
+                               (g_i[..., 6] == me_i[..., 6])
                                & (dist2 <= coh_dist * coh_dist)) + scale
         return torch.stack([torch.sum(-(dx * inv_dist) * scale, dim=1),
                             torch.sum(-(dy * inv_dist) * scale, dim=1)], dim=1)
 
-    c = max(1, min(pair_chunk, n))
-    total = torch.cat([sweep(lo, min(lo + c, n)) for lo in range(0, n, c)])
-    return pos + torch.where(active[:, None], relaxation * total, 0.0)
+    c = max(1, min(pair_chunk, cnt))
+    total = torch.cat([sweep(lo, min(lo + c, cnt)) for lo in range(0, cnt, c)])
+    active = rec_i[off:off + cnt, 7] != 0
+    return record[off:off + cnt, 0:2] + torch.where(
+        active[:, None], relaxation * total, 0.0)
 
 
-def _check(name: str, grid: grid_ops.CellGrid, active, fields=()):
-    n = active.shape[0]
-    dev = active.device
+def _check_record(name: str, record, grid: grid_ops.CellGrid):
+    n = record.shape[0]
     table = grid.table
-    if (active.dtype != torch.bool or active.shape != (n,)
-            or grid.cell_xy.shape != (n, 2) or grid.cell_xy.dtype != torch.int32
+    if (record.dtype != torch.float32 or record.shape != (n, RECORD_WORDS)
             or table.dtype != torch.int32 or table.dim() != 2
             or table.shape[0] != grid.table_size + 1
             or grid.table_size & (grid.table_size - 1)
-            or any(t.device != dev for t in (table, grid.cell_xy, *fields))):
-        raise ValueError(f"{name}: bool active (N,), int32 cell_xy (N, 2) and "
-                         "an int32 (table_size + 1, K) table with table_size "
-                         "a power of two, on one device expected")
+            or table.device != record.device
+            or record.data_ptr() % 16):    # read as float4 / int4
+        raise ValueError(f"{name}: a float32 record (N, 8) and an int32 "
+                         "(table_size + 1, K) table with table_size a power "
+                         "of two on one device expected")
     if n * max(table.shape[1], 1) * 9 >= 2 ** 31:
         raise ValueError(f"{name}: N * 9K must stay below 2^31")
 
 
-def gather_count(grid: grid_ops.CellGrid, active: torch.Tensor):
-    """(N,) float32 ``new_pairs`` of the ordered budget (see the module)."""
-    dev = active.device
+def _check_front(pos, inv_mass, radius, batch_slot, active,
+                 table_size: int):
+    n = pos.shape[0]
+    dev = pos.device
+    if (pos.shape != (n, 2) or inv_mass.shape != (n,) or radius.shape != (n,)
+            or batch_slot.shape != (n,) or active.shape != (n,)
+            or any(t.dtype != torch.float32 for t in (pos, inv_mass, radius))
+            or batch_slot.dtype != torch.int32 or active.dtype != torch.bool
+            or any(t.device != dev for t in (inv_mass, radius, batch_slot,
+                                             active))
+            or table_size < 1 or table_size & (table_size - 1)
+            or table_size > 1 << 30):
+        raise ValueError("gather_front: float32 pos (N, 2), inv_mass, radius, "
+                         "int32 batch_slot, bool active (N,) on one device "
+                         "and table_size a power of two up to 2^30 expected")
+
+
+def gather_front(pos, inv_mass, radius, batch_slot, active, cell_size,
+                 table_size: int):
+    """``(record, bucket)``: the (N, 8) float32 particle record and the (N,)
+    int32 bucket of each particle (see the module) of one pass, with
+    ``cell_size`` a 0-dim float32 tensor (or a number)."""
+    dev = pos.device
     if dev.type == "cpu":
-        return gather_count_plain(grid, active)
+        return gather_front_plain(pos, inv_mass, radius, batch_slot, active,
+                                  cell_size, table_size)
+    if dev.type != "cuda":
+        raise RuntimeError(f"gather_front: no kernel for device {dev}")
+    from . import library
+    _check_front(pos, inv_mass, radius, batch_slot, active, table_size)
+    n = pos.shape[0]
+    pos, inv_mass, radius, batch_slot, active = (
+        t.contiguous() for t in (pos, inv_mass, radius, batch_slot, active))
+    if pos.data_ptr() % 8:          # the kernel reads a float2 a particle
+        pos = pos.clone()
+    cs = torch_scalar(cell_size, dev)
+    record = torch.empty((n, RECORD_WORDS), dtype=torch.float32, device=dev)
+    bucket = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib = library.load()
+    err = lib.egg_gather_front(
+        pos.data_ptr(), inv_mass.data_ptr(), radius.data_ptr(),
+        batch_slot.data_ptr(), active.data_ptr(), cs.data_ptr(),
+        record.data_ptr(), bucket.data_ptr(), n, table_size,
+        library.stream_handle(dev))
+    library.check("gather_front", err)
+    global front_launches
+    front_launches += 1
+    return record, bucket
+
+
+def gather_count(record, grid: grid_ops.CellGrid):
+    """(N,) float32 ``new_pairs`` of the ordered budget (see the module):
+    the record's particles on the slot table ``grid.table`` (the cells are
+    the record's)."""
+    dev = record.device
+    if dev.type == "cpu":
+        return gather_count_plain(record, grid)
     if dev.type != "cuda":
         raise RuntimeError(f"gather_count: no kernel for device {dev}")
     from . import library
-    _check("gather_count", grid, active)
-    n, k = active.shape[0], grid.table.shape[1]
-    table, cell_xy, active = (t.contiguous() for t in
-                              (grid.table, grid.cell_xy, active))
+    _check_record("gather_count", record, grid)
+    n, k = record.shape[0], grid.table.shape[1]
+    record, table = record.contiguous(), grid.table.contiguous()
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = library.load()
-    err = lib.egg_gather_count(table.data_ptr(), cell_xy.data_ptr(),
-                               active.data_ptr(), out.data_ptr(), n,
-                               grid.table_size, k, library.stream_handle(dev))
+    err = lib.egg_gather_count(record.data_ptr(), table.data_ptr(),
+                               out.data_ptr(), n, grid.table_size, k,
+                               library.stream_handle(dev))
     library.check("gather_count", err)
     global count_launches
     count_launches += 1
     return out
 
 
-def gather_sweep(pos, inv_mass, radius, batch_slot, active,
-                 grid: grid_ops.CellGrid, cum: Optional[torch.Tensor],
+def gather_sweep(record, grid: grid_ops.CellGrid, cum: Optional[torch.Tensor],
                  max_pairs, collision_compliance, cohesion_compliance,
                  overlap, coh_factor, relaxation, *, spacing: bool,
+                 owned: Optional[Tuple[int, int]] = None,
                  pair_chunk: int = 1 << 15):
-    """(N, 2) positions after one Jacobi pair pass over the grid ``grid``
-    of ``pos`` (see the module). ``cum`` (N,) float32 is the ordered
-    budget's exclusive prefix and ``max_pairs`` its cutoff, or both None
-    with the budget off. ``pair_chunk`` caps the plain version's gathered
-    block; H gathers nothing into memory, so it has no meaning there."""
-    dev = pos.device
+    """(C, 2) positions after one Jacobi pair pass of the record's
+    particles on the slot table ``grid.table`` (see the module): all N, or
+    the ``owned = (offset, count)`` particles ``offset + i``. ``cum`` (N,)
+    float32 is the ordered budget's exclusive prefix and ``max_pairs`` its
+    cutoff, or both None with the budget off. ``pair_chunk`` caps the plain
+    version's gathered block; H gathers nothing into memory, so it has no
+    meaning there."""
+    dev = record.device
+    n = record.shape[0]
+    if owned is not None:
+        off, cnt = (int(v) for v in owned)
+        if not (0 <= off and 0 <= cnt and off + cnt <= n):
+            raise ValueError(f"gather_sweep: owned range {owned} outside the "
+                             f"record's {n} particles")
+        owned = (off, cnt)
     if dev.type == "cpu":
         return gather_sweep_plain(
-            pos, inv_mass, radius, batch_slot, active, grid, cum, max_pairs,
-            collision_compliance, cohesion_compliance, overlap, coh_factor,
-            relaxation, spacing=spacing, pair_chunk=pair_chunk)
+            record, grid, cum, max_pairs, collision_compliance,
+            cohesion_compliance, overlap, coh_factor, relaxation,
+            spacing=spacing, owned=owned, pair_chunk=pair_chunk)
     if dev.type != "cuda":
         raise RuntimeError(f"gather_sweep: no kernel for device {dev}")
     from . import library
-    n = pos.shape[0]
     ordered = cum is not None
-    fields = (pos, inv_mass, radius, batch_slot) + ((cum,) if ordered else ())
-    _check("gather_sweep", grid, active, fields)
-    if (pos.shape != (n, 2) or inv_mass.shape != (n,) or radius.shape != (n,)
-            or batch_slot.shape != (n,) or batch_slot.dtype != torch.int32
-            or any(t.dtype != torch.float32 for t in (pos, inv_mass, radius))
-            or (ordered and (cum.shape != (n,) or cum.dtype != torch.float32
-                             or max_pairs is None))):
-        raise ValueError("gather_sweep: float32 pos (N, 2), inv_mass, radius, "
-                         "int32 batch_slot (N,) [and float32 cum (N,) with "
-                         "max_pairs] on one device expected")
+    _check_record("gather_sweep", record, grid)
+    if ordered and (cum.shape != (n,) or cum.dtype != torch.float32
+                    or cum.device != dev or max_pairs is None):
+        raise ValueError("gather_sweep: float32 cum (N,) with max_pairs on "
+                         "the record's device expected")
+    off, cnt = owned if owned is not None else (0, n)
     k = grid.table.shape[1]
-    pos, inv_mass, radius, batch_slot, table, cell_xy, active = (
-        t.contiguous() for t in (pos, inv_mass, radius, batch_slot,
-                                 grid.table, grid.cell_xy, active))
+    record, table = record.contiguous(), grid.table.contiguous()
     if ordered:
         cum = cum.contiguous()
     scalars = [torch_scalar(v, dev) for v in (
         collision_compliance, cohesion_compliance, overlap, coh_factor,
         relaxation)]
     mp = torch_scalar(max_pairs, dev) if ordered else None
-    out = torch.empty_like(pos)
+    out = torch.empty((cnt, 2), dtype=torch.float32, device=dev)
+    if cnt == 0:
+        return out
     lib = library.load()
     err = lib.egg_gather_sweep(
-        pos.data_ptr(), inv_mass.data_ptr(), radius.data_ptr(),
-        batch_slot.data_ptr(), active.data_ptr(), cell_xy.data_ptr(),
-        table.data_ptr(), library.ptr(cum), library.ptr(mp),
-        *(s.data_ptr() for s in scalars), out.data_ptr(), n, grid.table_size,
-        k, int(spacing), library.stream_handle(dev))
+        record.data_ptr(), table.data_ptr(), library.ptr(cum),
+        library.ptr(mp), *(s.data_ptr() for s in scalars), out.data_ptr(),
+        cnt, off, grid.table_size, k, int(spacing),
+        library.stream_handle(dev))
     library.check("gather_sweep", err)
     global launches
     launches += 1

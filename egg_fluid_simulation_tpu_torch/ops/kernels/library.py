@@ -53,8 +53,10 @@ _SIGNATURES = {
     "egg_sweep_planes_sym": [_C_PTR] * 4 + [_C_INT] * 7 + [_C_PTR],
     "egg_count_planes": [_C_PTR] * 2 + [_C_INT] * 3 + [_C_PTR],
     "egg_splat_tiles": [_C_PTR] * 3 + [_C_INT] * 6 + [_C_PTR],
-    "egg_gather_count": [_C_PTR] * 4 + [_C_INT] * 3 + [_C_PTR],
-    "egg_gather_sweep": [_C_PTR] * 15 + [_C_INT] * 4 + [_C_PTR],
+    "egg_gather_front": [_C_PTR] * 8 + [_C_INT] * 2 + [_C_PTR],
+    "egg_gather_count": [_C_PTR] * 3 + [_C_INT] * 3 + [_C_PTR],
+    "egg_gather_sweep": [_C_PTR] * 10 + [_C_INT] * 5 + [_C_PTR],
+    "egg_empty": [_C_PTR],
 }
 
 _lock = threading.Lock()
@@ -152,10 +154,15 @@ def kernel_resources() -> dict:
     return out
 
 
-def open_build(csrc: Optional[Path] = None, extra_flags=()) -> ctypes.CDLL:
-    """Build (see :func:`build`) and open a library, its entry points typed."""
+def open_build(csrc: Optional[Path] = None, extra_flags=(),
+               optional=()) -> ctypes.CDLL:
+    """Build (see :func:`build`) and open a library, its entry points typed;
+    an entry point named in ``optional`` may be missing (another commit's
+    sources), any other missing one raises."""
     lib = ctypes.CDLL(str(build(csrc, extra_flags)))
     for name, argtypes in _SIGNATURES.items():
+        if name in optional and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _C_INT

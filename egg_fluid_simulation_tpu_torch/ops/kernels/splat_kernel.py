@@ -33,8 +33,13 @@ file (``splat_tiles``): candidates pre-gathered per tile into chunks of
 128, ``cand`` (T, n_chunks, 9, 128), of which only the first ``trips[t]``
 chunks of tile ``t`` are read. Its box test is the TPU kernel's normalised
 one (``max(|nx|, |ny|, max(|dx|, |dy|) / max_splat_px) <= 1``), not kernel
-C's extent test, so the two are separate kernels. :func:`splat_tiles_plain`
-is its plain version; ``tiles_launches`` counts its launches.
+C's extent test, so the two are separate kernels. On the card it culls
+each chunk at staging, as C does: a candidate farther than
+``max_splat_px + 1`` pixels from the tile's pixel centres in x or y
+(:func:`tiles_cull`, the plain form of that cull) has a factor of exactly
+1.0 at every pixel of the tile; the survivors are compacted in candidate
+order. :func:`splat_tiles_plain` is its plain version; ``tiles_launches``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import math
 import torch
 
 __all__ = ["splat", "splat_plain", "cull_counts", "extent_box", "launches", "splat_tiles",
-           "splat_tiles_plain", "tiles_launches"]
+           "splat_tiles_plain", "tiles_cull", "tiles_launches"]
 
 launches = 0           # kernel C
 tiles_launches = 0     # kernel G
@@ -217,6 +222,29 @@ def splat(payload: torch.Tensor, counts: torch.Tensor, opts, use_rgb: bool):
 
 _TILES_FIELDS = 9      # x, y, cos, sin, extent_perp, extent_par, inv_sx,
                        # inv_sy, a (ops/render.py's payload columns)
+
+
+def tiles_cull(cand: torch.Tensor, th: int, tw: int, ntx: int,
+               max_splat_px: int) -> torch.Tensor:
+    """(T, n_chunks * 128) bool: the slot-major candidates ``cand`` (T,
+    n_chunks, 9, 128) that kernel G stages for their tile, in its float32
+    arithmetic: the candidate's position within ``max_splat_px + 1`` pixels
+    of the tile's pixel centres in x and in y. The others fail the exact
+    box test at every pixel of the tile (``max(|dx|, |dy|) / max_splat_px
+    > 1``), so their factor is exactly 1."""
+    n_tiles = cand.shape[0]
+    dev = cand.device
+    cx = cand[:, :, 0, :].reshape(n_tiles, -1)
+    cy = cand[:, :, 1, :].reshape(n_tiles, -1)
+    tiles = torch.arange(n_tiles, device=dev)
+    x0 = ((tiles % ntx) * tw).to(torch.float32)[:, None]
+    y0 = ((tiles // ntx) * th).to(torch.float32)[:, None]
+    reach = float(max_splat_px) + 1.0
+    ox = torch.clamp(torch.maximum((0.5 + x0) - cx, cx - ((tw - 0.5) + x0)),
+                     min=0.0)
+    oy = torch.clamp(torch.maximum((0.5 + y0) - cy, cy - ((th - 0.5) + y0)),
+                     min=0.0)
+    return (ox <= reach) & (oy <= reach)
 
 
 def splat_tiles_plain(cand: torch.Tensor, trips: torch.Tensor, th: int,

@@ -777,23 +777,31 @@ def solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg: DeviceConfig,
     alpha)`` clamped to +-|violation|, each endpoint moving by its
     inverse-mass share. The grid is built here; the ordered budget's count
     and the pass itself are kernel H (``ops/kernels/gather_kernel.py``) on
-    CUDA tensors and its plain version on CPU tensors."""
+    CUDA tensors and its plain version on CPU tensors: H's front writes
+    each particle's record and bucket, the slot table's sort, rank and
+    scatter are PyTorch (``grid.slot_table``), and the count and the sweep
+    read the record."""
     max_factor = torch.maximum(cfg.collision_overlap_factor,
                                cfg.cohesion_interaction_distance_factor)
     cell_size = torch.clamp(cfg.max_radius * max_factor, min=1.0)  # :1756-1760
-    grid = grid_ops.build_grid(pos, active, cell_size,
-                               table_size=options.table_size,
-                               slots_per_cell=options.slots_per_cell)
+    record, bucket = gather_kernel.gather_front(
+        pos, inv_mass, radius, batch_slot, active, cell_size,
+        options.table_size)
+    table = grid_ops.slot_table(bucket, options.table_size,
+                                options.slots_per_cell)
+    grid = grid_ops.CellGrid(table=table,
+                             cell_xy=gather_kernel.record_cells(record),
+                             table_size=options.table_size)
     cum = max_pairs = None
     if options.budget_mode == "ordered":
-        new_pairs = gather_kernel.gather_count(grid, active)
+        new_pairs = gather_kernel.gather_count(record, grid)
         cum = torch.cumsum(new_pairs, 0) - new_pairs
         max_pairs = _max_pairs(active)
     return gather_kernel.gather_sweep(
-        pos, inv_mass, radius, batch_slot, active, grid, cum, max_pairs,
-        collision_compliance, cohesion_compliance,
-        cfg.collision_overlap_factor, cfg.cohesion_interaction_distance_factor,
-        relaxation, spacing=options.cohesion_mode == "spacing",
+        record, grid, cum, max_pairs, collision_compliance,
+        cohesion_compliance, cfg.collision_overlap_factor,
+        cfg.cohesion_interaction_distance_factor, relaxation,
+        spacing=options.cohesion_mode == "spacing",
         pair_chunk=options.pair_chunk)
 
 

@@ -26,6 +26,7 @@ import torch
 from ..config import DeviceConfig, population_config
 from ..ops import grid as grid_ops
 from ..ops import solver as solver_ops
+from ..ops.kernels import gather_kernel
 from ..ops.solver import SolverOptions
 from ..state import PARTICLE_FIELDS, ParticleState, StepStats
 from ..utils.mathx import EPS
@@ -104,71 +105,33 @@ def _solve_pairs_sharded(pos, inv_mass, radius, batch_slot, active,
     """One collision pass: all-gather the pair fields, project the local
     slice (the JAX package's ``_solve_pairs_sharded``: the math of
     ``solver.solve_pairs`` on a grid of every particle). The five fields
-    ride one all-gather, the batch slot and liveness as floats (exact)."""
+    ride one all-gather, the batch slot and liveness as floats (exact).
+    The grid's front and the pass of the local slice (the owned range of
+    the gathered particles) are kernel H (``gather_kernel``) on CUDA
+    tensors and its plain version on CPU tensors."""
     n_local = pos.shape[0]
     pack = torch.stack([pos[:, 0], pos[:, 1], inv_mass, radius,
                         batch_slot.to(torch.float32),
                         active.to(torch.float32)], dim=1)
     g_pack = mesh.all_gather(pack, "all_gather")
-    g_pos = g_pack[:, 0:2].contiguous()
-    g_act = g_pack[:, 5] > 0.5
 
     max_factor = torch.maximum(cfg.collision_overlap_factor,
                                cfg.cohesion_interaction_distance_factor)
     cell_size = torch.clamp(cfg.max_radius * max_factor, min=1.0)
-    grid = grid_ops.build_grid(g_pos, g_act, cell_size,
-                               table_size=options.table_size,
-                               slots_per_cell=options.slots_per_cell)
-
-    shard = mesh.rank * n_local
-    # candidates of the local slice only
-    cell_local = grid.cell_xy[shard:shard + n_local]
-    cand = grid_ops.neighbor_candidates(grid._replace(cell_xy=cell_local))
-    self_idx = shard + torch.arange(n_local, dtype=torch.int32,
-                                    device=pos.device)[:, None]
-    valid = (cand >= 0) & (cand != self_idx) & active[:, None]
-    safe = torch.clamp(cand, min=0).to(torch.int64)
-
-    cell_f = grid.cell_xy.to(torch.float32)
-    full = torch.cat([g_pack[:, 0:5], cell_f], dim=1)          # (N, 7)
-    g = full[safe]                                              # (n, 9K, 7)
-    s_cell = cell_local.to(torch.float32)
-    valid = (valid
-             & (torch.abs(g[..., 5] - s_cell[:, None, 0]) <= 1.0)
-             & (torch.abs(g[..., 6] - s_cell[:, None, 1]) <= 1.0))
-
-    o_w = torch.where(valid, g[..., 2], 0.0)
-    o_r = torch.where(valid, g[..., 3], 0.0)
-    dx = g[..., 0] - pos[:, None, 0]
-    dy = g[..., 1] - pos[:, None, 1]
-    dist2 = dx * dx + dy * dy
-    dist = torch.sqrt(dist2)
-    inv_dist = torch.where(dist > EPS, 1.0 / torch.clamp(dist, min=EPS), 0.0)
-    w_sum = inv_mass[:, None] + o_w
-    ok = valid & (w_sum >= EPS)
-
-    def half_scale(target, compliance, apply):
-        viol = dist - target
-        divisor = w_sum + compliance
-        corr = torch.where(divisor >= EPS,
-                           -viol / torch.clamp(divisor, min=EPS), 0.0)
-        corr = torch.clamp(corr, -torch.abs(viol), torch.abs(viol))
-        return torch.where(apply & ok, corr * inv_mass[:, None], 0.0)
-
-    scale = torch.zeros_like(dist)
-    if options.cohesion_mode == "spacing":
-        same = g[..., 4] == batch_slot.to(torch.float32)[:, None]
-        coh_d = cfg.cohesion_interaction_distance_factor * (radius[:, None]
-                                                           + o_r)
-        scale = scale + half_scale(coh_d, cohesion_c,
-                                   same & (dist2 <= coh_d * coh_d))
-    min_d = cfg.collision_overlap_factor * (radius[:, None] + o_r)
-    scale = scale + half_scale(min_d, collision_c, dist2 <= min_d * min_d)
-
-    tx = torch.sum(-dx * inv_dist * scale, dim=1)
-    ty = torch.sum(-dy * inv_dist * scale, dim=1)
-    total = torch.stack([tx, ty], dim=1)
-    return pos + torch.where(active[:, None], relaxation * total, 0.0)
+    record, bucket = gather_kernel.gather_front(
+        g_pack[:, 0:2], g_pack[:, 2], g_pack[:, 3],
+        g_pack[:, 4].to(torch.int32), g_pack[:, 5] > 0.5, cell_size,
+        options.table_size)
+    table = grid_ops.slot_table(bucket, options.table_size,
+                                options.slots_per_cell)
+    grid = grid_ops.CellGrid(table=table,
+                             cell_xy=gather_kernel.record_cells(record),
+                             table_size=options.table_size)
+    return gather_kernel.gather_sweep(
+        record, grid, None, None, collision_c, cohesion_c,
+        cfg.collision_overlap_factor, cfg.cohesion_interaction_distance_factor,
+        relaxation, spacing=options.cohesion_mode == "spacing",
+        owned=(mesh.rank * n_local, n_local), pair_chunk=options.pair_chunk)
 
 
 def _substep_sharded(pos, prev, vel, inv_mass, radius, mass_t, batch_slot,

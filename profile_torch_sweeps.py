@@ -4,18 +4,21 @@
 ``count_planes``) build against build, and the steps and frames that run
 them, on one card.
 
-    python3 profile_torch_sweeps.py [--baseline-csrc DIR] [--n 6] [--blocks 2]
-                                    [--phase kernel|all]
+    python3 profile_torch_sweeps.py [--baseline-csrc DIR]
+                                    [--baseline-kernels ABCDEFG] [--n 6]
+                                    [--blocks 2] [--phase kernel|all]
 
 Builds of the kernel library compared in one process, in turns:
 
 - ``tree``: the package's ``csrc/`` as it stands;
 - ``baseline``: the sources under ``--baseline-csrc`` (for instance another
-  commit's ``csrc/``, unpacked with ``git archive``), where given. The C
+  commit's ``csrc/``, unpacked with ``git archive``), where given, timed on
+  the kernels ``--baseline-kernels`` names (default ``ABCDEF``). The C
   entry points must have the package's signatures, except kernel A's: a
   baseline ``egg_place_planes`` takes the signature it had before kernel A
-  owned its output slots (``BASELINE_PLACE_ARGTYPES``) and is called
-  through that wrapper's logic (``baseline_place``: the gather of the
+  owned its output slots (``BASELINE_PLACE_ARGTYPES``), and the entry
+  points of ``BASELINE_OPTIONAL`` may be missing; the baseline's kernel A
+  is called through the wrapper logic of its time (``baseline_place``: the gather of the
   payload into sorted order, the int32 slots, the zero fill, the kernel),
   all of it charged to the baseline, in the kernel phase and the steps;
 - ablation builds of the tree, each one ``-D`` flag (``ABLATIONS``): the
@@ -33,7 +36,8 @@ and the kernel): A on the fused path's binning (13 fields); B at window 1
 with and without ``integrate``, window 3, and window 1 through the device
 flag; D and E at window 1 with and without the ordered cutoff, window 3,
 and both windows through the flag; C on the white and yolk render payloads,
-alpha and rgb; F on the ordered layout. CUDA events around 20 calls
+alpha and rgb; F on the ordered layout; G (no caller) on the slot-major
+candidates of ``chip_smoke.splat_tiles_case``. CUDA events around 20 calls
 (for A and F, which take tens of microseconds, 20 calls captured in a CUDA
 graph and replayed, ``chip_smoke.graph_ms``, so that the host's launch cost
 between calls is not timed), builds in the order given and then reversed;
@@ -82,11 +86,13 @@ ABLATIONS = {
 }
 KERNEL_NAMES = ("place_planes_kernel", "substep_pass_kernel",
                 "sweep_planes_kernel", "sweep_planes_sym_kernel",
-                "splat_kernel", "count_planes_kernel")
+                "splat_kernel", "count_planes_kernel", "splat_tiles_kernel")
 # egg_place_planes(slot32, pack_sorted, out, n, n_fields, g, lanes, row_pad,
 # stream) of the baseline: one thread an entry onto a zeroed output
 BASELINE_PLACE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
+# entry points a baseline's sources may lack (added with kernel H's front)
+BASELINE_OPTIONAL = ("egg_gather_front", "egg_empty")
 
 
 def baseline_place(lib, cell_sorted, slot_sorted, pidx_sorted, pack, g, k):
@@ -112,6 +118,7 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline-csrc", default=None)
+    ap.add_argument("--baseline-kernels", default="ABCDEF")
     ap.add_argument("--n", type=int, default=6)
     ap.add_argument("--blocks", type=int, default=2)
     ap.add_argument("--phase", choices=("kernel", "all"), default="all")
@@ -132,16 +139,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     builds = {"tree": library.open_build()}
     resources = {"tree": library.kernel_resources()}
-    changes = {"tree": "ABCDEF"}
+    changes = {"tree": "ABCDEFG"}
     for name, (flag, kernels) in ABLATIONS.items():
         builds[name] = library.open_build(extra_flags=[flag])
         resources[name] = library.kernel_resources()
         changes[name] = kernels
     if args.baseline_csrc:
-        builds["baseline"] = library.open_build(csrc=args.baseline_csrc)
-        builds["baseline"].egg_place_planes.argtypes = BASELINE_PLACE_ARGTYPES
+        builds["baseline"] = library.open_build(
+            csrc=args.baseline_csrc, optional=BASELINE_OPTIONAL)
+        if "A" in args.baseline_kernels:
+            builds["baseline"].egg_place_planes.argtypes = \
+                BASELINE_PLACE_ARGTYPES
         resources["baseline"] = library.kernel_resources()
-        changes["baseline"] = "ABCDEF"
+        changes["baseline"] = args.baseline_kernels
     tree_place = PK.place_planes
 
     def use(b):
@@ -149,7 +159,8 @@ def main() -> int:
         kernel A goes through its own wrapper logic."""
         library.use(builds[b])
         PK.place_planes = (
-            (lambda *a: baseline_place(builds[b], *a)) if b == "baseline"
+            (lambda *a: baseline_place(builds[b], *a))
+            if b == "baseline" and "A" in args.baseline_kernels
             else tree_place)
     print(json.dumps({"builds": list(builds), "card": card,
                       "torch": torch.__version__}), flush=True)
@@ -219,6 +230,8 @@ def main() -> int:
             cases[f"C.{name}.{'rgb' if use_rgb else 'alpha'}"] = (
                 lambda a=(payload, counts, opts, use_rgb): SPK.splat(*a))
         cases[f"F.{name}"] = lambda a=(planes, q["k"]): SK.count_planes(*a)
+    g_args = C.splat_tiles_case(h)[:6]
+    cases["G.white"] = lambda a=g_args: SPK.splat_tiles(*a)
     on = {c: [b for b in builds if c[0] in changes[b]] for c in cases}
     ms = {c: {b: [] for b in on[c]} for c in cases}
     diff = {c: {} for c in cases}

@@ -1,6 +1,8 @@
 """The gather engine's hash grid of the PyTorch port against the JAX package.
 
-``_bucket_of``, ``build_grid`` (``table``, ``cell_xy``) and
+``_bucket_of``, ``build_grid`` (``table``, ``cell_xy``), its two halves
+(``cells_and_buckets``, the front that kernel H's ``gather_front`` writes
+on the card with the particle record, and ``slot_table``) and
 ``neighbor_candidates`` must be bit-identical to the JAX package's: one
 wrong bit of the hash moves a particle to another bucket and changes the
 candidate lists and their dedup mask. Inputs are built from a numpy seed:
@@ -17,6 +19,7 @@ import jax.numpy as jnp
 
 from egg_fluid_simulation_tpu.ops import grid as jgrid
 from egg_fluid_simulation_tpu_torch.ops import grid as tgrid
+from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
 
 
 @pytest.mark.parametrize("table_size", [1, 2, 64, 1 << 14, 1 << 30])
@@ -88,6 +91,51 @@ def test_build_grid_and_candidates_bit_identical(case):
         nine = torch.stack([tgrid._bucket_of(cx + dx, cy + dy, table_size)
                             for dx, dy in tgrid.NEIGHBOR_OFFSETS], 1)
         assert any(len(set(r)) < 9 for r in nine.tolist())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_front_and_slot_table_bit_identical(case):
+    """The two halves of the build against JAX's ``build_grid``: the
+    front's cell coords and bucket (the masked sentinel where inactive),
+    bit for bit, also as ``gather_front_plain`` writes them into the
+    record with the other fields; and the slot table from those
+    buckets."""
+    table_size, k, span, crowds = CASES[case]
+    pos, active = _scene(600, len(case), span, crowds, k)
+    cell = 16.0
+    cell_j = jnp.floor(jnp.asarray(pos) / jnp.float32(cell)).astype(jnp.int32)
+    bucket_j = np.asarray(jnp.where(
+        jnp.asarray(active),
+        jgrid._bucket_of(cell_j[:, 0], cell_j[:, 1], table_size), table_size))
+    gj = jgrid.build_grid(jnp.asarray(pos), jnp.asarray(active),
+                          jnp.float32(cell), table_size=table_size,
+                          slots_per_cell=k)
+    pos_t, act_t = torch.from_numpy(pos), torch.from_numpy(active)
+    cell_xy, bucket = tgrid.cells_and_buckets(pos_t, act_t, torch.tensor(cell),
+                                              table_size)
+    np.testing.assert_array_equal(cell_xy.numpy(), np.asarray(cell_j))
+    np.testing.assert_array_equal(bucket.numpy(), bucket_j)
+    assert bucket.dtype == torch.int32
+    assert (bucket[~act_t] == table_size).all() and (bucket[act_t] < table_size).all()
+    assert (cell_xy < 0).any()                  # negative cells covered
+    rng = np.random.default_rng(3)
+    inv = torch.from_numpy(rng.uniform(0.5, 1.0, 600).astype(np.float32))
+    rad = torch.from_numpy(rng.uniform(1.0, 4.0, 600).astype(np.float32))
+    bslot = torch.from_numpy(rng.integers(0, 9, 600).astype(np.int32))
+    record, bucket_r = GK.gather_front_plain(pos_t, inv, rad, bslot, act_t,
+                                             torch.tensor(cell), table_size)
+    assert record.shape == (600, 8) and record.dtype == torch.float32
+    assert torch.equal(bucket_r, bucket)
+    assert torch.equal(GK.record_cells(record), cell_xy)
+    assert torch.equal(GK.record_active(record), act_t)
+    for col, want in ((0, pos_t[:, 0]), (1, pos_t[:, 1]), (2, inv), (3, rad)):
+        assert torch.equal(record[:, col].view(torch.int32),
+                           want.contiguous().view(torch.int32))
+    assert torch.equal(record.view(torch.int32)[:, 6], bslot)
+    assert torch.equal(record.view(torch.int32)[:, 7], act_t.to(torch.int32))
+    table = tgrid.slot_table(bucket, table_size, k)
+    assert table.dtype == torch.int32
+    np.testing.assert_array_equal(table.numpy(), np.asarray(gj.table))
 
 
 def _brute_force_neighbors(pos, active, cell):

@@ -104,3 +104,80 @@ def test_splat_tiles_dispatch_takes_plain_on_cpu_and_rejects_other_devices():
     with pytest.raises(RuntimeError):
         splat_kernel.splat_tiles(c.to("meta"), tr.to("meta"), 8, 16, 2, 64)
     assert splat_kernel.tiles_launches == before
+
+
+def _exact_test(cand, th, tw, ntx, msp):
+    """(T, th * tw, n_chunks * 128) bool: the (pixel, candidate) pairs that
+    pass the TPU kernel's normalised box test, in float32."""
+    n_tiles = cand.shape[0]
+    f = cand.permute(0, 1, 3, 2).reshape(n_tiles, -1, 9)
+    pix = torch.arange(th * tw)
+    tiles = torch.arange(n_tiles)
+    px = ((pix % tw).float() + 0.5)[None, :, None] \
+        + ((tiles % ntx) * tw).float()[:, None, None]
+    py = ((pix // tw).float() + 0.5)[None, :, None] \
+        + ((tiles // ntx) * th).float()[:, None, None]
+    dx = px - f[:, None, :, 0]
+    dy = py - f[:, None, :, 1]
+    nx = dx * (f[:, None, :, 2] * f[:, None, :, 6]) \
+        + dy * (f[:, None, :, 3] * f[:, None, :, 6])
+    ny = dy * (f[:, None, :, 2] * f[:, None, :, 7]) \
+        - dx * (f[:, None, :, 3] * f[:, None, :, 7])
+    m = torch.maximum(torch.maximum(nx.abs(), ny.abs()),
+                      (1.0 / msp) * torch.maximum(dx.abs(), dy.abs()))
+    return m <= 1.0
+
+
+@pytest.mark.parametrize("msp", [2, 5, 64])
+def test_tiles_cull_keeps_every_contributor(msp):
+    """Kernel G's cull (``tiles_cull``, its arithmetic): every candidate
+    that passes the exact test at some pixel of its tile is staged,
+    candidates placed just inside and just outside the reach included;
+    the cull drops some candidates wherever the cap binds."""
+    th, tw, ntx, n_tiles = 8, 16, 4, 8
+    cand, _ = candidates(n_tiles, 3, th, tw, ntx, [384] * n_tiles, seed=msp,
+                         garbage=False)
+    c = torch.from_numpy(cand)
+    # slide the first 64 candidates of each tile to the edge of the reach:
+    # msp + 1 +- a little from the pixel centres, left, right, up, down
+    rng = np.random.RandomState(msp)
+    for t in range(n_tiles):
+        ox, oy = (t % ntx) * tw, (t // ntx) * th
+        d = msp + 1.0 + rng.uniform(-0.05, 0.05, 64).astype(np.float32)
+        side = np.arange(64) % 4
+        x = np.where(side == 0, ox + 0.5 - d, np.where(side == 1,
+                     ox + tw - 0.5 + d, ox + tw / 2))
+        y = np.where(side == 2, oy + 0.5 - d, np.where(side == 3,
+                     oy + th - 0.5 + d, oy + th / 2))
+        c[t, 0, 0, :64] = torch.from_numpy(x.astype(np.float32))
+        c[t, 0, 1, :64] = torch.from_numpy(y.astype(np.float32))
+        c[t, 0, 6:8, :64] = 0.0        # no shape limit: the cap decides
+    keep = splat_kernel.tiles_cull(c, th, tw, ntx, msp)
+    contributes = _exact_test(c, th, tw, ntx, msp).any(dim=1)
+    assert bool((keep | ~contributes).all())
+    # the edge candidates straddle the reach: some kept, some dropped; past
+    # them, all kept where the random placement stays within the cap
+    edge = keep[:, :64]
+    assert bool(edge.any()) and not bool(edge.all())
+    if msp == 64:
+        assert bool(keep[:, 64:].all())
+
+
+@pytest.mark.parametrize("msp", [2, 64])
+def test_tiles_cull_changes_nothing(msp):
+    """The plain splat with the culled candidates' weights set to zero is
+    the plain splat, bit for bit: a culled candidate's factor is exactly 1
+    at every pixel of its tile, as kernel G's cull assumes."""
+    th, tw, ntx = 8, 16, 4
+    n_cand = [0, 1, 60, 128, 129, 200, 300, 384]
+    cand, trips = candidates(8, 3, th, tw, ntx, n_cand, seed=7)
+    c, tr = torch.from_numpy(cand), torch.from_numpy(trips)
+    keep = splat_kernel.tiles_cull(c, th, tw, ntx, msp)
+    culled = c.clone()
+    a = culled[:, :, 8, :].reshape(8, -1)
+    a[~keep] = 0.0
+    culled[:, :, 8, :] = a.reshape(8, 3, 128)
+    want = splat_kernel.splat_tiles_plain(c, tr, th, tw, ntx, msp)
+    got = splat_kernel.splat_tiles_plain(culled, tr, th, tw, ntx, msp)
+    assert torch.equal(got, want)
+    assert float(want.max()) > 0.3
