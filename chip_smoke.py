@@ -45,6 +45,9 @@ Then it drives the paths through the public API:
   (stats but the atomically summed ``batch_pos_sum``, at ``STATS_RTOL``),
   and timed against eager updates in alternating blocks (wall, device ms,
   kernels, busy share of each);
+- ``settled``: the 1M scene after the bench's 120 settle steps, kernels A,
+  B and C checked on it as on the spawn state (the kernel line keeps the
+  spawn state's numbers);
 - ``gather_path``: an automatic handler at capacity 8192 (the gather
   engine: kernel H, ``csrc/gather_pairs.cu``, for the front of each
   collision pass's grid, the ordered budget's count and the sweep) with
@@ -86,7 +89,13 @@ Then it drives the paths through the public API:
   (halo rows and lanes from the torus neighbours), windows 1 and 3, static
   and through the device flag; kernel C on a ``SpatialHandler.draw``
   payload, alpha and rgb. D's and C's launches of this phase are their own
-  entries of the kernel line (``.spatial_1x1``).
+  entries of the kernel line (``.spatial_1x1``);
+- ``bench``: ``python bench_torch.py --quick`` (the port's bench,
+  ``egg_fluid_simulation_tpu_torch/bench.py``, its 1M stages at 65,536
+  particles) in a subprocess under ``BENCH_TIMEOUT_S``; it fails on a
+  non-zero exit, a missing key of ``bench.py``'s set or of the port's, a
+  non-finite number or a render drop, and prints the final line's keys
+  beside the card's name and power limit.
 
 Kernel H has no TPU counterpart (XLA fuses the JAX package's
 ``solve_pairs``); its three entry points are the kernel line's
@@ -115,14 +124,18 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
+from egg_fluid_simulation_tpu_torch import bench as BENCH
+from egg_fluid_simulation_tpu_torch.bench import build_handler, render_frame_fn
+
 SEED = 0
-SPAWN_AREA = 20.0           # px^2 per white particle at spawn (bench.py)
 N_WHITE = 1_000_000
 MAIN_UPDATES = 3
 N_WHITE_MODES = 65_536
@@ -173,6 +186,7 @@ FUSED_VEL_TOL = 0.6         # handler's fused route (kernel B, another
 SPATIAL_SETTLE = 60         # run_steps before timing (bench.py)
 SPATIAL_BLOCKS = 4          # timed blocks per handler, in turns
 SPATIAL_CHAIN = 10          # run_steps per timed block
+BENCH_TIMEOUT_S = 420       # the quick bench's subprocess, start-up included
 
 # Peak rates of one H100 SXM (vendor datasheet): HBM3 bytes/s and
 # FP32 operations/s outside the tensor cores. A kernel's bound is the larger
@@ -373,63 +387,6 @@ def sweep_shape_case(g: int, k: int, seed: int, fresh_mod: float = 0.0,
         params=np.array([10.0, 50.0, 2.0, 2.5, max_pairs, cell, fresh_mod,
                          1.5], np.float32),
         aux=np.array([0.98, 0.02, 0.5, 0.0], np.float32))
-
-
-def build_handler(n_target: int, device, wide_default: bool = False,
-                  spatial: bool = False, **overrides):
-    """The bench.py scene (build_handler) through the port's API: 2000-white
-    batches tiled alias-free, per-population grids, dense engine, budget
-    off; ``overrides`` replace solver options. ``spatial`` builds a
-    SpatialHandler on a 1 x 1 mesh with the one shared grid its layout
-    requires (``build_handler(n, spatial=1)`` of bench.py)."""
-    from egg_fluid_simulation_tpu_torch import (SimulationHandler,
-                                                SolverOptions, SpatialHandler,
-                                                default_white_config,
-                                                default_yolk_config)
-    per_batch = max(200, min(n_target // 4, 2000))
-    n_batches = min(max(1, n_target // per_batch), 512)
-    per_batch_w = n_target // n_batches
-    per_batch_y = max(2, per_batch_w // 10)
-    cap_w = 1 << int(np.ceil(np.log2(max(per_batch_w * n_batches, 1024))))
-    cap_y = 1 << int(np.ceil(np.log2(max(per_batch_y * n_batches, 1024))))
-    radius = float(np.sqrt(per_batch_w * SPAWN_AREA / np.pi))
-    spacing = 2.0 * radius + 0.25 * radius
-    side = int(np.ceil(np.sqrt(n_batches)))
-    extent = (side - 1) * spacing + 2.0 * radius + 64.0
-
-    def pick_grid(cell: float, n_pop: int) -> int:
-        g = 32
-        while g * cell < extent * 1.04 or g * g * 4 < 2 * n_pop:
-            g += 32
-        return g
-
-    g_w = pick_grid(8.0, per_batch_w * n_batches)
-    g_y = pick_grid(12.0, per_batch_y * n_batches)
-    if spatial:
-        g_w = g_y = max(g_w, g_y)
-    kw = dict(engine="dense", budget_mode="off", dense_rebin="step",
-              dense_grid_dim=(g_w, g_y), dense_slots=4, pop_caps=(cap_w, cap_y))
-    if not wide_default:
-        kw["wide_budget_substeps"] = 0
-    options = SolverOptions(**{**kw, **overrides})
-    hk = dict(capacity=max(cap_w, cap_y), max_batches=max(n_batches, 4),
-              options=options, device=device)
-    specs = [dict(x=float((b % side) * spacing + radius + 32.0),
-                  y=float((b // side) * spacing + radius + 32.0),
-                  white_radius=radius, yolk_radius=radius * 0.3,
-                  white_n_particles=per_batch_w,
-                  yolk_n_particles=per_batch_y)
-             for b in range(n_batches)]
-    if spatial:
-        h = SpatialHandler(default_white_config(), default_yolk_config(),
-                           db=1, dx=1, **hk)
-        for sp in specs:
-            h.add(sp["x"], sp["y"], sp["white_radius"], sp["yolk_radius"],
-                  None, None, sp["white_n_particles"], sp["yolk_n_particles"])
-        return h
-    h = SimulationHandler(default_white_config(), default_yolk_config(), **hk)
-    h.add_many(specs)
-    return h
 
 
 def lattice_handler(device, **overrides):
@@ -687,27 +644,6 @@ def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2,
 def state_err(a: dict, b: dict) -> dict:
     """Max abs difference of two host views' pos, prev, vel."""
     return {f: float(np.abs(a[f] - b[f]).max()) for f in ("pos", "prev", "vel")}
-
-
-def render_frame_fn(h, viewport, audits=None):
-    """A ``multi_step_frames`` ``frame_fn``: the handler's render of
-    ``viewport`` at its current options and alpha, reduced to a sum; each
-    frame's render audit is appended to ``audits``."""
-    import torch
-    from egg_fluid_simulation_tpu_torch.ops import render as R
-    opts2 = R.frame_options(h)
-    cfg2 = h._device_cfg2()
-    alpha_t, thr, smooth, origin = R._frame_scalars(h, viewport)
-
-    def frame_fn(state, stats):
-        f, _, audit = R._render_frame(
-            state, stats, cfg2, alpha_t, thr, smooth, origin, opts2,
-            bool(h._use_lighting), viewport[2], viewport[3],
-            pop_caps=h._options.pop_caps)
-        if audits is not None:
-            audits.append(audit)
-        return torch.sum(f)
-    return frame_fn
 
 
 def population_inputs(h, pop: int, vel_seed: int):
@@ -2060,6 +1996,48 @@ def spatial_window_cases(torus, lay_shape, lay_k: int):
             yield (b, x), torus[:, rows][:, :, cols].contiguous()
 
 
+def bench_phase() -> dict:
+    """``bench``: ``python bench_torch.py --quick`` in a subprocess under
+    ``BENCH_TIMEOUT_S`` (killed past it). Fails on a non-zero exit, a final
+    line that lacks a key of ``bench.py``'s set, of the port's or of a
+    timed key's spread, a number that is not finite (a list's elements
+    included) or a render drop. Returns the final line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "bench_torch.py", "--quick"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = round(time.perf_counter() - t0, 1)
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    final = lines[-1] if lines and lines[-1]["stage"] == "final" else {}
+    log("bench.stages", rc=proc.returncode, seconds=seconds,
+        stages=[(x["stage"], x["wall_s"]) for x in lines])
+    if proc.returncode != 0 or not final:
+        raise AssertionError(f"bench: exit {proc.returncode}, stderr "
+                             f"{proc.stderr[-4000:]}")
+    want = (set(BENCH.BENCH_KEYS) | set(BENCH.PORT_KEYS)
+            | {f"{k}_{s}" for k in BENCH.TIMED_KEYS
+               for s in ("p25", "p75", "blocks")})
+    missing = sorted(want - set(final))
+
+    def finite(v):
+        if isinstance(v, str):
+            return True
+        if isinstance(v, list):
+            return bool(v) and all(finite(x) for x in v)
+        return isinstance(v, (int, float)) and math.isfinite(v)
+    bad = sorted(k for k in want & set(final) if not finite(final[k]))
+    log("bench", card=nvidia_smi(), seconds=seconds,
+        final=json.dumps(final))
+    if (missing or bad or final.get("render_overflow_dropped") != 0
+            or not finite(final["value"])):
+        raise AssertionError(f"bench: missing keys {missing}, non-finite "
+                             f"{bad}, render dropped "
+                             f"{final.get('render_overflow_dropped')}")
+    return final
+
+
 def spatial_phase(dev, results) -> dict:
     """``spatial_1x1``: the 2D spatial layer on a one-rank mesh (a 1-rank
     NCCL group started in the process over an in-memory store: every halo a
@@ -2643,6 +2621,25 @@ def main() -> int:
                        GRAPH_UNITS, GRAPH_BLOCKS)
     del hp, h
 
+    # ---- the bench's kernels A, B and C against their plain versions on
+    # the 1M scene settled as the bench settles it (every check above ran
+    # on the packed spawn state); the kernel line keeps the spawn state's ----
+    hs = build_handler(N_WHITE, dev)
+    hs.run_steps(BENCH.SETTLE)
+    hs.seed_render_budget()
+    drops = collision_drop_stats(hs)
+    log("settled", particles=hs.get_n_particles(), settle_steps=BENCH.SETTLE,
+        drop_pct_white=round(drops["white"]["drop_pct"], 3),
+        max_cell_occupancy=(drops["white"]["max_cell_occupancy"],
+                            drops["yolk"]["max_cell_occupancy"]),
+        checks="the check.place_planes, check.substep_pass and check.splat "
+               "lines that follow")
+    settled = {}
+    check_place(hs, settled)
+    check_substep(hs, settled)
+    check_splat(hs, settled)
+    del hs
+
     # ---- plane modes at 65k white: each mode's own launch counts ----
     modes = [dict(sweep_symmetric=True), dict(dense_rebin="substep"),
              dict(dense_rebin="pass"), dict(stale_hash_compat=True),
@@ -2762,6 +2759,8 @@ def main() -> int:
 
     gather_phases(dev, results)
     spatial_launches = spatial_phase(dev, results)
+    torch.cuda.empty_cache()
+    bench_phase()
 
     launches.update(count_planes=plane_launches_run["count_planes"],
                     sweep_planes=plane_launches_run["sweep_planes"],

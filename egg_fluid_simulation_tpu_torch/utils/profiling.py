@@ -75,6 +75,11 @@ class StepTimer:
         self._samples[name] = list(out)
         return out
 
+    def samples(self, name: str) -> List[float]:
+        """The window's ms of phase ``name``, oldest first (on a CUDA device
+        this waits for the recorded events)."""
+        return self._ms(name)
+
     def summary(self) -> Dict[str, Dict[str, float]]:
         out = {}
         for name in self._samples:

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``egg_fluid_simulation_tpu_torch``,
-``parallel/`` included, imports ``jax`` or the JAX package
-``egg_fluid_simulation_tpu``. Every ``.py`` file of the package is parsed
-with ``ast`` (so a lazy import inside a function counts too) and each
-``import`` / ``from ... import`` is checked."""
+``parallel/`` included, and no root script of the port (``chip_smoke.py``,
+``bench_torch.py``, ``profile_torch_*.py``) imports ``jax`` or the JAX
+package ``egg_fluid_simulation_tpu``. Every such ``.py`` file is parsed with
+``ast`` (so a lazy import inside a function counts too) and each ``import``
+/ ``from ... import`` is checked."""
 
 import ast
 from pathlib import Path
@@ -13,6 +14,9 @@ import egg_fluid_simulation_tpu_torch
 
 PKG = Path(egg_fluid_simulation_tpu_torch.__file__).resolve().parent
 FILES = sorted(PKG.rglob("*.py"))
+ROOT = PKG.parent
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+           *sorted(ROOT.glob("profile_torch_*.py"))]
 BANNED = ("jax", "jaxlib", "egg_fluid_simulation_tpu")
 
 
@@ -34,6 +38,19 @@ def test_the_package_has_its_parallel_layer():
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(PKG)
                          .as_posix())
 def test_no_jax_import(path):
+    _assert_no_jax(path)
+
+
+def test_the_port_has_its_root_scripts():
+    assert len(SCRIPTS) >= 5 and all(p.is_file() for p in SCRIPTS)
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
+def test_root_script_has_no_jax_import(path):
+    _assert_no_jax(path)
+
+
+def _assert_no_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [m for m in _imported(tree)
            if any(m == b or m.startswith(b + ".") for b in BANNED)]
