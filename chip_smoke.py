@@ -45,6 +45,17 @@ Then it drives the paths through the public API:
   (stats but the atomically summed ``batch_pos_sum``, at ``STATS_RTOL``),
   and timed against eager updates in alternating blocks (wall, device ms,
   kernels, busy share of each);
+- ``draw_graph``: ``draw`` replays its render from a CUDA graph
+  (``ops/render_graph.py``). On the 1M handler at the bench's 2560 px
+  canvas viewport and on the demo scene (the gather engine, capacity
+  8192), the replayed draw is held bit for bit against the eager draw
+  (frame, canvases, audit; the largest difference printed, a failure
+  beyond ``DRAW_TOL``) at three interpolation alphas and after an
+  ``update``, then timed against it (wall and device ms, kernels, kernel
+  C's launches a draw from the trace: 2), with ``render.host_reads`` a
+  draw (2 with the audit, 1 without) and the graphs' memory pools; a
+  clustered scene's first draw overflows, bumps the budget (a new key),
+  re-renders with nothing dropped, and a replay after it drops nothing;
 - ``settled``: the 1M scene after the bench's 120 settle steps, kernels A,
   B and C checked on it as on the spawn state (the kernel line keeps the
   spawn state's numbers);
@@ -165,6 +176,12 @@ STATS_RTOL = 1e-5           # batch_pos_sum, replayed vs eager step:
                             # index_add_ sums with atomics in any order
 GRAPH_UNITS = 6             # updates (frames) a timed block, graph vs eager
 GRAPH_BLOCKS = 4            # timed blocks of each, in turns
+DRAW_ALPHAS = (0.25, 0.5, 0.875)    # draws replayed vs eager, then one
+                                    # after an update
+DRAW_TOL = 1e-6             # replayed vs eager draw: bit for bit expected
+DRAW_UNITS = 6              # draws a timed block, replayed vs eager
+TOP_KERNELS = 8             # kernels by device time in a traced block
+DRAW_BLOCKS = 4
 RESIDENT_STEPS = 20         # run_steps on the 1M scene
 RESIDENT_FRAMES = 3         # multi_step_frames on the 1M scene
 RESIDENT_REF_STEPS = 4      # run_steps of the calm 4k lattice, card vs CPU
@@ -477,10 +494,18 @@ def traced(fn, n: int) -> dict:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
     return dict(device_ms=dev_ms / n, kernels=len(kernels) / n,
                 profiled_wall_ms=wall / n,
                 busy_share=dev_ms / wall if wall else None,
-                by_kernel=kernel_counts(prof))
+                by_kernel=kernel_counts(prof),
+                top=[dict(name=name[:80], ms=round(ms / n, 4),
+                          launches=count / n)
+                     for name, (ms, count) in top])
 
 
 def graph_nodes(h):
@@ -516,17 +541,17 @@ def graph_nodes(h):
 
 
 @contextlib.contextmanager
-def eager_steps(h):
-    """The handler's fixed steps run eagerly inside the block (one launch
-    per op, as before the step was captured); its captured steps are kept
-    for after."""
+def eager_graphs(h):
+    """The handler's fixed steps and renders run eagerly inside the block
+    (one launch per op, as before they were captured); its captured steps
+    and renders are kept for after."""
     from egg_fluid_simulation_tpu_torch.ops.step_graph import EAGER
-    saved = h._step_graphs
-    h._step_graphs = EAGER
+    saved = h._step_graphs, h._render_graphs
+    h._step_graphs = h._render_graphs = EAGER
     try:
         yield
     finally:
-        h._step_graphs = saved
+        h._step_graphs, h._render_graphs = saved
 
 
 def check_step_graph(h, phase: str, updates: int = 2) -> dict:
@@ -576,23 +601,26 @@ def check_step_graph(h, phase: str, updates: int = 2) -> dict:
 
 
 def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2,
-                   expect_sweeps: int = 0) -> dict:
-    """``unit`` (an ``update``, or an ``update`` and a draw) of handler
-    ``h`` with its fixed step replayed and run eagerly, in alternating
-    blocks of ``n``: host-clock wall ms a unit (around work that ends in
-    ``torch.cuda.synchronize()``) and CUDA-event ms between the block's
-    ends; then one traced block of each (device ms, kernels, busy share a
-    unit). With ``expect_sweeps`` (kernel H's sweeps a unit) the traced
-    blocks are checked against it: a block whose trace holds fewer H
-    launches than the unit ran lost records, and is traced again (up to
-    three blocks; each attempt is printed, ``trace_attempts``); the
-    replayed step's graph nodes are counted beside (:func:`graph_nodes`)."""
+                   expect=None, count_nodes: bool = False,
+                   line: str = "step_graph") -> dict:
+    """``unit`` (an ``update``, a draw, or an ``update`` and a draw) of
+    handler ``h`` with its fixed step and render replayed and run eagerly
+    (:func:`eager_graphs`), in alternating blocks of ``n``: host-clock wall
+    ms a unit (around work that ends in ``torch.cuda.synchronize()``) and
+    CUDA-event ms between the block's ends; then one traced block of each
+    (device ms, kernels, the library's kernels by symbol and busy share a
+    unit). With ``expect`` (launches a unit of kernels of the library, by
+    name) the traced blocks are checked against it: a block whose trace
+    holds fewer of them than the unit ran lost records, and is traced again
+    (up to three blocks; each attempt is printed, ``trace_attempts``); with
+    ``count_nodes`` the replayed step's graph nodes are counted beside
+    (:func:`graph_nodes`). Logged as ``<line>.<phase>.time``."""
     import torch
     walls = {"replay": [], "eager": []}
     events = {"replay": [], "eager": []}
 
     def block(mode):
-        ctx = eager_steps(h) if mode == "eager" else contextlib.nullcontext()
+        ctx = eager_graphs(h) if mode == "eager" else contextlib.nullcontext()
         with ctx:
             torch.cuda.synchronize()
             ev0 = torch.cuda.Event(enable_timing=True)
@@ -612,32 +640,192 @@ def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2,
             block(mode)
     out = {}
     for mode in ("replay", "eager"):
-        ctx = eager_steps(h) if mode == "eager" else contextlib.nullcontext()
+        ctx = eager_graphs(h) if mode == "eager" else contextlib.nullcontext()
         attempts = []
         with ctx:
-            for _ in range(3 if expect_sweeps else 1):
+            for _ in range(3 if expect else 1):
                 prof = traced(lambda: [unit() for _ in range(n)], n)
+                per_unit = {k: v / n for k, v in prof["by_kernel"].items()
+                            if v}
                 attempts.append(dict(
                     kernels=prof["kernels"],
                     device_ms=round(prof["device_ms"], 4),
-                    h_sweeps=prof["by_kernel"]["gather_sweep"] / n))
-                if attempts[-1]["h_sweeps"] == expect_sweeps:
+                    **{k: per_unit.get(k, 0.0) for k in expect or ()}))
+                if all(per_unit.get(k, 0.0) == v
+                       for k, v in (expect or {}).items()):
                     break
         out[mode] = dict(
             wall_p50_ms=float(np.median(walls[mode])),
             wall_ms=[round(x, 3) for x in walls[mode]],
             event_ms=[round(x, 3) for x in events[mode]],
             device_ms=round(prof["device_ms"], 4),
-            kernels=prof["kernels"], busy_share=round(prof["busy_share"], 3))
-        if expect_sweeps:
+            kernels=prof["kernels"], by_kernel=per_unit,
+            busy_share=round(prof["busy_share"], 3))
+        if expect:
             out[mode]["trace_attempts"] = attempts
     extra = {}
-    if expect_sweeps:
+    if count_nodes:
         extra["graph_nodes"] = graph_nodes(h)
-    log(f"step_graph.{phase}.time", n=n, blocks=blocks, **out, **extra,
+    log(f"{line}.{phase}.time", n=n, blocks=blocks, **out, **extra,
         eager_over_replay_wall=round(out["eager"]["wall_p50_ms"]
                                      / out["replay"]["wall_p50_ms"], 3),
         card=nvidia_smi())
+    return out
+
+
+def draw_outputs(h, viewport, check_overflow: bool = True):
+    """One fresh ``draw``: (frame, white canvas, yolk canvas, audit)."""
+    h._frames = None
+    frame = h.draw(viewport=viewport, check_overflow=check_overflow)
+    return (frame, *h._canvases, h._render_audit)
+
+
+def check_draw_graph(h, scene: str, viewport) -> dict:
+    """``draw`` replayed from the handler's render graph
+    (``ops/render_graph.py``) against ``draw`` rendered eagerly on the same
+    state: frame, canvases and audit bit for bit (else the largest
+    difference is printed, and beyond ``DRAW_TOL`` it fails) at the
+    interpolation alphas ``DRAW_ALPHAS`` and after an ``update``. Then per
+    draw, replayed and eager in alternating blocks (:func:`graph_vs_eager`:
+    wall ms, device ms, kernels, kernel C's launches by symbol, which must
+    be 2 a replayed draw), ``render.host_reads`` a draw with the audit and
+    without (2 and 1), and the render graphs' memory pools."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    graphs = h._renderers()            # made at the first draw otherwise
+    unequal, worst, replayed = [], 0.0, []
+    for case in (*DRAW_ALPHAS, "update"):
+        if case == "update":
+            h.update(1 / 60)
+        else:
+            h._interpolation_alpha = case
+        # an audited draw may raise the budget hint, which makes the next
+        # draw's options a new key: draw until one replays a capture
+        for _ in range(3):
+            before = graphs.captures
+            replay = draw_outputs(h, viewport)
+            if graphs.captures == before:
+                break
+        replayed.append(graphs.captures == before)
+        with eager_graphs(h):
+            eager = draw_outputs(h, viewport)
+        for name, a, b in zip(("frame", "white", "yolk", "audit"), replay,
+                              eager):
+            if not torch.equal(a, b):
+                unequal.append(f"{case}.{name}")
+                worst = max(worst, float((a.double() - b.double()).abs()
+                                         .max()))
+    finite = bool(torch.isfinite(replay[0]).all())
+    dropped = int(replay[3][:, 0].sum())
+    out = dict(particles=h.get_n_particles(), viewport=viewport,
+               canvas=[o.canvas_size for o in R.frame_options(h)],
+               cases=[*DRAW_ALPHAS, "update"], replayed=replayed,
+               unequal=unequal,
+               max_abs_err=worst, tol=f"bit for bit, fails beyond {DRAW_TOL}",
+               captures=graphs.captures, frame_finite=finite,
+               render_dropped=dropped)
+    log(f"draw_graph.{scene}", **out)
+    if (worst > DRAW_TOL or not finite or dropped or not graphs.captures
+            or not all(replayed)):
+        raise AssertionError(f"draw_graph.{scene}: the replayed draw differs "
+                             f"from the eager draw ({unequal}, {worst}), is "
+                             f"not finite, dropped {dropped} or was not "
+                             f"replayed ({replayed})")
+
+    def unit(check_overflow=True):
+        draw_outputs(h, viewport, check_overflow)
+
+    timed = graph_vs_eager(h, f"{scene}.draw", unit, DRAW_UNITS, DRAW_BLOCKS,
+                           expect={"splat": 2}, line="draw_graph")
+    # where a replayed draw's device time goes, kernel by kernel
+    top = traced(lambda: [unit() for _ in range(DRAW_UNITS)],
+                 DRAW_UNITS)["top"]
+    reads = {}
+    for audit in (True, False):
+        R.host_reads = 0
+        for _ in range(DRAW_UNITS):
+            unit(audit)
+        reads["audit" if audit else "no_audit"] = R.host_reads / DRAW_UNITS
+    pools = [dict(canvas=[o.canvas_size for o in g.static["opts2"]],
+                  K=[o.tile_capacity for o in g.static["opts2"]],
+                  bytes=g.pool_bytes)
+             for g in graphs._graphs.values()]
+    splats = timed["replay"]["by_kernel"].get("splat", 0.0)
+    log(f"draw_graph.{scene}.reads", host_reads_per_draw=reads,
+        splat_per_replayed_draw=splats, graphs=len(graphs._graphs),
+        max_graphs=graphs.MAX_GRAPHS, pool_bytes=pools,
+        pool_bytes_total=graphs.pool_bytes(), top_kernels_per_draw=top,
+        card=nvidia_smi())
+    if reads != {"audit": 2.0, "no_audit": 1.0} or splats != 2.0:
+        raise AssertionError(f"draw_graph.{scene}: host reads {reads} a draw "
+                             f"(2 with the audit, 1 without expected), "
+                             f"{splats} C launches a replayed draw (2)")
+    return dict(out, reads=reads, time=timed, pools=pools)
+
+
+def overflow_handler(dev):
+    """``tests/test_overflow.py``'s clustered scene with 300 white particles
+    in the cluster (its 400 crowd one bin past the budget's cap of 256),
+    stepped once: a dense cluster in a huge AABB, whose first draw
+    overflows the budget sized from the AABB's mean density."""
+    from egg_fluid_simulation_tpu_torch import (SimulationHandler,
+                                                SolverOptions,
+                                                default_white_config,
+                                                default_yolk_config)
+    h = SimulationHandler(
+        default_white_config(), default_yolk_config(), capacity=1024,
+        max_batches=8, canvas_size=1024, device=dev,
+        options=SolverOptions(engine="dense", budget_mode="off",
+                              dense_rebin="step", dense_grid_dim=32,
+                              dense_slots=8, adaptive_rebin=False))
+    h.add(200.0, 200.0, 20.0, 8.0, None, None, 300, 20)
+    h.add(5000.0, 5000.0, 8.0, 4.0, None, None, 10, 3)
+    h.step_once()
+    return h
+
+
+def check_draw_overflow(dev) -> dict:
+    """The overflow path of ``draw`` on the card: the clustered scene's
+    first draw overflows, the audit bumps the budget (a new render key:
+    an eager render and a capture) and the re-render drops nothing; the
+    next draw replays with nothing dropped; the same draw run eagerly from
+    the same budget state gives the same frame, canvases, audit and boost."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    h = overflow_handler(dev)
+    viewport = (0, 0, 256, 256)
+    R.host_reads = 0
+    first = draw_outputs(h, viewport)
+    reads_first = R.host_reads
+    boost = list(h._render_k_boost)
+    captures = h._render_graphs.captures
+    R.host_reads = 0
+    again = draw_outputs(h, viewport)
+    reads_again = R.host_reads
+    h._render_k_boost = [1.0, 1.0]
+    h._render_peak_density = [None, None]
+    with eager_graphs(h):
+        eager = draw_outputs(h, viewport)
+    # the first draw's renders were eager (the first of each key); the
+    # second replays: both against the eager draw
+    unequal = [f"{which}.{name}" for which, got in (("first", first),
+                                                    ("again", again))
+               for name, a, b in zip(("frame", "white", "yolk", "audit"),
+                                     got, eager)
+               if not torch.equal(a, b)]
+    out = dict(boost=boost, eager_boost=list(h._render_k_boost),
+               captures=captures, captures_after=h._render_graphs.captures,
+               host_reads_first=reads_first, host_reads_again=reads_again,
+               dropped_first=first[3][:, 0].tolist(),
+               dropped_again=again[3][:, 0].tolist(),
+               peak_bin=first[3][:, 1].tolist(), unequal=unequal)
+    log("draw_graph.overflow", **out)
+    if not (max(boost) > 1.0 and boost == out["eager_boost"]
+            and captures == 2 == out["captures_after"]
+            and reads_first == 4 and reads_again == 2
+            and sum(out["dropped_first"]) == sum(out["dropped_again"]) == 0
+            and not unequal):
+        raise AssertionError(f"draw_graph.overflow: {out}")
     return out
 
 
@@ -1874,7 +2062,8 @@ def gather_phases(dev, results) -> None:
         results[n]["launches"] = path_launches[n]
     check_step_graph(hg, "gather_path")
     graph_vs_eager(hg, "gather_path.update", lambda: hg.update(1 / 60),
-                   GRAPH_UNITS, GRAPH_BLOCKS, expect_sweeps=passes)
+                   GRAPH_UNITS, GRAPH_BLOCKS,
+                   expect={"gather_sweep": passes}, count_nodes=True)
     del hg
 
     # ---- gather reference: the default 4k scene, card vs CPU, one step ----
@@ -1931,11 +2120,14 @@ def gather_phases(dev, results) -> None:
         frame_ms.append(ev0.elapsed_time(ev1))
     prof = traced(lambda: frames(3), 3)
     check_path_splat(demo.handler, "demo", results)     # after a draw
+    check_draw_graph(demo.handler, "demo",
+                     (0.0, 0.0, demo.width, demo.height))
     d_opts = demo.handler._options
     graph_vs_eager(demo.handler, "demo.frame", lambda: frames(1),
                    GRAPH_UNITS, GRAPH_BLOCKS,
-                   expect_sweeps=2 * d_opts.n_substeps
-                   * d_opts.n_collision_steps)
+                   expect={"gather_sweep": 2 * d_opts.n_substeps
+                           * d_opts.n_collision_steps, "splat": 2},
+                   count_nodes=True)
     log("demo", frames=DEMO_FRAMES, engine=demo.handler._options.engine,
         seconds=round(demo_s, 3), overlay=stats, draws=n_drawn,
         frames_finite=all(d[0] for d in drawn),
@@ -2218,9 +2410,9 @@ def spatial_phase(dev, results) -> dict:
         redistributes=hs._redistribute_count, card=nvidia_smi())
     log("spatial_1x1.trace",
         spatial={k: round(v, 4) for k, v in sp_trace.items()
-                 if k != "by_kernel"},
+                 if k not in ("by_kernel", "top")},
         dense={k: round(v, 4) for k, v in dn_trace.items()
-               if k != "by_kernel"})
+               if k not in ("by_kernel", "top")})
     log("spatial_1x1.draw", frame=tuple(frame.shape),
         frame_finite=bool(torch.isfinite(frame).all()),
         alpha_max=round(float(frame[..., 3].max()), 4),
@@ -2486,19 +2678,19 @@ def main() -> int:
         marks[-1].record()
         return total_f
 
-    reset_counters()
     S.rebins[:] = [0, 0]
     S.host_syncs = 0
     dt, relax = h._step_scalars(1 / 60)
-    torch.cuda.synchronize()
-    t_start.record()
-    state_f, total = S.multi_step_frames(h.state, cfg2, dt, relax,
-                                         h._options, RESIDENT_FRAMES, frame_fn)
-    t_end.record()
-    torch.cuda.synchronize()
+    # the renders replay the draw's graph: C's launches from the trace
+    with launches_run() as run:
+        t_start.record()
+        state_f, total = S.multi_step_frames(h.state, cfg2, dt, relax,
+                                             h._options, RESIDENT_FRAMES,
+                                             frame_fn)
+        t_end.record()
     frames_ms = t_start.elapsed_time(t_end) / RESIDENT_FRAMES
     each_ms = [a.elapsed_time(b) for a, b in zip([t_start] + marks, marks)]
-    frames_launches = read_counters()
+    frames_launches = dict(run["wrappers"], splat=run["trace"]["splat"])
     overflow = int(torch.stack(audits)[:, :, 0].sum())
     finite = bool(torch.isfinite(total)) and bool(
         torch.isfinite(state_f.pos).all())
@@ -2507,7 +2699,7 @@ def main() -> int:
         frame_ms=[round(x, 3) for x in each_ms], update_draw_ms=[round(x, 3) for x in frame_ms],
         total=float(total), finite=finite, render_dropped=overflow,
         rebins=list(S.rebins), host_syncs=S.host_syncs,
-        launches=frames_launches)
+        launches=frames_launches, profiled=True)
     if not (finite and overflow == 0 and float(total) > 0.0):
         raise AssertionError("resident frames: non-finite, empty or "
                              "overflowing render")
@@ -2619,7 +2811,15 @@ def main() -> int:
         check_step_graph(hx, name)
         graph_vs_eager(hx, f"{name}.update", lambda hx=hx: hx.update(1 / 60),
                        GRAPH_UNITS, GRAPH_BLOCKS)
-    del hp, h
+    del hp
+
+    # ---- draw_graph: the 1M scene's draw at the bench's canvas viewport
+    # replayed from its render graph against the eager draw, timed both
+    # ways; then the overflow path on a clustered scene (the demo scene's
+    # line is in gather_phases) ----
+    check_draw_graph(h, "1m", BENCH._canvas_viewport(h))
+    del h
+    check_draw_overflow(dev)
 
     # ---- the bench's kernels A, B and C against their plain versions on
     # the 1M scene settled as the bench settles it (every check above ran

@@ -37,7 +37,9 @@ ms at 1M, ``unit``, ``vs_baseline`` = 16 ms frame / ``value``, ``stage``,
 
 Timing: blocks of a fixed number of steps or frames between two CUDA events
 (``utils.profiling.StepTimer``), one untimed warm-up block first (it builds
-the kernels, captures the step's graph, fills the caches); a key is the p50
+the kernels, captures the step's and the render's graphs, fills the
+caches); every render is the one ``draw`` replays
+(``ops/render_graph.py``); a key is the p50
 of its blocks per step or frame, with ``<key>_p25``, ``<key>_p75`` and
 ``<key>_blocks`` beside it. The events hold the host's gaps between launches
 (the resident loops' rebin reads among them): wall time of the card, not its
@@ -65,6 +67,7 @@ import torch.distributed as dist
 from . import (SimulationHandler, SolverOptions, SpatialHandler,
                default_white_config, default_yolk_config)
 from .ops import render as R
+from .ops.render_graph import render_handler_frame
 from .ops import solver as S
 from .parallel import spatial_bench
 from .utils.profiling import StepTimer, collision_drop_stats
@@ -192,22 +195,19 @@ def build_handler(n_target: int, device, wide_default: bool = False,
 
 def render_frame_fn(h, viewport, audits=None, alphas=None):
     """A ``multi_step_frames`` ``frame_fn(state, stats, t)``: the handler's
-    render of ``viewport`` with its current options, reduced to a sum. The
-    interpolation alpha is ``alphas[t % len(alphas)]`` (a 1-D tensor on the
-    handler's device), else the handler's own. Each frame's render audit is
-    appended to ``audits``."""
+    render of ``viewport`` with its current options, reduced to a sum, by
+    the route ``draw`` takes (a replay of the handler's render graph on a
+    card). The interpolation alpha is ``alphas[t % len(alphas)]`` (a 1-D
+    tensor on the handler's device), else the handler's own. Each frame's
+    render audit is appended to ``audits``."""
     opts2 = R.frame_options(h)
-    cfg2 = h._device_cfg2()
-    alpha_t, thr, smooth, origin = R._frame_scalars(h, viewport)
 
     def frame_fn(state, stats, t=0):
-        a = alpha_t if alphas is None else alphas[t % alphas.shape[0]]
-        f, _, audit = R._render_frame(
-            state, stats, cfg2, a, thr, smooth, origin, opts2,
-            bool(h._use_lighting), int(viewport[2]), int(viewport[3]),
-            pop_caps=h._options.pop_caps)
+        a = None if alphas is None else alphas[t % alphas.shape[0]]
+        f, _, audit = render_handler_frame(h, opts2, viewport, state=state,
+                                           stats=stats, alpha=a, clone=False)
         if audits is not None:
-            audits.append(audit)
+            audits.append(audit.clone())
         return torch.sum(f)
     return frame_fn
 
@@ -361,16 +361,11 @@ def stage_render_modes(h, block: int, blocks: int) -> dict:
         try:
             viewport = _canvas_viewport(h)
             opts2 = R.frame_options(h)
-            cfg2 = h._device_cfg2()
-            _, thr, smooth, origin = R._frame_scalars(h, viewport)
             alphas = _alphas(block, h.device)
-            state, stats = h.state, h.stats
 
             def render(a):
-                return R._render_frame(
-                    state, stats, cfg2, a, thr, smooth, origin, opts2,
-                    bool(h._use_lighting), viewport[2], viewport[3],
-                    pop_caps=h._options.pop_caps)[0]
+                return render_handler_frame(h, opts2, viewport, alpha=a,
+                                            clone=False)[0]
 
             def loop():
                 acc = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -12,7 +12,8 @@ of the fixed-capacity arrays.
 
 On a CUDA device the fixed step of ``update``, ``step_once`` and the
 loop routes of ``run_steps`` is captured once in a CUDA graph and replayed
-(``ops/step_graph.py``); on the CPU it runs eagerly.
+(``ops/step_graph.py``), and so is the render of ``draw``
+(``ops/render_graph.py``); on the CPU both run eagerly.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from . import config as config_mod
 from .config import DeviceConfig, device_config_from_dict, stack_device_configs
 from .ops import solver as solver_ops
 from .ops.solver import SolverOptions
+from .ops.render_graph import RenderGraphs
 from .ops.step_graph import EAGER, StepGraphs
 from .state import ParticleState, StepStats, WHITE, YOLK, zeros_state, zeros_stats
 from .utils import log
@@ -145,6 +147,9 @@ class SimulationHandler:
         # step_graph.EAGER steps eagerly there too (how a measurement times
         # the eager step beside the replayed one)
         self._step_graphs = None
+        # the captured renders of draw, made at the first draw on a CUDA
+        # device; EAGER renders eagerly there too
+        self._render_graphs = None
         self._reinitialize()
 
     def _auto_options(self, counts) -> SolverOptions:
@@ -211,6 +216,8 @@ class SimulationHandler:
         self._render_k_boost = [1.0, 1.0]       # per-pop render-budget multiplier
         self._render_peak_density = [None, None]  # measured peak bin density
         self._render_audit: Optional[torch.Tensor] = None
+        self._canvases: Optional[Tuple[torch.Tensor, ...]] = None  # raw
+        # density canvases of the last draw
         self._cfg2_cache: Optional[DeviceConfig] = None
         self._step_scalar_cache = None
 
@@ -558,6 +565,18 @@ class SimulationHandler:
         if self._step_graphs is None and self._device.type == "cuda":
             self._step_graphs = StepGraphs()
         return self._step_graphs
+
+    def _renderers(self) -> Optional[RenderGraphs]:
+        """The handler's captured renders, made at the first draw on a CUDA
+        device; None on the CPU and while ``_render_graphs`` is ``EAGER``,
+        where ``draw`` renders eagerly (a test may set ``_render_graphs`` to
+        ``RenderGraphs(capture=False)`` to run the graph plumbing on the
+        CPU)."""
+        if self._render_graphs is EAGER:
+            return None
+        if self._render_graphs is None and self._device.type == "cuda":
+            self._render_graphs = RenderGraphs()
+        return self._render_graphs
 
     def _advance(self, n_steps: int, cfg2, dt, relax) -> None:
         """``n_steps >= 1`` calls of ``solver.step`` from the handler's state,

@@ -173,11 +173,15 @@ def count_pairs(hi: torch.Tensor, lo: torch.Tensor, n_hi: int,
     """(n_hi, n_lo) int64 occurrence counts of id pairs.
 
     The counterpart of the JAX package's ``count_pairs_mxu`` (a one-hot
-    matrix product there), as one ``bincount``. Ids outside
-    ``[0, n_hi) x [0, n_lo)`` count toward nothing."""
+    matrix product there), as an ``index_add_`` of ones into
+    ``n_hi * n_lo + 1`` bins, the last a sentinel for ids outside
+    ``[0, n_hi) x [0, n_lo)``, which count toward nothing. The output size
+    is fixed, so nothing is read back from the device (``bincount`` reads
+    the ids' maximum to size its output), and integer adds are exact."""
     hi = hi.to(torch.int64)
     lo = lo.to(torch.int64)
     ok = (hi >= 0) & (hi < n_hi) & (lo >= 0) & (lo < n_lo)
     flat = torch.where(ok, hi * n_lo + lo, n_hi * n_lo)
-    return torch.bincount(flat, minlength=n_hi * n_lo + 1)[:n_hi * n_lo] \
-        .reshape(n_hi, n_lo)
+    counts = torch.zeros(n_hi * n_lo + 1, dtype=torch.int64, device=hi.device)
+    counts.index_add_(0, flat, torch.ones_like(flat))
+    return counts[:n_hi * n_lo].reshape(n_hi, n_lo)

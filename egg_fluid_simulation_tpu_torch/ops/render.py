@@ -21,6 +21,14 @@ Precision: float32 throughout. The only matrix products are the bilinear
 interpolation matrices of :func:`_resize_linear_up`; TF32 is switched off
 below so they run in full float32 (the JAX package left them to XLA, outside
 any kernel, in float32 as well).
+
+The JAX package jits :func:`_render_frame` into one program. Here it is one
+CUDA graph replay on a CUDA handler (``ops/render_graph.py``), so nothing in
+it reads the device or copies from the host: the paste lands at a device
+offset, the bin counts have a fixed size, the outline offsets come from the
+host config, and the frame's scalars are fills. :func:`draw` reads the
+device once for the canvas-bucket stats (:func:`frame_options`) and once for
+the overflow audit; ``host_reads`` counts those reads.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ from .kernels import splat_kernel
 
 __all__ = ["RenderOptions", "CANVAS_BUCKETS", "splat_population",
            "outline_pass", "lighting_pass", "render_population", "draw",
-           "frame_options", "auto_render_options", "pick_canvas_bucket"]
+           "frame_options", "auto_render_options", "pick_canvas_bucket",
+           "outline_thickness", "host_reads"]
 
 # Positions and canvases must never pass through reduced precision.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -48,6 +57,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 # static canvas sizes; last entry is the reference's hard clamp (:1953-1954)
 CANVAS_BUCKETS = (256, 512, 1024, 2048, 2560)
+
+host_reads = 0      # device-to-host reads of draw: the stats and the audit
 
 
 @dataclass(frozen=True)
@@ -299,24 +310,20 @@ def splat_population(pos, last_pos, vel, radius, color, active,
 
 
 @functools.lru_cache(maxsize=16)
-def _linear_resize_rows(s_out: int, s_in: int) -> np.ndarray:
-    """(s_out, s_in) row-interpolation matrix of a 'linear' UPSAMPLE
-    (half-pixel centres, edge clamp)."""
-    pos = (np.arange(s_out) + 0.5) * (s_in / s_out) - 0.5
-    lo = np.floor(pos).astype(np.int64)
-    w = (pos - lo).astype(np.float32)
-    lo_c = np.clip(lo, 0, s_in - 1)
-    hi_c = np.clip(lo + 1, 0, s_in - 1)
-    m = np.zeros((s_out, s_in), np.float32)
-    m[np.arange(s_out), lo_c] += 1.0 - w
-    m[np.arange(s_out), hi_c] += w
-    return m
-
-
-@functools.lru_cache(maxsize=16)
 def _resize_matrix(s_out: int, s_in: int, device: torch.device) -> torch.Tensor:
-    """The interpolation matrix on ``device``, uploaded once (not per frame)."""
-    return torch.from_numpy(_linear_resize_rows(s_out, s_in)).to(device)
+    """(s_out, s_in) row-interpolation matrix of a 'linear' UPSAMPLE
+    (half-pixel centres, edge clamp), made once on ``device`` by device ops
+    (no copy from the host: a render's first, eager call makes it under the
+    sync check, before the render is captured)."""
+    pos = (torch.arange(s_out, dtype=torch.float64, device=device) + 0.5) \
+        * (s_in / s_out) - 0.5
+    lo = torch.floor(pos)
+    w = (pos - lo).to(torch.float32)
+    lo = lo.to(torch.int64)
+    m = torch.zeros((s_out, s_in), dtype=torch.float32, device=device)
+    m.scatter_add_(1, torch.clamp(lo, 0, s_in - 1)[:, None], (1.0 - w)[:, None])
+    m.scatter_add_(1, torch.clamp(lo + 1, 0, s_in - 1)[:, None], w[:, None])
+    return m
 
 
 def _resize_linear_up(img: torch.Tensor, s_out: int) -> torch.Tensor:
@@ -382,8 +389,9 @@ def outline_pass(alpha, outline_thickness, threshold, opts: RenderOptions,
     """Morphological 8-direction dilation + smoothstep edge
     (simulation_handler_outline.glsl). Returns outline coverage in [0, 1].
 
-    The sample offsets depend on the thickness only; it is read to the host
-    once (a float32 value) and the offsets are formed in float32 there."""
+    The sample offsets depend on the thickness only, formed in float32 on
+    the host: ``outline_thickness`` is a host float (the config's), or a
+    device scalar read to the host here."""
     f32 = np.float32
     thick = f32(float(outline_thickness))
     steps_f = f32(np.ceil(thick)) + f32(1.0)
@@ -466,15 +474,19 @@ def _src_over(dst_rgb, dst_a, src_rgb_premul, src_a):
 
 def render_population(alpha, rgb, cfg, thresholding_threshold,
                       thresholding_smoothness, use_lighting: bool,
-                      opts: RenderOptions, px_scale: float = 1.0):
+                      opts: RenderOptions, px_scale: float = 1.0,
+                      outline_thickness: Optional[float] = None):
     """Outline + lighting for one population's canvas; returns straight RGBA
-    (outline under lighting, :2139-2159)."""
+    (outline under lighting, :2139-2159). ``outline_thickness``: the
+    config's as a host float, else ``cfg.outline_thickness`` is read."""
     out_rgb = torch.zeros(alpha.shape + (3,), dtype=torch.float32,
                           device=alpha.device)
     out_a = torch.zeros_like(alpha)
 
-    coverage = outline_pass(alpha, cfg.outline_thickness,
-                            thresholding_threshold, opts, px_scale=px_scale)
+    thickness = (cfg.outline_thickness if outline_thickness is None
+                 else outline_thickness)
+    coverage = outline_pass(alpha, thickness, thresholding_threshold, opts,
+                            px_scale=px_scale)
     coverage = torch.where(cfg.outline_thickness > 0.0, coverage, 0.0)
     o_rgb = cfg.outline_color[:3] * (coverage * cfg.outline_color[3])[..., None]
     o_a = coverage * cfg.outline_color[3]
@@ -496,12 +508,16 @@ def render_population(alpha, rgb, cfg, thresholding_threshold,
 def _render_frame(state, stats, cfg2, interpolation_alpha,
                   threshold, smoothness, viewport_origin,
                   opts2: Tuple[RenderOptions, RenderOptions],
-                  use_lighting: bool, vw: int, vh: int, pop_caps=None):
+                  use_lighting: bool, vw: int, vh: int, pop_caps=None,
+                  thickness: Optional[Tuple[float, float]] = None):
     """Full-frame render: both populations splatted, shaded, composited.
 
     ``interpolation_alpha``, ``threshold``, ``smoothness`` are 0-dim float32
     tensors and ``viewport_origin`` a (2,) float32 tensor on the state's
-    device. Returns ``(frame (vh, vw, 4), canvases, audits (2, 2))``."""
+    device. ``thickness``: each population's outline thickness as a host
+    float (:func:`outline_thickness`); without it the outline pass reads
+    ``cfg2``'s from the device. Returns ``(frame (vh, vw, 4), canvases,
+    audits (2, 2))``."""
     dev = state.device
     active = state.active_mask()
     centers = (stats.last_centroid
@@ -511,6 +527,7 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
         cap = state.capacity if pop_caps is None else min(pop_caps[i],
                                                           state.capacity)
         cfg = population_config(cfg2, i)
+        thick = None if thickness is None else thickness[i]
         alpha, rgb, audit = splat_population(
             state.pos[i, :cap], state.last_pos[i, :cap], state.vel[i, :cap],
             state.radius[i, :cap], state.color[i, :cap], active[i, :cap],
@@ -520,7 +537,8 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
         if opts.post_mode == "coarse":
             rgba = render_population(alpha, rgb, cfg, threshold, smoothness,
                                      use_lighting, opts,
-                                     px_scale=float(opts.downsample))
+                                     px_scale=float(opts.downsample),
+                                     outline_thickness=thick)
             if opts.downsample > 1:
                 rgba = _resize_linear_up(rgba, s)
         else:
@@ -533,7 +551,8 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
                 rgb_hi = rgb if rgb.shape[0] == e else _resize_linear_up(rgb, e)
             rgba = render_population(alpha_hi, rgb_hi, cfg, threshold,
                                      smoothness, use_lighting, opts,
-                                     px_scale=1.0 / scale)
+                                     px_scale=1.0 / scale,
+                                     outline_thickness=thick)
             if scale > 1:
                 rgba = rgba.reshape(s, scale, s, scale, 4).mean(dim=(1, 3))
         if opts.downsample > 1:
@@ -561,7 +580,8 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
 
 def _paste_src_over_frac(dst_rgb, dst_a, src_rgba, corner):
     """Fractional-position paste: bilinear-shift the canvas by the corner's
-    fractional part, then integer-paste."""
+    fractional part, then integer-paste at the corner's floor, which stays
+    on the device."""
     ci = torch.floor(corner)
     frac = corner - ci                                       # in [0, 1)
     fx, fy = frac[0], frac[1]
@@ -572,21 +592,25 @@ def _paste_src_over_frac(dst_rgb, dst_a, src_rgba, corner):
     s11 = p[:-2, :-2]
     shifted = (s00 * (1 - fx) * (1 - fy) + s01 * fx * (1 - fy)
                + s10 * (1 - fx) * fy + s11 * fx * fy)
-    x0, y0 = (int(v) for v in ci.tolist())
+    x0, y0 = ci.to(torch.int64)
     return _paste_src_over(dst_rgb, dst_a, shifted, x0, y0)
 
 
-def _paste_src_over(dst_rgb, dst_a, src_rgba, x0: int, y0: int):
-    """Alpha-blend a canvas onto the screen at integer offset (x0, y0),
-    clipped to the viewport."""
+def _paste_src_over(dst_rgb, dst_a, src_rgba, x0, y0):
+    """Alpha-blend a canvas onto the screen at integer offset (x0, y0), 0-dim
+    integer tensors on the device, clipped to the viewport: screen pixel
+    (y, x) takes canvas pixel (y - y0, x - x0), zero off the canvas (the
+    JAX package's ``dynamic_slice`` of a padded canvas, without the pad)."""
     vh, vw = dst_a.shape
     s = src_rgba.shape[0]
-    placed = torch.zeros((vh, vw, 4), dtype=src_rgba.dtype,
-                         device=src_rgba.device)
-    ys, ye = max(y0, 0), min(y0 + s, vh)
-    xs, xe = max(x0, 0), min(x0 + s, vw)
-    if ys < ye and xs < xe:
-        placed[ys:ye, xs:xe] = src_rgba[ys - y0:ye - y0, xs - x0:xe - x0]
+    dev = src_rgba.device
+    ry = torch.arange(vh, device=dev) - y0
+    rx = torch.arange(vw, device=dev) - x0
+    inside = (((ry >= 0) & (ry < s))[:, None]
+              & ((rx >= 0) & (rx < s))[None, :])
+    placed = src_rgba.index_select(0, torch.clamp(ry, 0, s - 1)) \
+        .index_select(1, torch.clamp(rx, 0, s - 1))
+    placed = torch.where(inside[..., None], placed, 0.0)
     src_a = torch.clamp(placed[..., 3], 0.0, 1.0)
     src_rgb = placed[..., :3]
     out_rgb = src_rgb * src_a[..., None] + dst_rgb * (1.0 - src_a[..., None])
@@ -596,12 +620,17 @@ def _paste_src_over(dst_rgb, dst_a, src_rgba, x0: int, y0: int):
 
 def frame_options(handler) -> Tuple[RenderOptions, RenderOptions]:
     """Per-population RenderOptions for the handler's CURRENT state (canvas
-    buckets from the latest step stats, reference :1944-1954)."""
+    buckets from the latest step stats, reference :1944-1954). The stats
+    come to the host in one read (``host_reads``)."""
+    global host_reads
     stats = handler.stats
     counts = handler.get_n_particles()
-    aabb_min_all = stats.aabb_min.cpu().numpy()
-    aabb_max_all = stats.aabb_max.cpu().numpy()
-    max_vel = stats.max_velocity.cpu().numpy()
+    host = torch.cat([stats.aabb_min.reshape(-1), stats.aabb_max.reshape(-1),
+                      stats.max_velocity.reshape(-1)]).cpu().numpy()
+    host_reads += 1
+    aabb_min_all = host[0:4].reshape(2, 2)
+    aabb_max_all = host[4:8].reshape(2, 2)
+    max_vel = host[8:10]
     opts = []
     for i, cfg in ((0, handler._white_config), (1, handler._yolk_config)):
         aabb_min, aabb_max = aabb_min_all[i], aabb_max_all[i]
@@ -623,14 +652,34 @@ def frame_options(handler) -> Tuple[RenderOptions, RenderOptions]:
     return tuple(opts)
 
 
-def _frame_scalars(handler, viewport):
-    dev = handler.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    x, y = viewport[0], viewport[1]
-    return (torch.tensor(handler.interpolation_alpha, **f32),
-            torch.tensor(handler._thresholding_threshold, **f32),
-            torch.tensor(handler._thresholding_smoothness, **f32),
-            torch.tensor([x, y], **f32))
+def outline_thickness(handler) -> Tuple[float, float]:
+    """Each population's outline thickness from the handler's host
+    configs: what the render's outline offsets are formed from."""
+    return (float(handler._white_config["outline_thickness"]),
+            float(handler._yolk_config["outline_thickness"]))
+
+
+def _frame_scalars(handler, viewport, alpha=None):
+    """The render's scalars on the handler's device: the interpolation
+    alpha (``alpha``, a float or a 0-dim device tensor, else the
+    handler's), the threshold, the smoothness and the viewport origin, each
+    a fill (a launch, not a copy from the host)."""
+    f32 = dict(dtype=torch.float32, device=handler.device)
+    alpha = handler.interpolation_alpha if alpha is None else alpha
+    if not isinstance(alpha, torch.Tensor):
+        alpha = torch.full((), float(alpha), **f32)
+    origin = torch.full((2,), float(viewport[0]), **f32)
+    origin[1].fill_(float(viewport[1]))
+    return (alpha,
+            torch.full((), float(handler._thresholding_threshold), **f32),
+            torch.full((), float(handler._thresholding_smoothness), **f32),
+            origin)
+
+
+def _read_audits(audits_t) -> np.ndarray:
+    global host_reads
+    host_reads += 1
+    return audits_t.cpu().numpy()
 
 
 def draw(handler, viewport=None, background=None, check_overflow=True):
@@ -641,28 +690,23 @@ def draw(handler, viewport=None, background=None, check_overflow=True):
     (default ON — the reference drops nothing inside its canvas, :2054-2064)
     reads the per-bin render-budget counters once per fresh frame, warns,
     and re-renders with a boosted budget until the frame drops nothing; the
-    boost persists on the handler.
+    boost persists on the handler. The render is one replay of the
+    handler's render graph on a CUDA device (``ops/render_graph.py``);
+    the device is read for the stats and, with ``check_overflow``, for the
+    audit of each rendered frame (``host_reads``).
     """
+    from .render_graph import render_handler_frame   # it imports this module
     if viewport is None:
         viewport = (0.0, 0.0, 800, 600)
-    _, _, w, h = viewport
     opts2 = frame_options(handler)
-    cfg2 = handler._device_cfg2()
-    alpha_t, thr, smooth, origin = _frame_scalars(handler, viewport)
-
-    def render(opts2):
-        return _render_frame(handler.state, handler.stats, cfg2, alpha_t,
-                             thr, smooth, origin, opts2,
-                             bool(handler._use_lighting), int(w), int(h),
-                             pop_caps=handler._options.pop_caps)
-
-    frame, _, audits_t = render(opts2)
+    frame, canvases, audits_t = render_handler_frame(handler, opts2, viewport)
+    handler._canvases = canvases
     if check_overflow:
-        audits0 = audits_t.cpu().numpy()
+        audits = _read_audits(audits_t)                  # (pop, [drops, max])
         dens = list(handler._render_peak_density)
         for i in range(2):
             o = opts2[i]
-            m = int(audits0[i, 1])
+            m = int(audits[i, 1])
             if m > 0:
                 d = m / float(o.bin_h * o.bin_w * o.downsample ** 2)
                 if dens[i] is None or d > dens[i]:   # only RAISE the hint
@@ -671,8 +715,9 @@ def draw(handler, viewport=None, background=None, check_overflow=True):
         # auto-bump: size the per-bin budget of any overflowing population
         # from the MEASURED max bin occupancy and re-render until the frame
         # drops nothing; the boost persists on the handler
-        for _ in range(3):
-            audits = audits_t.cpu().numpy()                  # (pop, [drops, max])
+        for attempt in range(3):
+            if attempt:
+                audits = _read_audits(audits_t)
             if audits[:, 0].sum() == 0:
                 break
             from ..utils import log
@@ -688,13 +733,15 @@ def draw(handler, viewport=None, background=None, check_overflow=True):
                         (int(audits[0, 1]), int(audits[1, 1])),
                         "); re-rendering with budget boost ", tuple(boosts))
             opts2 = frame_options(handler)
-            frame, _, audits_t = render(opts2)
+            frame, canvases, audits_t = render_handler_frame(handler, opts2,
+                                                             viewport)
+            handler._canvases = canvases
     handler._render_audit = audits_t
     if background is not None:
-        bg = torch.tensor(background, dtype=torch.float32, device=frame.device)
+        # a float operand, not a copy of the colour to the device
+        bg = [float(v) for v in background]
         a = frame[..., 3:4]
-        frame = torch.cat([
-            frame[..., :3] * 1.0 + bg[:3] * (1.0 - a),
-            torch.clamp(frame[..., 3:4], min=float(bg[3])),
-        ], dim=-1)
+        frame = torch.cat([frame[..., c:c + 1] * 1.0 + bg[c] * (1.0 - a)
+                           for c in range(3)]
+                          + [torch.clamp(a, min=bg[3])], dim=-1)
     return frame

@@ -51,7 +51,7 @@ from ..config import DeviceConfig
 from ..state import ParticleState, StepStats
 from . import solver
 
-__all__ = ["EAGER", "StepGraph", "StepGraphs", "graph_key"]
+__all__ = ["EAGER", "StepGraph", "StepGraphs", "graph_key", "copy_in"]
 
 # a handler's ``_step_graphs`` set to this runs its fixed steps eagerly on
 # any device (how a measurement times the eager step beside the replayed one)
@@ -77,6 +77,22 @@ def _views(flat: torch.Tensor, layout):
         out[name] = flat[at:at + n].view(shape)
         at += n
     return out
+
+
+def copy_in(held: dict, inputs) -> int:
+    """``static.copy_(src)`` for each ``(name, static, src)`` of ``inputs``
+    unless ``held[name]`` is ``(src, src._version)``: the static buffer
+    already holds that tensor at that version. Records what each buffer
+    holds; returns the number copied."""
+    copied = 0
+    for name, static, src in inputs:
+        h = held.get(name)
+        if h is not None and h[0] is src and h[1] == src._version:
+            continue
+        static.copy_(src)
+        held[name] = (src, src._version)
+        copied += 1
+    return copied
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -173,17 +189,8 @@ class StepGraph:
         """Copy into the static buffers every input (all tensors) that is
         not the tensor, at the version, they last held; returns the number
         copied."""
-        copied = 0
-        for name, static, src in self._inputs(state, cfg2, step_delta,
-                                              relaxation, wide_state):
-            held = self._held.get(name)
-            if held is not None and held[0] is src \
-                    and held[1] == src._version:
-                continue
-            static.copy_(src)
-            self._held[name] = (src, src._version)
-            copied += 1
-        return copied
+        return copy_in(self._held, self._inputs(state, cfg2, step_delta,
+                                                relaxation, wide_state))
 
     # -------------------------------------------------------------- step --
 

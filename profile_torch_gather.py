@@ -11,7 +11,8 @@ gather engine was ported they picked the dense engine with the budget off
 at every capacity (the fused path, kernels A and B). This script builds
 each scene once per rule and times them in one process. Rules: ``gather``
 (the automatic options; the handler replays its captured step),
-``gather_eager`` (the same stepping eagerly: one launch per op)
+``gather_eager`` (the same stepping and drawing eagerly: one launch per
+op)
 and ``dense`` (the dense rule, replayed). Scenes:
 
 - ``gather_path``: ``chip_smoke.gather_handler`` (capacity 8192, 8 batches
@@ -85,13 +86,13 @@ def handler_rule(rule: str):
 
 
 def step_eagerly(h) -> None:
-    """``h`` runs its fixed steps eagerly on the card (a tree without the
-    captured step always does)."""
+    """``h`` runs its fixed steps and its renders eagerly on the card (a
+    tree without the captured step or render always does)."""
     try:
         from egg_fluid_simulation_tpu_torch.ops.step_graph import EAGER
     except ImportError:
         return
-    h._step_graphs = EAGER
+    h._step_graphs = h._render_graphs = EAGER
 
 
 def build(scene: str, rule: str, dev):

@@ -35,6 +35,12 @@ def test_the_package_has_its_parallel_layer():
             "parallel/dryrun.py", "parallel/spatial_bench.py"} <= names
 
 
+def test_the_package_has_its_captured_step_and_render():
+    names = {p.relative_to(PKG).as_posix() for p in FILES}
+    assert {"ops/step_graph.py", "ops/render_graph.py"} <= names
+    _assert_no_jax(PKG / "ops" / "render_graph.py")
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(PKG)
                          .as_posix())
 def test_no_jax_import(path):
