@@ -22,7 +22,11 @@ Then it drives the paths through the public API:
 - ``resident_path`` / ``resident_frames``: on the same handler,
   ``run_steps`` (multi-step residency: kernel A only at the first binning,
   the final step and each drift-gated rebin) and ``multi_step_frames``
-  with the render as ``frame_fn``;
+  with the render as ``frame_fn``, each replayed from the handler's
+  resident graphs (the rebin in an IF node, no read of the device) against
+  the eager loop from the same state, bit for bit, launches from a trace,
+  rebins from the device counter; then timed both ways; the same steps on
+  the bench's settled 10k scene (``resident_graph.*`` lines);
 - ``default_options``: a small spawn explosion with the constructor-default
   solver options of an automatic handler (the wide sweep);
 - ``plane_path``: the same 1M scene with the ordered budget and the default
@@ -508,35 +512,61 @@ def traced(fn, n: int) -> dict:
                      for name, (ms, count) in top])
 
 
-def graph_nodes(h):
-    """The nodes of the handler's captured step by type (kernel, memcpy,
-    memset, other), counted with libcuda's ``cuGraphGetNodes`` in a second
-    capture of the same step body kept as a graph (``keep_graph``): what
-    one replay launches, counted without a profiler. None where this
-    PyTorch cannot keep a captured graph."""
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 4: "child_graph",
+              13: "conditional"}
+
+
+def node_types(raw: int) -> dict:
+    """The top-level nodes of the CUDA graph ``raw`` (a ``cudaGraph_t``) by
+    type, counted with libcuda's ``cuGraphGetNodes``."""
     import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    num = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(num)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * num.value)()
+    cu.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(num))
+    out = dict.fromkeys(NODE_TYPES.values(), 0)
+    out["other"] = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        out[NODE_TYPES.get(kind.value, "other")] += 1
+    return out
+
+
+def body_nodes(body):
+    """:func:`node_types` of ``body`` captured a second time, kept as a
+    graph (``keep_graph``): what one replay of its capture launches,
+    counted without a profiler. None where this PyTorch cannot keep a
+    captured graph."""
     import torch
-    sg = next(reversed(h._step_graphs._graphs.values()))
     try:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
     except TypeError:
         return None
     with torch.cuda.graph(graph):
-        sg._body()
-    cu = ctypes.CDLL("libcuda.so.1")
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    num = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(raw, None, ctypes.byref(num)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * num.value)()
-    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(num))
-    names = {0: "kernel", 1: "memcpy", 2: "memset"}
-    out = dict(kernel=0, memcpy=0, memset=0, other=0)
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
-        out[names.get(kind.value, "other")] += 1
+        body()
+    out = node_types(graph.raw_cuda_graph())
     del graph
+    return out
+
+
+def graph_nodes(h):
+    """The nodes of the handler's captured step by type (:func:`body_nodes`)."""
+    return body_nodes(next(reversed(h._step_graphs._graphs.values()))._body)
+
+
+def resident_nodes(h):
+    """The nodes of the handler's newest resident loop by type: its step
+    (or frame) graph (:func:`body_nodes`, one conditional node a
+    population) and each population's rebin branch, the body of its IF
+    node (a kept graph)."""
+    rg = next(reversed(h._resident._graphs.values()))
+    out = {"advance": body_nodes(lambda: rg._advance(cond=rg._if_node))}
+    for i in range(2):
+        out[f"rebin.{i}"] = node_types(
+            rg._graphs[f"rebin.{i}"].raw_cuda_graph())
     return out
 
 
@@ -598,6 +628,160 @@ def check_step_graph(h, phase: str, updates: int = 2) -> dict:
                              f"eager step ({sorted(unequal)}, batch sums "
                              f"{stats_err}) or nothing was captured")
     return out
+
+
+def resident_snapshot(h):
+    """The handler's state and wide-gate state, to start loops from."""
+    return h.state, tuple(tuple(t.clone() for t in w)
+                          for w in h._wide_or_init())
+
+
+def resident_restore(h, snap) -> None:
+    h._state = snap[0]
+    h._wide_state = tuple(tuple(t.clone() for t in w) for w in snap[1])
+
+
+def resident_unequal(a, b) -> tuple:
+    """``(fields that differ, batch_pos_sum's relative error)`` of two
+    ``(state, stats or None, wide_state)``: state and gate state bit for
+    bit, the stats too but ``batch_pos_sum`` (``index_add_``'s atomics sum
+    in any order: ``STATS_RTOL``)."""
+    import dataclasses
+    import torch
+    unequal, err = set(), 0.0
+    for f in ("pos", "prev", "vel", "last_pos", "inv_mass", "radius"):
+        if not torch.equal(getattr(a[0], f), getattr(b[0], f)):
+            unequal.add(f)
+    if not all(torch.equal(x, y) for wa, wb in zip(a[2], b[2])
+               for x, y in zip(wa, wb)):
+        unequal.add("wide_state")
+    if a[1] is not None:
+        for f in dataclasses.fields(a[1]):
+            x, y = getattr(a[1], f.name), getattr(b[1], f.name)
+            if f.name == "batch_pos_sum":
+                err = max(err, float(((x - y).abs()
+                                      / y.abs().clamp(min=1.0)).max()))
+            elif not torch.equal(x, y):
+                unequal.add(f.name)
+    return sorted(unequal), err
+
+
+def resident_run(h, phase: str, unit, n: int, want) -> dict:
+    """``unit()`` (``n`` resident steps or frames of handler ``h``) through
+    the handler's resident graphs against the eager loop
+    (:func:`eager_graphs`) from one state. The first call of the phase
+    builds the graphs (warm-up, capture; its wall time is ``first_call_s``),
+    the second replays them from the same start, traced, under
+    ``step_graph.sync_errors`` (a read of the device raises there); the
+    eager one reads the rebin flag on the host. Checked: replayed = eager
+    (:func:`resident_unequal`), no host read and no wrapper launch in the
+    replayed run, rebins from the device counter = the eager loop's, and
+    the trace's launches ``want(rebins)``. ``unit`` returns ``(state,
+    stats or None, wide_state, total or None)``."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops import solver as S
+    from egg_fluid_simulation_tpu_torch.ops.step_graph import sync_errors
+    snap = resident_snapshot(h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unit()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graphs = h._resident
+    resident_restore(h, snap)
+    S.host_syncs = 0
+    before = graphs.rebins.clone()
+    with launches_run() as run:
+        with sync_errors():
+            got = unit()
+    rebins = (graphs.rebins - before).tolist()
+    syncs = S.host_syncs
+    resident_restore(h, snap)
+    S.rebins[:] = [0, 0]
+    S.host_syncs = 0
+    with eager_graphs(h):
+        want_out = unit()
+    unequal, stats_err = resident_unequal(got, want_out)
+    if got[3] is not None and not torch.equal(got[3], want_out[3]):
+        unequal.append("total")
+    launches, expected = run["trace"], want(sum(rebins))
+    rg = next(reversed(graphs._graphs.values()))
+    out = dict(units=n, first_call_s=round(first_s, 3),
+               total=None if got[3] is None else float(got[3]),
+               capture_s=round(rg.capture_seconds, 3),
+               pool_bytes=rg.pool_bytes,
+               final_step_captures=graphs.final.captures,
+               rebins_device=rebins, rebins_eager=list(S.rebins),
+               host_syncs_replayed=syncs, host_syncs_eager=S.host_syncs,
+               unequal=unequal, batch_sum_rel_err=stats_err,
+               launches=launches, expected=expected,
+               wrapper_counts=run["wrappers"],
+               graph_nodes=resident_nodes(h),
+               tol=f"bit for bit; batch_pos_sum rtol {STATS_RTOL}")
+    log(f"resident_graph.{phase}", **out)
+    if (unequal or stats_err > STATS_RTOL or rebins != list(S.rebins)
+            or syncs != 0 or any(run["wrappers"].values())
+            or any(launches[k] != v for k, v in expected.items())):
+        raise AssertionError(f"resident_graph.{phase}: the replayed loop "
+                             f"differs from the eager one or ran otherwise "
+                             f"than expected ({out})")
+    return out
+
+
+def resident_steps(h, phase: str, steps: int) -> dict:
+    """``run_steps(steps)`` of ``h``, replayed against eager
+    (:func:`resident_run`), then timed both ways (:func:`graph_vs_eager`,
+    per step)."""
+    per = h._options.n_substeps * h._options.n_collision_steps * 2
+
+    def unit():
+        h.run_steps(steps)
+        return h.state, h.stats, h._wide_state, None
+    out = resident_run(h, f"{phase}.steps", unit, steps,
+                       lambda rebins: {"substep_pass": per * steps,
+                                       "place_planes": 2 + 2 + rebins})
+    out["time"] = graph_vs_eager(
+        h, f"{phase}.steps", lambda: h.run_steps(steps), 1, GRAPH_BLOCKS,
+        expect={"substep_pass": per * steps}, line="resident_graph")
+    per_unit(f"{phase}.steps", out["time"], steps, "step")
+    return out
+
+
+def resident_frames(h, phase: str, frames: int, frame_fn) -> dict:
+    """``multi_step_frames(frames, frame_fn)`` of ``h`` through its
+    resident graphs, replayed against eager (:func:`resident_run`; the
+    eager loop renders eagerly too), then timed both ways, per frame."""
+    from egg_fluid_simulation_tpu_torch.ops import solver as S
+    per = h._options.n_substeps * h._options.n_collision_steps * 2
+    cfg2 = h._device_cfg2()
+    dt, relax = h._step_scalars(1 / 60)
+
+    def unit():
+        h._state, total, h._wide_state = S.multi_step_frames(
+            h.state, cfg2, dt, relax, h._options, frames, frame_fn,
+            wide_state=h._wide_or_init(), graphs=h._resident_graphs())
+        return h.state, None, h._wide_state, total
+    out = resident_run(h, f"{phase}.frames", unit, frames,
+                       lambda rebins: {"substep_pass": per * frames,
+                                       "place_planes": 2 + rebins,
+                                       "splat": 2 * frames})
+    out["time"] = graph_vs_eager(
+        h, f"{phase}.frames", unit, 1, GRAPH_BLOCKS,
+        expect={"substep_pass": per * frames, "splat": 2 * frames},
+        line="resident_graph")
+    per_unit(f"{phase}.frames", out["time"], frames, "frame")
+    return out
+
+
+def per_unit(phase: str, timed: dict, n: int, unit: str) -> None:
+    """A :func:`graph_vs_eager` reading of ``n``-step (or frame) calls, per
+    step (or frame): wall p50, device ms, kernels, busy share."""
+    log(f"resident_graph.{phase}.per_{unit}", **{
+        mode: dict(wall_ms=round(timed[mode]["wall_p50_ms"] / n, 4),
+                   device_ms=round(timed[mode]["device_ms"] / n, 4),
+                   kernels=round(timed[mode]["kernels"] / n, 1),
+                   busy_share=timed[mode]["busy_share"])
+        for mode in ("replay", "eager")}, card=nvidia_smi())
 
 
 def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2,
@@ -2633,81 +2817,51 @@ def main() -> int:
         raise AssertionError(f"unexpected kernel launch counts {launches}, "
                              f"wrappers {run['wrappers']}")
 
-    # ---- resident steps: run_steps on the same 1M handler ----
+    # ---- resident steps and frames on the same 1M handler: run_steps and
+    # multi_step_frames (the render as frame_fn) through the handler's
+    # resident graphs, against the eager loops from the same state ----
     from egg_fluid_simulation_tpu_torch.ops import solver as S
-    reset_counters()
-    S.rebins[:] = [0, 0]
-    S.host_syncs = 0
-    torch.cuda.synchronize()
-    t_start = torch.cuda.Event(enable_timing=True)
-    t_end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    t_start.record()
-    h.run_steps(RESIDENT_STEPS)
-    t_end.record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / RESIDENT_STEPS
-    res_ms = t_start.elapsed_time(t_end) / RESIDENT_STEPS
-    res_launches = read_counters()
-    rebins = list(S.rebins)
+    res = resident_steps(h, "1m", RESIDENT_STEPS)
     validate_state(h)
     drops = collision_drop_stats(h)
-    log("resident_path", steps=RESIDENT_STEPS, ms_per_step=round(res_ms, 3),
-        host_ms_per_step=round(host_ms, 3),
-        update_ms=[round(x, 3) for x in step_ms], rebins=rebins,
-        host_syncs_per_step=S.host_syncs / RESIDENT_STEPS,
+    log("resident_path", steps=RESIDENT_STEPS,
+        first_call_s=res["first_call_s"], rebins=res["rebins_device"],
+        replay_ms_per_step=round(
+            res["time"]["replay"]["wall_p50_ms"] / RESIDENT_STEPS, 4),
+        eager_ms_per_step=round(
+            res["time"]["eager"]["wall_p50_ms"] / RESIDENT_STEPS, 4),
+        update_ms=[round(x, 3) for x in step_ms],
         drop_pct_white=round(drops["white"]["drop_pct"], 3),
         drop_pct_yolk=round(drops["yolk"]["drop_pct"], 3),
         max_cell_occupancy=(drops["white"]["max_cell_occupancy"],
                             drops["yolk"]["max_cell_occupancy"]),
-        launches=res_launches)
-    if not (res_launches["substep_pass"] == per * RESIDENT_STEPS
-            and res_launches["place_planes"] == 2 * (1 + 1) + sum(rebins)
-            and S.host_syncs == 2 * (RESIDENT_STEPS - 2)):
-        raise AssertionError(f"resident path: launch counts {res_launches}, "
-                             f"rebins {rebins}, host syncs {S.host_syncs}")
+        launches=res["launches"])
 
-    # ---- resident frames: multi_step_frames with the render as frame_fn ----
-    audits, marks = [], []
-    render_fn = render_frame_fn(h, viewport, audits)
-    cfg2 = h._device_cfg2()
-
-    def frame_fn(state, stats):
-        total_f = render_fn(state, stats)
-        marks.append(torch.cuda.Event(enable_timing=True))
-        marks[-1].record()
-        return total_f
-
-    S.rebins[:] = [0, 0]
-    S.host_syncs = 0
-    dt, relax = h._step_scalars(1 / 60)
-    # the renders replay the draw's graph: C's launches from the trace
-    with launches_run() as run:
-        t_start.record()
-        state_f, total = S.multi_step_frames(h.state, cfg2, dt, relax,
-                                             h._options, RESIDENT_FRAMES,
-                                             frame_fn)
-        t_end.record()
-    frames_ms = t_start.elapsed_time(t_end) / RESIDENT_FRAMES
-    each_ms = [a.elapsed_time(b) for a, b in zip([t_start] + marks, marks)]
-    frames_launches = dict(run["wrappers"], splat=run["trace"]["splat"])
+    audits = []
+    fr = resident_frames(h, "1m", RESIDENT_FRAMES,
+                         render_frame_fn(h, viewport, audits))
     overflow = int(torch.stack(audits)[:, :, 0].sum())
-    finite = bool(torch.isfinite(total)) and bool(
-        torch.isfinite(state_f.pos).all())
+    finite = (bool(torch.isfinite(h.state.pos).all())
+              and math.isfinite(fr["total"]))
     log("resident_frames", frames=RESIDENT_FRAMES,
-        ms_per_frame=round(frames_ms, 3),
-        frame_ms=[round(x, 3) for x in each_ms], update_draw_ms=[round(x, 3) for x in frame_ms],
-        total=float(total), finite=finite, render_dropped=overflow,
-        rebins=list(S.rebins), host_syncs=S.host_syncs,
-        launches=frames_launches, profiled=True)
-    if not (finite and overflow == 0 and float(total) > 0.0):
+        first_call_s=fr["first_call_s"], rebins=fr["rebins_device"],
+        replay_ms_per_frame=round(
+            fr["time"]["replay"]["wall_p50_ms"] / RESIDENT_FRAMES, 4),
+        eager_ms_per_frame=round(
+            fr["time"]["eager"]["wall_p50_ms"] / RESIDENT_FRAMES, 4),
+        update_draw_ms=[round(x, 3) for x in frame_ms], total=fr["total"],
+        finite=finite, render_dropped=overflow, launches=fr["launches"])
+    if not (finite and overflow == 0 and fr["total"] > 0.0):
         raise AssertionError("resident frames: non-finite, empty or "
                              "overflowing render")
-    if not (frames_launches["substep_pass"] == per * RESIDENT_FRAMES
-            and frames_launches["place_planes"] == 2 + sum(S.rebins)
-            and frames_launches["splat"] >= 2 * RESIDENT_FRAMES):
-        raise AssertionError(f"resident frames: launch counts "
-                             f"{frames_launches}")
+
+    # ---- the same on the bench's 10k scene, settled ----
+    h10 = build_handler(10_000, dev)
+    with eager_graphs(h10):         # the first replayed call is the phase's
+        h10.run_steps(BENCH.SETTLE)
+    resident_steps(h10, "10k", RESIDENT_STEPS)
+    validate_state(h10)
+    del h10
 
     # ---- default options: the violence-gated wide sweep on a spawn explosion ----
     from egg_fluid_simulation_tpu_torch import (SimulationHandler,
@@ -2896,7 +3050,9 @@ def main() -> int:
 
     # ---- resident steps and frames on a calm 4k lattice, card vs CPU: the
     # fused variant, the plane-resident variant (symmetric sweep, kernel E,
-    # planes written in place) and the frame loop's carry ----
+    # planes written in place) and the frame loop's carry; on the card
+    # through the handler's resident graphs (replayed, the rebins from
+    # their device counter), on the CPU eagerly ----
     def lattice_run(device, route, mode):
         hr = lattice_handler(device, **mode)
         if route == "run_steps":
@@ -2906,7 +3062,8 @@ def main() -> int:
             hr._state, _ = S.multi_step_frames(
                 hr.state, hr._device_cfg2(), dt_r, relax_r, hr._options,
                 RESIDENT_REF_FRAMES,
-                lambda state, stats: torch.sum(stats.centroid))
+                lambda state, stats: torch.sum(stats.centroid),
+                graphs=hr._resident_graphs())
         validate_state(hr)
         return hr
 
@@ -2917,8 +3074,11 @@ def main() -> int:
         for device in (dev, torch.device("cpu")):
             S.rebins[:] = [0, 0]
             hr = lattice_run(device, route, mode)
+            if device.type == "cuda" and hr._resident.captures != 1:
+                raise AssertionError("resident_reference: the card's loop "
+                                     "was not replayed")
             occ = collision_drop_stats(hr)
-            out.append((state_to_numpy(hr.state), list(S.rebins),
+            out.append((state_to_numpy(hr.state), BENCH.rebin_count(hr),
                         (occ["white"]["max_cell_occupancy"],
                          occ["yolk"]["max_cell_occupancy"])))
         (a, rebins_card, occ_card), (b, rebins_cpu, _) = out

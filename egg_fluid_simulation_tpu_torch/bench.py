@@ -16,13 +16,16 @@ ms at 1M, ``unit``, ``vs_baseline`` = 16 ms frame / ``value``, ``stage``,
   dense engine, after 120 settle steps), ``particle_steps_per_sec_10k``,
   ``engine_10k``;
 - ``1m_step``: ``n_particles_headline``, ``step_ms_1m`` (``run_steps(n)`` per
-  step: the eager resident ``solver.multi_step``), ``particle_steps_per_sec_1m``,
-  ``host_syncs_per_step_1m`` and ``rebins_1m`` over its timed blocks,
+  step: the resident ``solver.multi_step``, replayed from its graphs on a
+  card), ``particle_steps_per_sec_1m``, ``host_syncs_per_step_1m`` (host
+  reads of the rebin flag: 0 on a card) and ``rebins_1m`` (the replayed
+  loop's device counter, read between blocks) over its timed blocks,
   ``update_ms_1m`` (``update(1/60)`` per step: the fixed step replayed from
   its CUDA graph), the ``drop_stats`` keys and ``physics_honest``;
 - ``1m_step_render``: ``step_render_ms_1m`` (``solver.multi_step_frames`` per
-  frame, each frame a render of the full canvas viewport at an interpolation
-  alpha cycling over ``linspace(0.15, 1, block)``), ``render_ms_1m`` (its
+  frame through the handler's resident graphs, each frame a replayed render
+  of the full canvas viewport at an interpolation alpha cycling over
+  ``linspace(0.15, 1, block)``), ``render_ms_1m`` (its
   difference to ``step_ms_1m``), ``render_overflow_dropped`` (the final
   state re-rendered with its audit read: the stage fails if it is not 0),
   ``drop_stats`` again;
@@ -37,13 +40,13 @@ ms at 1M, ``unit``, ``vs_baseline`` = 16 ms frame / ``value``, ``stage``,
 
 Timing: blocks of a fixed number of steps or frames between two CUDA events
 (``utils.profiling.StepTimer``), one untimed warm-up block first (it builds
-the kernels, captures the step's and the render's graphs, fills the
-caches); every render is the one ``draw`` replays
-(``ops/render_graph.py``); a key is the p50
-of its blocks per step or frame, with ``<key>_p25``, ``<key>_p75`` and
-``<key>_blocks`` beside it. The events hold the host's gaps between launches
-(the resident loops' rebin reads among them): wall time of the card, not its
-busy time. ``--quick`` runs the 1M stages at 65,536 particles.
+the kernels, captures the step's, the resident loops' and the render's
+graphs, fills the caches); every render is the one ``draw`` replays
+(``ops/render_graph.py``), every resident step a replay of
+``ops/resident_graph.py``; a key is the p50 of its blocks per step or
+frame, with ``<key>_p25``, ``<key>_p75`` and ``<key>_blocks`` beside it. The
+events hold the host's gaps between launches: wall time of the card, not
+its busy time. ``--quick`` runs the 1M stages at 65,536 particles.
 
 No fallback: without a card the bench prints one line and exits 1. The last
 three stages record ``render_modes_error``, ``default_opts_error`` or
@@ -74,6 +77,7 @@ from .utils.profiling import StepTimer, collision_drop_stats
 
 __all__ = ["SPAWN_AREA", "BENCH_KEYS", "PORT_KEYS", "TIMED_KEYS", "SIZES",
            "build_handler", "render_frame_fn", "emit", "drop_stats",
+           "rebin_count",
            "stage_10k", "stage_1m_step", "stage_1m_step_render",
            "stage_render_modes", "stage_default_opts", "stage_spatial_1x1",
            "run", "main"]
@@ -230,19 +234,24 @@ def drop_stats(h) -> dict:
     return out
 
 
-def _blocks_ms(fn, per_block: int, blocks: int, device) -> list:
+def _blocks_ms(fn, per_block: int, blocks: int, device, after=None) -> list:
     """Per-unit ms of ``blocks`` timed calls of ``fn`` (each ``per_block``
     steps or frames), after one untimed warm-up call. On a CUDA device each
-    block lies between two CUDA events with the device idle before it."""
+    block lies between two CUDA events with the device idle before it.
+    ``after()`` runs after each call, warm-up included, outside the
+    timing."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     timer = StepTimer(window=blocks, device=device)
+    after = after or (lambda: None)
     fn()
+    after()
     for _ in range(blocks):
         if cuda:
             torch.cuda.synchronize(device)
         with timer.phase("block"):
             fn()
+        after()
     return [ms / per_block for ms in timer.samples("block")]
 
 
@@ -272,31 +281,40 @@ def stage_10k(device, n: int, settle: int, block: int, blocks: int) -> dict:
     return out
 
 
+def rebin_count(h) -> list:
+    """The rebins (white, yolk) the handler's resident loops took so far:
+    its replayed loops' device counter, read on the host, on a card;
+    ``solver.rebins`` where the loop runs eagerly."""
+    graphs = h._resident_graphs()
+    if graphs is None:
+        return list(S.rebins)
+    return [0, 0] if graphs.rebins is None else graphs.rebins.tolist()
+
+
 def stage_1m_step(device, n: int, settle: int, block: int, blocks: int):
     """The headline handler, settled: ``step_ms_1m`` (``run_steps(block)``
-    per step, the eager resident loop) with its host reads and rebins, then
+    per step, the resident loop, replayed on a card) with its host reads of
+    the rebin flag and its rebins (both read between blocks), then
     ``update_ms_1m`` (``update(1/60)`` per step, the step replayed from its
     graph), then ``drop_stats``. Returns ``(handler, keys)``."""
     h = build_handler(n, device)
     total = sum(h.get_n_particles())
     h.run_steps(settle)
     out = {"n_particles_headline": total}
-    # each block's host reads of the rebin flag and rebins (white, yolk);
-    # the first block is the untimed warm-up
+    # the counts after each block; the first block is the untimed warm-up
     syncs, rebins = [], []
+    S.host_syncs = 0
+    S.rebins[:] = [0, 0]
 
-    def counted():
-        S.host_syncs = 0
-        S.rebins[:] = [0, 0]
-        h.run_steps(block)
+    def counts():
         syncs.append(S.host_syncs)
-        rebins.append(list(S.rebins))
-    out.update(_spread("step_ms_1m", _blocks_ms(counted, block, blocks,
-                                                 h.device)))
+        rebins.append(rebin_count(h))
+    out.update(_spread("step_ms_1m", _blocks_ms(
+        lambda: h.run_steps(block), block, blocks, h.device, after=counts)))
     out["particle_steps_per_sec_1m"] = round(total / out["step_ms_1m"] * 1000,
                                              0)
-    out["host_syncs_per_step_1m"] = sum(syncs[1:]) / (blocks * block)
-    out["rebins_1m"] = [sum(r[i] for r in rebins[1:]) for i in (0, 1)]
+    out["host_syncs_per_step_1m"] = (syncs[-1] - syncs[0]) / (blocks * block)
+    out["rebins_1m"] = [rebins[-1][i] - rebins[0][i] for i in (0, 1)]
     out.update(_spread("update_ms_1m", _blocks_ms(
         lambda: [h.update(1 / 60) for _ in range(block)], block, blocks,
         h.device)))
@@ -322,7 +340,8 @@ def _alphas(block: int, device) -> torch.Tensor:
 def stage_1m_step_render(h, step_ms_1m: float, block: int,
                          blocks: int) -> dict:
     """``step_render_ms_1m``: ``solver.multi_step_frames`` per frame on the
-    headline handler, each frame a render of the full canvas viewport at a
+    headline handler, through its resident graphs (its steps replayed on a
+    card), each frame a render of the full canvas viewport at a
     cycling alpha, after the render budget is seeded from the measured peak
     bin occupancy and one audited draw (which may raise it) froze the
     options. The final state is then rendered once more with its audit read
@@ -338,7 +357,7 @@ def stage_1m_step_render(h, step_ms_1m: float, block: int,
     def frames():
         h._state, _, h._wide_state = S.multi_step_frames(
             h.state, cfg2, dt, relax, h._options, block, frame_fn,
-            wide_state=h._wide_or_init())
+            wide_state=h._wide_or_init(), graphs=h._resident_graphs())
         h._frames = None
     out = _spread("step_render_ms_1m",
                   _blocks_ms(frames, block, blocks, h.device))

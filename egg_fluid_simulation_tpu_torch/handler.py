@@ -31,6 +31,7 @@ from .config import DeviceConfig, device_config_from_dict, stack_device_configs
 from .ops import solver as solver_ops
 from .ops.solver import SolverOptions
 from .ops.render_graph import RenderGraphs
+from .ops.resident_graph import ResidentGraphs
 from .ops.step_graph import EAGER, StepGraphs
 from .state import ParticleState, StepStats, WHITE, YOLK, zeros_state, zeros_stats
 from .utils import log
@@ -103,7 +104,8 @@ class SimulationHandler:
     arguments set the static capacities and the ``device`` the state lives
     on (default ``"cuda"``; the kernels run there, and ``"cpu"`` runs their
     plain PyTorch versions). On a CUDA device the fixed step is replayed
-    from a CUDA graph (``ops/step_graph.py``).
+    from a CUDA graph (``ops/step_graph.py``), and so are the resident
+    steps of ``run_steps`` (``ops/resident_graph.py``).
     """
 
     def __init__(self, white_config: Dict, yolk_config: Optional[Dict] = None, *,
@@ -145,8 +147,12 @@ class SimulationHandler:
         self._max_batches = int(max_batches)
         # the captured steps: made at the first step on a CUDA device;
         # step_graph.EAGER steps eagerly there too (how a measurement times
-        # the eager step beside the replayed one)
+        # the eager step beside the replayed one), the resident loops
+        # included
         self._step_graphs = None
+        # the captured resident loops of run_steps, made at the first
+        # resident run_steps on a CUDA device
+        self._resident = None
         # the captured renders of draw, made at the first draw on a CUDA
         # device; EAGER renders eagerly there too
         self._render_graphs = None
@@ -538,9 +544,10 @@ class SimulationHandler:
     def run_steps(self, n_steps: int, step_delta: float = 1 / 60) -> None:
         """Advance ``n_steps`` fixed steps (headless fast-forward): through
         ``solver.multi_step`` where the binned layout stays resident across
-        the steps, else as ``n_steps`` fixed steps (on a CUDA device the
-        captured step replayed), which is what ``multi_step`` gives there.
-        A no-op for ``n_steps <= 0``."""
+        the steps (on a CUDA device its captured loop replayed, with no read
+        of the device), else as ``n_steps`` fixed steps (on a CUDA device
+        the captured step replayed), which is what ``multi_step`` gives
+        there. A no-op for ``n_steps <= 0``."""
         if n_steps <= 0:
             return
         self._flush_targets()
@@ -551,7 +558,8 @@ class SimulationHandler:
         else:
             self._state, self._stats, self._wide_state = solver_ops.multi_step(
                 self._state, self._device_cfg2(), dt, relax, self._options,
-                int(n_steps), wide_state=self._wide_or_init())
+                int(n_steps), wide_state=self._wide_or_init(),
+                graphs=self._resident_graphs())
         self._frames = None
 
     def _graphs(self) -> Optional[StepGraphs]:
@@ -565,6 +573,19 @@ class SimulationHandler:
         if self._step_graphs is None and self._device.type == "cuda":
             self._step_graphs = StepGraphs()
         return self._step_graphs
+
+    def _resident_graphs(self) -> Optional[ResidentGraphs]:
+        """The handler's captured resident loops, made at the first
+        resident ``run_steps`` on a CUDA device; None on the CPU and while
+        ``_step_graphs`` is ``step_graph.EAGER``, where the loop runs
+        eagerly and reads its rebin flag on the host (a test may set
+        ``_resident`` to ``ResidentGraphs(capture=False)`` to run the graph
+        plumbing on the CPU)."""
+        if self._step_graphs is EAGER:
+            return None
+        if self._resident is None and self._device.type == "cuda":
+            self._resident = ResidentGraphs()
+        return self._resident
 
     def _renderers(self) -> Optional[RenderGraphs]:
         """The handler's captured renders, made at the first draw on a CUDA

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "egg_gather_count": [_C_PTR] * 3 + [_C_INT] * 3 + [_C_PTR],
     "egg_gather_sweep": [_C_PTR] * 10 + [_C_INT] * 5 + [_C_PTR],
     "egg_empty": [_C_PTR],
+    "egg_if_node": [_C_PTR] * 3,
 }
 
 _lock = threading.Lock()

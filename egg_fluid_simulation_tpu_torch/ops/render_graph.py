@@ -50,7 +50,7 @@ import torch
 from ..config import DeviceConfig
 from ..state import ParticleState, StepStats
 from . import render as R
-from .step_graph import EAGER, copy_in
+from .step_graph import EAGER, copy_in, sync_errors
 
 __all__ = ["EAGER", "RenderGraph", "RenderGraphs", "render_key",
            "render_handler_frame"]
@@ -104,12 +104,8 @@ class RenderGraph:
         if capture:
             # the first render eagerly, with any read of the device an
             # error, then the capture (it runs nothing)
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+            with sync_errors():
                 self.first = self._body()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
             self._out = self._capture(dev)
         else:
             self.first = self._body()

@@ -650,57 +650,252 @@ def _population_step_dense(pos, vel, mass_t, batch_slot, act,
 
 # ------------------------------------ dense engine (multi-step residency) --
 
-def _rebin_needed(n_over, n_live, options: SolverOptions, pop: int) -> bool:
-    """The resident rebin decision, read on the host (JAX takes it inside a
-    ``lax.cond``): one device-to-host read, counted in ``host_syncs``."""
+def _rebin_if(pred, pop_index: int, fn, force=None, cond=None) -> None:
+    """The resident rebin decision (JAX: a ``lax.cond``): run ``fn`` when
+    the 0-dim bool tensor ``pred`` is true.
+
+    ``cond`` (a graph being captured gives it) records the branch instead,
+    as ``cond(pred, pop_index)``: an IF node of the graph on ``pred``, whose
+    body is ``fn`` captured beforehand, so the card takes the branch at each
+    replay and nothing is read back. Otherwise ``pred`` is read on the host
+    (one read, counted in ``host_syncs``; ``rebins`` counts the branches
+    taken). ``force`` (a bool) decides without reading ``pred`` and counts
+    nothing on the host (a graph's warm-up runs the branch eagerly that
+    way). ``fn`` writes its results into buffers allocated before, with
+    ``copy_``: the graph after the node reads fixed addresses."""
     global host_syncs
-    host_syncs += 1
-    need = bool(n_over > options.rebin_tolerance * n_live)
-    if need:
-        rebins[pop] += 1
-    return need
+    if cond is not None:
+        cond(pred, pop_index)
+        return
+    if force is None:
+        host_syncs += 1
+        force = bool(pred)
+        if force:
+            rebins[pop_index] += 1
+    if force:
+        fn()
 
 
-def _population_multi_dense(pos, vel, mass_t, batch_slot, act,
-                            cfg: DeviceConfig, follow_rows, sub_dt,
-                            relaxation, options: SolverOptions, g: int,
-                            k: int, n_steps: int, pop_index: int,
-                            wide_state=None):
-    """``n_steps`` whole steps of one population with ADAPTIVE residency
-    (JAX ``_population_multi_dense`` and its fused variant): the binned
-    layout stays across steps, and a fresh binning from the merged particle
-    arrays happens only when more than ``rebin_tolerance`` of the live
-    particles drifted over ``cell_size/4`` relative to the mean drift since
-    bin time. The budget-dropped particles, integrated by the fallback,
-    count toward that drift. The drift references are copies: the plane
-    path writes its planes in place. The first step has no drift to check
-    (the layout was just binned), so its host read is skipped. Requires
-    ``n_steps >= 1``, ``budget_mode='off'`` and ``dense_rebin='step'``."""
-    pop = _Population(mass_t, batch_slot, act, cfg, follow_rows, sub_dt,
-                      relaxation, options, g, k)
-    thresh2 = (0.25 * pop.cell_size) ** 2
-    n_live = torch.clamp(torch.sum(act), min=1)
-    grid, slot = pop.bin(pos, vel)
-    ref_xy = pop.positions(grid).clone()
-    fb = (pos, pos, vel)
-    fb_ref = pos.clone()
-    ws = wide_state
-    for i in range(n_steps):
-        if i:
-            n_over, mean = _drift_over(pop.positions(grid) - ref_xy,
-                                       pop.occupancy(grid), thresh2)
-            dropped = act & (slot >= g * pop.lanes)
-            dfb = fb[0] - fb_ref - mean
+def _copy_into(dsts, srcs) -> None:
+    """``d.copy_(s)`` for each pair whose source is not its destination."""
+    for d, s in zip(dsts, srcs):
+        if s is not d:
+            d.copy_(s)
+
+
+class _ResidentPop:
+    """One population's binned layout kept across steps or frames (JAX
+    ``_population_multi_dense`` and its fused variant, and the per-population
+    carry of ``multi_step_frames``), in buffers that :meth:`step`,
+    :meth:`frame` and :meth:`rebin` update in place, so a captured step
+    replays on fixed addresses. Construction is the *enter*: bin
+    ``pos``/``vel`` and take the drift references (copies: the plane path
+    writes its planes in place). ``fb`` = (pos, prev, vel) of the
+    particle-layout fallback; ``views`` (the frame loop's) gives the tensors
+    ``fb`` and ``last`` (the frame's start positions) are kept in:
+    ``(pos, prev, vel, last_pos)`` rows of its state buffers.
+
+    ``counter`` (a (2,) int32 device tensor or None) adds one at
+    ``pop_index`` per rebin; ``force`` and ``cond`` go to
+    :func:`_rebin_if`."""
+
+    def __init__(self, pop: _Population, pos, vel, wide_state,
+                 pop_index: int, views=None, counter=None):
+        self.pop, self.i, self.counter = pop, pop_index, counter
+        self.frames = views is not None
+        self.thresh2 = (0.25 * pop.cell_size) ** 2
+        self.n_live = torch.clamp(torch.sum(pop.act), min=1)
+        self.grid, self.slot = pop.bin(pos, vel)
+        if views is None:
+            self.fb = [pos.clone(), pos.clone(), vel.clone()]
+        else:
+            self.fb, self.last = list(views[:3]), views[3]
+            _copy_into(self.fb + [self.last], (pos, pos, vel, pos))
+        self.ws = [t.clone() for t in wide_state]
+        self.ref_p = pos.clone()                    # positions at bin time
+        self.ref_xy = pop.positions(self.grid).clone()   # and in the layout
+
+    def _substeps(self):
+        """One step's substeps on the layout; returns the fallback."""
+        work = list(self.grid)
+        fb, ws = self.pop.substeps(work, tuple(self.fb), tuple(self.ws))
+        _copy_into(self.grid, work)
+        _copy_into(self.ws, ws)
+        return fb
+
+    def rebin(self) -> None:
+        """The rebin branch: a fresh binning of the particle arrays (in a
+        resident step, the layout merged with the fallback first; in a
+        frame, the arrays the frame extracted) and new drift references,
+        all written into the buffers."""
+        pop = self.pop
+        if not self.frames:
+            _copy_into(self.fb, self.merged())
+        grid, slot = pop.bin(self.fb[0], self.fb[2])
+        _copy_into(self.grid, grid)
+        self.slot.copy_(slot)
+        self.ref_p.copy_(self.fb[0])
+        self.ref_xy.copy_(pop.positions(self.grid))
+        if self.counter is not None:
+            self.counter[self.i].add_(1)
+
+    def _decide(self, n_over, force, cond) -> None:
+        _rebin_if(n_over > self.pop.options.rebin_tolerance * self.n_live,
+                  self.i, self.rebin, force, cond)
+
+    def step(self, check: bool = True, force=None, cond=None) -> None:
+        """One resident step of :func:`multi_step`: the drift since bin time
+        (the budget-dropped particles, integrated by the fallback, count
+        too), the rebin from the merged particle arrays when more than
+        ``rebin_tolerance`` of the live particles drifted past a quarter
+        cell relative to the mean, then the substeps. ``check=False`` skips
+        the decision (a layout just binned has no drift)."""
+        pop = self.pop
+        if check:
+            n_over, mean = _drift_over(pop.positions(self.grid) - self.ref_xy,
+                                       pop.occupancy(self.grid), self.thresh2)
+            dropped = pop.act & (self.slot >= pop.g * pop.lanes)
+            dfb = self.fb[0] - self.ref_p - mean
             n_over = n_over + torch.sum(
-                dropped & (torch.sum(dfb * dfb, dim=1) > thresh2))
-            if _rebin_needed(n_over, n_live, options, pop_index):
-                fb = pop.merge(pop.extract(grid, slot), fb)
-                grid, slot = pop.bin(fb[0], fb[2])
-                ref_xy = pop.positions(grid).clone()
-                fb_ref = fb[0].clone()
-        fb, ws = pop.substeps(grid, fb, ws)
-    return (*pop.merge(pop.extract(grid, slot), fb), pop.inv_mass,
-            pop.radius, ws)
+                dropped & (torch.sum(dfb * dfb, dim=1) > self.thresh2))
+            self._decide(n_over, force, cond)
+        _copy_into(self.fb, self._substeps())
+
+    def frame(self, force=None, cond=None):
+        """One step of :func:`multi_step_frames`: the substeps, the particle
+        arrays extracted into ``fb`` (the frame needs them; ``last`` takes
+        the frame's start positions), then the rebin from those arrays when
+        the per-particle drift since bin time demands it. Returns the live
+        centroid."""
+        pop = self.pop
+        fb = self._substeps()
+        p, pr, v = pop.merge(pop.extract(self.grid, self.slot), fb)
+        n_over = _drift_over((p - self.ref_p).T, pop.act.to(torch.float32),
+                             self.thresh2)[0]
+        self.last.copy_(self.fb[0])
+        _copy_into(self.fb, (p, pr, v))
+        self._decide(n_over, force, cond)
+        return torch.sum(torch.where(pop.act[:, None], p, 0.0),
+                         dim=0) / self.n_live
+
+    def merged(self):
+        """(pos, prev, vel) of the particles: the layout's, merged with the
+        fallback. At least one substep must have run."""
+        return self.pop.merge(self.pop.extract(self.grid, self.slot),
+                              tuple(self.fb))
+
+
+def _resident_pops(state: ParticleState, cfg2: DeviceConfig, step_delta,
+                   relaxation, options: SolverOptions, wide_state,
+                   views=None, counter=None):
+    """The two populations' :class:`_ResidentPop`, binned from ``state``
+    (``views``: the frame loop's (2,)-leading state buffers)."""
+    caps = _pop_caps(options, state.capacity)
+    follow_rows = _follow_rows(state, caps)
+    step_delta = torch.as_tensor(step_delta, dtype=torch.float32,
+                                 device=state.device)
+    sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)
+    active_full = state.active_mask()
+    pops = []
+    for i, cap in enumerate(caps):
+        pop = _Population(state.mass_t[i, :cap], state.batch_slot[i, :cap],
+                          active_full[i, :cap], population_config(cfg2, i),
+                          follow_rows[i], sub_dt, relaxation, options,
+                          options.dense_grid_dim[i], options.dense_slots[i])
+        pops.append(_ResidentPop(
+            pop, state.pos[i, :cap], state.vel[i, :cap], wide_state[i], i,
+            views=None if views is None else [b[i, :cap] for b in views],
+            counter=counter))
+    return pops
+
+
+class ResidentSteps:
+    """The resident steps of :func:`multi_step`, both populations, in three
+    parts: construction (*enter*: bin from ``state``), :meth:`step` (one
+    resident step) and :meth:`exit` (merge). Every part reads and writes
+    buffers made at the enter, so each can be captured once and replayed
+    (``ops/resident_graph.py``); ``pops[i].rebin`` is population ``i``'s
+    rebin branch. ``counter``: see :class:`_ResidentPop`."""
+
+    def __init__(self, state: ParticleState, cfg2: DeviceConfig, step_delta,
+                 relaxation, options: SolverOptions, wide_state,
+                 counter=None):
+        self.state = state
+        self.pops = _resident_pops(state, cfg2, step_delta, relaxation,
+                                   options, wide_state, counter=counter)
+
+    def step(self, check: bool = True, force=None, cond=None) -> None:
+        for r in self.pops:
+            r.step(check, force, cond)
+
+    def exit(self):
+        """``(fields, wide_state)``: the state fields the steps wrote
+        (positions, previous positions, velocities, inverse masses, radii),
+        fresh tensors, and the carried wide-gate state."""
+        new = {f: getattr(self.state, f).clone()
+               for f in ("pos", "prev", "vel", "inv_mass", "radius")}
+        for i, r in enumerate(self.pops):
+            cap = r.pop.act.shape[0]
+            for f, v in zip(("pos", "prev", "vel", "inv_mass", "radius"),
+                            (*r.merged(), r.pop.inv_mass, r.pop.radius)):
+                new[f][i, :cap] = v
+        return new, [tuple(r.ws) for r in self.pops]
+
+
+class FrameLoop:
+    """The carry of :func:`multi_step_frames`, both populations: the state
+    buffers (positions, previous positions, velocities, last positions),
+    the binned layouts, the live centroid and the last one. Construction is
+    the *enter*; :meth:`frame` advances one frame in place;
+    ``pops[i].rebin`` is population ``i``'s rebin branch. ``counter``: see
+    :class:`_ResidentPop`."""
+
+    FIELDS = ("pos", "prev", "vel", "last_pos")
+
+    def __init__(self, state: ParticleState, cfg2: DeviceConfig, step_delta,
+                 relaxation, options: SolverOptions, wide_state,
+                 counter=None):
+        self.state = state
+        self.buf = [getattr(state, f).clone() for f in self.FIELDS]
+        self.pops = _resident_pops(state, cfg2, step_delta, relaxation,
+                                   options, wide_state, views=self.buf,
+                                   counter=counter)
+        active_full = state.active_mask()
+        n_a0 = torch.clamp(torch.sum(active_full, dim=1), min=1)
+        self.centroid = (torch.sum(torch.where(active_full[..., None],
+                                               state.pos, 0.0), dim=1)
+                         / n_a0[:, None])
+        self.last_centroid = self.centroid.clone()
+
+    def frame(self, force=None, cond=None) -> None:
+        cents = torch.stack([r.frame(force, cond) for r in self.pops])
+        self.last_centroid.copy_(self.centroid)
+        self.centroid.copy_(cents)
+
+    def frame_state(self) -> ParticleState:
+        """The state after the last frame, in fresh tensors."""
+        return self.state.replace(**{f: b.clone()
+                                     for f, b in zip(self.FIELDS, self.buf)})
+
+    def frame_stats(self) -> StepStats:
+        """The stats a frame hands on: the centroid and the last centroid
+        (fresh tensors); the other fields zero, ``max_radius`` one."""
+        dev = self.centroid.device
+        z2 = torch.zeros((2, 2), dtype=torch.float32, device=dev)
+        mb = self.state.max_batches
+        return StepStats(
+            aabb_min=z2, aabb_max=z2, centroid=self.centroid.clone(),
+            last_centroid=self.last_centroid.clone(),
+            max_radius=torch.ones((2,), dtype=torch.float32, device=dev),
+            max_velocity=torch.zeros((2,), dtype=torch.float32, device=dev),
+            batch_pos_sum=torch.zeros((2, mb, 2), dtype=torch.float32,
+                                      device=dev),
+            batch_count=torch.zeros((2, mb), dtype=torch.float32,
+                                    device=dev))
+
+    def wide_state(self):
+        """The carried wide-gate state, in fresh tensors."""
+        return tuple(tuple(t.clone() for t in r.ws) for r in self.pops)
 
 
 # ----------------------------------------------- dense engine (per pass) --
@@ -1021,47 +1216,41 @@ def multi_step_is_loop(options: SolverOptions) -> bool:
 @torch.no_grad()
 def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
                relaxation, options: SolverOptions, n_steps: int,
-               wide_state=None):
+               wide_state=None, graphs=None):
     """``n_steps`` chained fixed steps (headless fast-forward).
 
     Returns ``(state, stats)``, or ``(state, stats, wide_state_out)`` when
     ``wide_state`` is passed. On the dense engine with the budget off,
     ``dense_rebin="step"`` and ``adaptive_rebin``, the first ``n_steps - 1``
-    steps run resident
-    (:func:`_population_multi_dense`); otherwise they are a loop of steps.
-    Either way one full step comes last, giving the stats and ``last_pos``
-    (the stats are the final step's only, as the reference reads centroids
-    lazily, :289-293). ``n_steps <= 1`` runs that one step. The follow
-    tables are built once for all steps."""
+    steps run resident (:class:`ResidentSteps`); otherwise they are a loop
+    of steps. Either way one full step comes last, giving the stats and
+    ``last_pos`` (the stats are the final step's only, as the reference
+    reads centroids lazily, :289-293). ``n_steps <= 1`` runs that one step.
+    The follow tables are built once for all steps.
+
+    ``graphs`` (a ``resident_graph.ResidentGraphs``) runs the resident
+    route as graph replays, with no read of the device; None runs it
+    eagerly, reading the rebin flag on the host. The loop of steps ignores
+    it."""
     caps = _pop_caps(options, state.capacity)
-    follow_rows = _follow_rows(state, caps)
     thread_wide = wide_state is not None
-    ws = (list(wide_state) if thread_wide
-          else [wide_state_init(options, state.device)] * 2)
+    ws = (tuple(wide_state) if thread_wide
+          else (wide_state_init(options, state.device),) * 2)
     n_res = max(int(n_steps) - 1, 0)
+    if not multi_step_is_loop(options) and graphs is not None:
+        state, stats, ws_fin = graphs.steps(state, cfg2, step_delta,
+                                            relaxation, options, n_steps, ws)
+        return (state, stats, ws_fin) if thread_wide else (state, stats)
+    follow_rows = _follow_rows(state, caps)
     if not multi_step_is_loop(options):
         # no resident step: the final step reads only pos and vel, so
         # skipping the binning gives JAX's zero-step result
         if n_res:
-            step_delta = torch.as_tensor(step_delta, dtype=torch.float32,
-                                         device=state.device)
-            sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)
-            active_full = state.active_mask()
-            new = {f: getattr(state, f).clone()
-                   for f in ("pos", "prev", "vel", "inv_mass", "radius")}
-            for i in range(2):
-                cap = caps[i]
-                outs = _population_multi_dense(
-                    state.pos[i, :cap], state.vel[i, :cap],
-                    state.mass_t[i, :cap], state.batch_slot[i, :cap],
-                    active_full[i, :cap], population_config(cfg2, i),
-                    follow_rows[i], sub_dt, relaxation, options,
-                    options.dense_grid_dim[i], options.dense_slots[i], n_res,
-                    i, wide_state=ws[i])
-                for f, v in zip(("pos", "prev", "vel", "inv_mass", "radius"),
-                                outs[:5]):
-                    new[f][i, :cap] = v
-                ws[i] = outs[5]
+            loop = ResidentSteps(state, cfg2, step_delta, relaxation,
+                                 options, ws)
+            for i in range(n_res):
+                loop.step(check=i > 0)      # the first layout was just binned
+            new, ws = loop.exit()
             state = state.replace(**new)
     else:
         for _ in range(n_res):
@@ -1080,7 +1269,7 @@ def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
 @torch.no_grad()
 def multi_step_frames(state: ParticleState, cfg2: DeviceConfig, step_delta,
                       relaxation, options: SolverOptions, n_steps: int,
-                      frame_fn, wide_state=None):
+                      frame_fn, wide_state=None, graphs=None):
     """Resident frame loop: per iteration one fixed step, then
     ``frame_fn(state, stats)`` or ``frame_fn(state, stats, t)`` (``t`` the
     frame index), whose scalar results are summed.
@@ -1092,6 +1281,12 @@ def multi_step_frames(state: ParticleState, cfg2: DeviceConfig, step_delta,
     demands it (the :func:`multi_step` rule). ``last_pos`` is each frame's
     start position. ``stats`` carries the centroid and last centroid the
     renderer reads; the other fields are zero (ones for ``max_radius``).
+    Each frame's state and stats are fresh tensors.
+
+    ``graphs`` (a ``resident_graph.ResidentGraphs``) runs each frame's step
+    as a graph replay, with no read of the device; None runs it eagerly,
+    reading the rebin flag on the host. ``frame_fn`` is called from Python
+    either way.
 
     Returns ``(state, total)``, or ``(state, total, wide_state_out)`` when
     ``wide_state`` is passed. Requires ``engine='dense'``,
@@ -1100,74 +1295,22 @@ def multi_step_frames(state: ParticleState, cfg2: DeviceConfig, step_delta,
         raise ValueError("multi_step_frames requires the resident dense "
                          "configuration: engine='dense', budget_mode='off', "
                          "dense_rebin='step'")
-    dev = state.device
-    caps = _pop_caps(options, state.capacity)
-    follow_rows = _follow_rows(state, caps)
-    step_delta = torch.as_tensor(step_delta, dtype=torch.float32, device=dev)
-    sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)
-    active_full = state.active_mask()
+    ws = (tuple(wide_state) if wide_state is not None
+          else (wide_state_init(options, state.device),) * 2)
+    if graphs is None:
+        loop = FrameLoop(state, cfg2, step_delta, relaxation, options, ws)
+        advance = loop.frame
+    else:
+        loop, advance = graphs.frames(state, cfg2, step_delta, relaxation,
+                                      options, ws)
     wants_index = len(inspect.signature(frame_fn).parameters) >= 3
-
-    pops, carries = [], []
-    for i in range(2):
-        cap = caps[i]
-        pop = _Population(state.mass_t[i, :cap], state.batch_slot[i, :cap],
-                          active_full[i, :cap], population_config(cfg2, i),
-                          follow_rows[i], sub_dt, relaxation, options,
-                          options.dense_grid_dim[i], options.dense_slots[i])
-        p0, v0 = state.pos[i, :cap].clone(), state.vel[i, :cap]
-        grid, slot = pop.bin(p0, v0)
-        pops.append(pop)
-        carries.append(dict(
-            grid=grid, slot=slot, ref=p0, fb=(p0, p0, v0), last=p0,
-            ws=(wide_state[i] if wide_state is not None
-                else wide_state_init(options, dev))))
-    n_a0 = torch.clamp(torch.sum(active_full, dim=1), min=1)
-    centroid = (torch.sum(torch.where(active_full[..., None], state.pos, 0.0),
-                          dim=1) / n_a0[:, None])
-
-    def with_carries():
-        new = {f: getattr(state, f).clone()
-               for f in ("pos", "prev", "vel", "last_pos")}
-        for i, c in enumerate(carries):
-            for f, v in zip(("pos", "prev", "vel", "last_pos"),
-                            (*c["fb"], c["last"])):
-                new[f][i, :caps[i]] = v
-        return state.replace(**new)
-
-    total = torch.zeros((), dtype=torch.float32, device=dev)
-    z2 = torch.zeros((2, 2), dtype=torch.float32, device=dev)
+    total = torch.zeros((), dtype=torch.float32, device=state.device)
     for t in range(int(n_steps)):
-        cents = []
-        for i, (pop, c) in enumerate(zip(pops, carries)):
-            act = pop.act
-            pre_p = c["fb"][0]
-            fb, c["ws"] = pop.substeps(c["grid"], c["fb"], c["ws"])
-            p, pr, v = pop.merge(pop.extract(c["grid"], c["slot"]), fb)
-            # relative-to-mean drift since bin time, per particle
-            n_live = torch.clamp(torch.sum(act), min=1)
-            n_over = _drift_over((p - c["ref"]).T, act.to(torch.float32),
-                                 (0.25 * pop.cell_size) ** 2)[0]
-            if _rebin_needed(n_over, n_live, options, i):
-                c["grid"], c["slot"] = pop.bin(p, v)
-                c["ref"] = p.clone()
-            c["fb"], c["last"] = (p, pr, v), pre_p
-            cents.append(torch.sum(torch.where(act[:, None], p, 0.0), dim=0)
-                         / n_live)
-        last_centroid, centroid = centroid, torch.stack(cents)
-        stats = StepStats(
-            aabb_min=z2, aabb_max=z2, centroid=centroid,
-            last_centroid=last_centroid,
-            max_radius=torch.ones((2,), dtype=torch.float32, device=dev),
-            max_velocity=torch.zeros((2,), dtype=torch.float32, device=dev),
-            batch_pos_sum=torch.zeros((2, state.max_batches, 2),
-                                      dtype=torch.float32, device=dev),
-            batch_count=torch.zeros((2, state.max_batches),
-                                    dtype=torch.float32, device=dev))
-        frame_state = with_carries()
-        total = total + (frame_fn(frame_state, stats, t) if wants_index
-                         else frame_fn(frame_state, stats))
-    final = with_carries()
+        advance()
+        args = (loop.frame_state(), loop.frame_stats())
+        total = total + (frame_fn(*args, t) if wants_index
+                         else frame_fn(*args))
+    final = loop.frame_state()
     if wide_state is not None:
-        return final, total, tuple(c["ws"] for c in carries)
+        return final, total, loop.wide_state()
     return final, total

@@ -42,6 +42,7 @@ graph (how the plumbing is tested on the CPU).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import OrderedDict
 
@@ -51,7 +52,8 @@ from ..config import DeviceConfig
 from ..state import ParticleState, StepStats
 from . import solver
 
-__all__ = ["EAGER", "StepGraph", "StepGraphs", "graph_key", "copy_in"]
+__all__ = ["EAGER", "StaticInputs", "StepGraph", "StepGraphs", "graph_key",
+           "copy_in", "sync_errors"]
 
 # a handler's ``_step_graphs`` set to this runs its fixed steps eagerly on
 # any device (how a measurement times the eager step beside the replayed one)
@@ -124,15 +126,26 @@ def _write_back(pairs) -> None:
         d.copy_(s)
 
 
-class StepGraph:
-    """One step, captured (or, with ``capture=False``, run eagerly) on static
-    buffers; see the module. Built from the first call's inputs, which it
-    copies in, and runs once: that run is the call's first step."""
+@contextlib.contextmanager
+def sync_errors():
+    """Inside, an op that reads the device (or copies from pageable host
+    memory) raises, naming itself: how the first run of a body that is to
+    be captured proves it never waits on the device."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
-    def __init__(self, state: ParticleState, cfg2: DeviceConfig, step_delta,
-                 relaxation, options: solver.SolverOptions, wide_state, *,
-                 capture: bool):
-        self.options = options
+
+class StaticInputs:
+    """Static buffers for everything a step reads (the state, the
+    (2,)-leading config, the step scalars, the wide-gate state) and their
+    copy-in: what a captured step (:class:`StepGraph`) or resident loop
+    (``ops/resident_graph.py``) reads at fixed addresses."""
+
+    def __init__(self, state: ParticleState, cfg2: DeviceConfig):
         dev = state.device
         self._carried = [(f, tuple(getattr(state, f).shape)) for f in CARRIED]
         self._in_flat = torch.empty(
@@ -152,24 +165,6 @@ class StepGraph:
         self._wide = tuple((self._in_trip[i], self._in_count[i, 0],
                             self._in_count[i, 1]) for i in range(2))
         self._held = {}            # input name -> (tensor, version) held
-        self._stats_flat = None    # the last step's stats, laid out as
-        self._stats_layout = None  # [(name, shape)]
-        self._graph = None
-        self.load(state, cfg2, step_delta, relaxation, wide_state)
-        if capture:
-            # the first step eagerly, with any read of the device an error,
-            # then the capture (it runs nothing)
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                self._body()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-            self._capture()
-        else:
-            self._body()
-
-    # ------------------------------------------------------------ inputs --
 
     def _inputs(self, state, cfg2, step_delta, relaxation, wide_state):
         """``(name, static buffer, source)`` of every input."""
@@ -191,6 +186,30 @@ class StepGraph:
         copied."""
         return copy_in(self._held, self._inputs(state, cfg2, step_delta,
                                                 relaxation, wide_state))
+
+
+class StepGraph(StaticInputs):
+    """One step, captured (or, with ``capture=False``, run eagerly) on static
+    buffers; see the module. Built from the first call's inputs, which it
+    copies in, and runs once: that run is the call's first step."""
+
+    def __init__(self, state: ParticleState, cfg2: DeviceConfig, step_delta,
+                 relaxation, options: solver.SolverOptions, wide_state, *,
+                 capture: bool):
+        super().__init__(state, cfg2)
+        self.options = options
+        self._stats_flat = None    # the last step's stats, laid out as
+        self._stats_layout = None  # [(name, shape)]
+        self._graph = None
+        self.load(state, cfg2, step_delta, relaxation, wide_state)
+        if capture:
+            # the first step eagerly, with any read of the device an error,
+            # then the capture (it runs nothing)
+            with sync_errors():
+                self._body()
+            self._capture()
+        else:
+            self._body()
 
     # -------------------------------------------------------------- step --
 

@@ -7,10 +7,14 @@ On the 1M-white scene of ``chip_smoke.build_handler`` (fused path, wide
 gate off), after 3 settling updates, in alternating blocks of ``--n``:
 
 - ``update``: ``update(1/60)`` per step;
-- ``run_steps``: ``run_steps(n)`` (``n - 1`` resident steps + one full step);
+- ``run_steps``: ``run_steps(n)`` (``n - 1`` resident steps + one full step,
+  replayed from the handler's resident graphs);
 - ``update_draw``: ``update(1/60)`` + ``draw`` of a 2560 px viewport;
-- ``frames``: ``solver.multi_step_frames`` over ``n`` frames with the same
-  render as ``frame_fn``.
+- ``frames``: ``solver.multi_step_frames`` over ``n`` frames through the
+  handler's resident graphs, with the same render as ``frame_fn``.
+
+``rebins`` is the handler's count over the block (the replayed loops'
+device counter), ``host_syncs`` the eager loop's reads of the rebin flag.
 
 Each block is timed with the host clock around work that ends in
 ``torch.cuda.synchronize()``; one more block of each runs under
@@ -61,7 +65,8 @@ def main() -> int:
         dt, relax = h._step_scalars(1 / 60)
         h._state, _ = S.multi_step_frames(h.state, h._device_cfg2(), dt, relax,
                                           h._options, n,
-                                          C.render_frame_fn(h, viewport))
+                                          C.render_frame_fn(h, viewport),
+                                          graphs=h._resident_graphs())
 
     def update_draw():
         for _ in range(n):
@@ -79,14 +84,15 @@ def main() -> int:
         order = list(modes) if b % 2 == 0 else list(modes)[::-1]
         for m in order:
             S.host_syncs = 0
-            S.rebins[:] = [0, 0]
+            before = C.BENCH.rebin_count(h)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             modes[m]()
             torch.cuda.synchronize()
             times[m].append((time.perf_counter() - t0) * 1e3 / n)
+            rebins = [a - b for a, b in zip(C.BENCH.rebin_count(h), before)]
             print(json.dumps({"block": b, "mode": m, "ms_per_unit": times[m][-1],
-                              "rebins": list(S.rebins),
+                              "rebins": rebins,
                               "host_syncs": S.host_syncs}), flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
