@@ -95,16 +95,30 @@ Then it drives the paths through the public API:
   steps, held after the first and the third within the step tolerances,
   and against the automatic fused route (kernel B) after the first within
   ``FUSED_TOL`` (its difference after the third printed); 60
-  settle steps; per-step time of ``run_steps`` blocks of the spatial
-  handler, of the bare ``spatial_multi_step`` and of the dense handler in
-  turns (CUDA events, p50 and the blocks printed), one traced block of
+  settle steps. The spatial handler's ``step_once``, ``run_steps`` and
+  ``draw`` replay from its CUDA graphs (``parallel/spatial_graph.py``; the
+  first call of each timed, ``spatial_graph.first_call``): each replayed
+  against the eager route from one state (``spatial_graph.<unit>``: bit
+  for bit, ``batch_pos_sum`` within ``STATS_RTOL``) over a block of
+  ``run_steps`` that takes the rebin branch and one that does not
+  (``CALM_DT`` steps), rebins from the device counter = the eager loop's,
+  0 host reads of the rebin decision replayed, D (12 a step) and C (2 a
+  draw) counted from the replay's profiler trace and no wrapper launch;
+  the graphs' own calls under ``sync_errors``; each part's graph nodes,
+  capture seconds and pool bytes (``spatial_graph.parts``); replayed
+  against eager timed (wall and device ms, ``spatial_graph.*.time``);
+  per-step time of ``run_steps`` blocks of the spatial handler, of its
+  bare replayed resident steps and of the dense handler in turns (CUDA
+  events, p50 and the blocks printed), the handler's host redistribute
+  alone (host-clock ms a call, ``redistribute_ms``), one traced block of
   each handler; a draw.
-  Kernel D against its plain version on the run's own local window and on
-  the windows of 2 x 2 and 4 x 2 layouts of the same grid cut from it
-  (halo rows and lanes from the torus neighbours), windows 1 and 3, static
-  and through the device flag; kernel C on a ``SpatialHandler.draw``
-  payload, alpha and rgb. D's and C's launches of this phase are their own
-  entries of the kernel line (``.spatial_1x1``);
+  Kernel D against its plain version on the run's own local window (kept
+  from one eager step) and on the windows of 2 x 2 and 4 x 2 layouts of
+  the same grid cut from it (halo rows and lanes from the torus
+  neighbours), windows 1 and 3, static and through the device flag; kernel
+  C on a ``SpatialHandler.draw`` payload, alpha and rgb. D's and C's
+  launches in the replayed resident steps and draw are their own entries
+  of the kernel line (``.spatial_1x1``);
 - ``bench``: ``python bench_torch.py --quick`` (the port's bench,
   ``egg_fluid_simulation_tpu_torch/bench.py``, its 1M stages at 65,536
   particles) in a subprocess under ``BENCH_TIMEOUT_S``; it fails on a
@@ -123,8 +137,9 @@ path, its time and its plain version's, its bound on the card (``bound``)
 and, where one PyTorch call computes the same function, that call's time.
 A handler's fixed step is replayed from a CUDA graph, which runs its
 launches without the wrappers, so the launches of a path that replays
-(``main_path``, ``plane_path``, ``plane_modes``, ``gather_path``) are
-counted in a ``torch.profiler`` trace of its run, by kernel symbol
+(``main_path``, ``plane_path``, ``plane_modes``, ``gather_path``,
+``spatial_1x1``) are counted in a ``torch.profiler`` trace of its run, by
+kernel symbol
 (``launches_run``); the wrappers' counters, which count the eager first
 step and the capture, are printed beside them and must not be zero where
 the run captured.
@@ -207,6 +222,9 @@ FUSED_VEL_TOL = 0.6         # handler's fused route (kernel B, another
 SPATIAL_SETTLE = 60         # run_steps before timing (bench.py)
 SPATIAL_BLOCKS = 4          # timed blocks per handler, in turns
 SPATIAL_CHAIN = 10          # run_steps per timed block
+SPATIAL_GRAPH_STEPS = 5     # run_steps of a replayed-vs-eager block
+CALM_DT = 1e-4              # s: steps that drift too little to rebin (the
+                            # block that does not take the branch)
 BENCH_TIMEOUT_S = 420       # the quick bench's subprocess, start-up included
 
 # Peak rates of one H100 SXM (vendor datasheet): HBM3 bytes/s and
@@ -572,16 +590,23 @@ def resident_nodes(h):
 
 @contextlib.contextmanager
 def eager_graphs(h):
-    """The handler's fixed steps and renders run eagerly inside the block
-    (one launch per op, as before they were captured); its captured steps
-    and renders are kept for after."""
+    """The handler's fixed steps and renders (a ``SpatialHandler``'s steps,
+    resident steps and draws) run eagerly inside the block (one launch per
+    op, as before they were captured); its captured graphs are kept for
+    after."""
     from egg_fluid_simulation_tpu_torch.ops.step_graph import EAGER
-    saved = h._step_graphs, h._render_graphs
-    h._step_graphs = h._render_graphs = EAGER
+    from egg_fluid_simulation_tpu_torch.parallel.spatial_handler import (
+        SpatialHandler)
+    names = (("_spatial",) if isinstance(h, SpatialHandler)
+             else ("_step_graphs", "_render_graphs"))
+    saved = [getattr(h, n) for n in names]
+    for n in names:
+        setattr(h, n, EAGER)
     try:
         yield
     finally:
-        h._step_graphs, h._render_graphs = saved
+        for n, v in zip(names, saved):
+            setattr(h, n, v)
 
 
 def check_step_graph(h, phase: str, updates: int = 2) -> dict:
@@ -773,10 +798,11 @@ def resident_frames(h, phase: str, frames: int, frame_fn) -> dict:
     return out
 
 
-def per_unit(phase: str, timed: dict, n: int, unit: str) -> None:
+def per_unit(phase: str, timed: dict, n: int, unit: str,
+             line: str = "resident_graph") -> None:
     """A :func:`graph_vs_eager` reading of ``n``-step (or frame) calls, per
     step (or frame): wall p50, device ms, kernels, busy share."""
-    log(f"resident_graph.{phase}.per_{unit}", **{
+    log(f"{line}.{phase}.per_{unit}", **{
         mode: dict(wall_ms=round(timed[mode]["wall_p50_ms"] / n, 4),
                    device_ms=round(timed[mode]["device_ms"] / n, 4),
                    kernels=round(timed[mode]["kernels"] / n, 1),
@@ -2414,14 +2440,151 @@ def bench_phase() -> dict:
     return final
 
 
+def spatial_snapshot(hs):
+    """What a spatial handler's step, resident steps or draw reads and
+    writes, to start two runs from."""
+    return (hs._sp_state, hs._sp_stats, hs._sp_wide, hs._elapsed,
+            hs._interpolation_alpha, hs._redistribute_count, hs._last_info)
+
+
+def spatial_restore(hs, snap) -> None:
+    (hs._sp_state, hs._sp_stats, hs._sp_wide, hs._elapsed,
+     hs._interpolation_alpha, hs._redistribute_count, hs._last_info) = snap
+
+
+def spatial_unequal(a, b) -> tuple:
+    """``(fields that differ, batch_pos_sum's relative error, the frames'
+    largest difference)`` of two ``(state, stats, wide_state, info,
+    frame)``: the state's fields a step writes, the wide-gate state and the
+    migration counters bit for bit, the stats too but ``batch_pos_sum``
+    (``index_add_``'s atomics: ``STATS_RTOL``)."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.parallel.spatial_graph import \
+        STATE_OUT
+    unequal = {f for f in STATE_OUT
+               if not torch.equal(getattr(a[0], f), getattr(b[0], f))}
+    if (a[2] is None) != (b[2] is None) or (a[2] is not None and not all(
+            torch.equal(x, y) for wa, wb in zip(a[2], b[2])
+            for x, y in zip(wa, wb))):
+        unequal.add("wide_state")
+    if not np.array_equal(a[3], b[3]):
+        unequal.add("info")
+    more, err = resident_unequal((a[0], a[1], ()), (b[0], b[1], ()))
+    unequal |= set(more)
+    frame_err = (0.0 if a[4] is None
+                 else float((a[4] - b[4]).abs().max()))
+    return sorted(unequal), err, frame_err
+
+
+def check_spatial_graph(hs, viewport) -> dict:
+    """The 1 x 1 spatial handler's ``step_once``, ``run_steps`` and
+    ``draw`` replayed from its graphs (``parallel/spatial_graph.py``)
+    against the eager route (:func:`eager_graphs`) from one state
+    (:func:`spatial_unequal`: bit for bit, ``batch_pos_sum`` within
+    ``STATS_RTOL``, the frame within ``DRAW_TOL``): a step, a block of
+    resident steps that takes the rebin branch (1/60 s steps of the
+    settled scene) and one that does not (``CALM_DT`` steps), a draw. The
+    replayed run is traced: D and C counted by symbol (12 D a step, 2 C a
+    draw, nothing else of the library, no wrapper launch); rebins from the
+    device counter = the eager loop's host decisions; 0 host reads of the
+    rebin decision replayed. Then the graphs' own calls under
+    ``sync_errors`` (no device read), and each part's graph nodes, capture
+    seconds and pool bytes. Returns each unit's traced launches."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.step_graph import sync_errors
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+    graphs = hs._spatial_graphs()
+    opts = hs._options
+    per = 2 * opts.n_substeps * opts.n_collision_steps
+    n = SPATIAL_GRAPH_STEPS
+    units = (("step_once", hs.step_once, {"sweep_planes": per}),
+             ("run_steps.rebin", lambda: hs.run_steps(n),
+              {"sweep_planes": per * n}),
+             ("run_steps.calm", lambda: hs.run_steps(n, step_delta=CALM_DT),
+              {"sweep_planes": per * n}),
+             ("draw", lambda: hs.draw(viewport=viewport), {"splat": 2}))
+    traced_launches, taken = {}, {}
+    for name, unit, want in units:
+        if name == "draw":
+            hs.draw(viewport=viewport)       # this state's draw key built
+        snap = spatial_snapshot(hs)
+        S.host_reads = 0
+        S.rebins[:] = [0, 0]
+        before = graphs.rebins.clone()
+        with launches_run() as run:
+            frame = unit()
+        torch.cuda.synchronize()
+        rebins = (graphs.rebins - before).tolist()
+        reads = S.host_reads
+        got = (hs.state, hs.stats, hs._sp_wide, hs.last_migration_info,
+               frame)
+        spatial_restore(hs, snap)
+        S.host_reads = 0
+        S.rebins[:] = [0, 0]
+        with eager_graphs(hs):
+            frame = unit()
+        want_out = (hs.state, hs.stats, hs._sp_wide, hs.last_migration_info,
+                    frame)
+        unequal, stats_err, frame_err = spatial_unequal(got, want_out)
+        launches = run["trace"]
+        wrong = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+        out = dict(unequal=unequal, batch_sum_rel_err=stats_err,
+                   frame_max_abs_err=frame_err, rebins_device=rebins,
+                   rebins_eager=list(S.rebins), host_reads_replayed=reads,
+                   host_reads_eager=S.host_reads, launches=launches,
+                   expected=want, wrapper_counts=run["wrappers"],
+                   tol=f"bit for bit; batch_pos_sum rtol {STATS_RTOL}, "
+                       f"frame {DRAW_TOL}")
+        log(f"spatial_graph.{name}", **out)
+        if (unequal or stats_err > STATS_RTOL or frame_err > DRAW_TOL
+                or rebins != list(S.rebins) or reads != 0 or wrong
+                or any(run["wrappers"].values())):
+            raise AssertionError(f"spatial_graph.{name}: the replay differs "
+                                 f"from the eager route or ran otherwise "
+                                 f"than expected ({out})")
+        traced_launches[name], taken[name] = launches, sum(rebins)
+    if not (taken["run_steps.rebin"] > 0 and taken["run_steps.calm"] == 0):
+        raise AssertionError(f"spatial_graph: the blocks did not take both "
+                             f"branches ({taken})")
+
+    # the graphs' own calls read nothing from the device
+    snap = spatial_snapshot(hs)
+    cfg2 = hs._inner._device_cfg2()
+    dt, relax = hs._inner._step_scalars(1 / 60)
+    with sync_errors():
+        graphs.step(hs._sp_state, cfg2, dt, relax)
+        graphs.steps(hs._sp_state, cfg2, dt, relax, 2, hs._sp_wide)
+    torch.cuda.synchronize()
+    spatial_restore(hs, snap)
+    parts, capture_s, pools = {}, {}, {}
+    for g in graphs._graphs.values():
+        capture_s[g.kind], pools[g.kind] = (round(g.capture_seconds, 3),
+                                            g.pool_bytes)
+        for part, graph in g._graphs.items():
+            parts[f"{g.kind}.{part}"] = node_types(graph.raw_cuda_graph())
+    draw_g = next(reversed(graphs._draws.values()))
+    parts["draw"] = body_nodes(draw_g._body)
+    pools["draw"] = draw_g.pool_bytes
+    log("spatial_graph.parts", route=next(iter(
+        graphs._graphs.values())).route, graph_nodes=parts,
+        capture_s=capture_s, pool_bytes=pools, captures=graphs.captures,
+        no_device_read=True)
+    return traced_launches
+
+
 def spatial_phase(dev, results) -> dict:
     """``spatial_1x1``: the 2D spatial layer on a one-rank mesh (a 1-rank
     NCCL group started in the process over an in-memory store: every halo a
     copy, no collective) at the bench.py scene of ``build_handler(65536,
-    spatial=1)``, against the dense handler on the same scene. Kernel D on
-    the run's own local window and on windows of 2 x 2 and 4 x 2 layouts
-    of the same grid, kernel C on a ``SpatialHandler.draw`` payload, each
-    against its plain version. Returns the phase's kernel launches."""
+    spatial=1)``, against the dense handler on the same scene. The spatial
+    handler's step, resident steps and draw replay from its graphs
+    (``parallel/spatial_graph.py``): the first call of each is timed, the
+    replays are held against the eager route and timed against it
+    (:func:`check_spatial_graph`, :func:`graph_vs_eager`). Kernel D on the
+    run's own local window and on windows of 2 x 2 and 4 x 2 layouts of the
+    same grid, kernel C on a ``SpatialHandler.draw`` payload, each against
+    its plain version. Returns the launches of the replayed resident steps
+    and draw, from their traces."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -2443,15 +2606,14 @@ def spatial_phase(dev, results) -> dict:
         world=dist.get_world_size(), particles=hs.get_n_particles(),
         grid=hs.layout.grid_dim, window=(hs.layout.rows, hs.layout.width),
         dense_grids=hd._options.dense_grid_dim)
-    launches = {n: 0 for n in read_counters()}
+    first_s = {}
 
-    def spatial_run(fn):
-        """``fn`` on the spatial handler, its kernel launches counted."""
-        reset_counters()
-        out = fn()
-        for n, v in read_counters().items():
-            launches[n] += v
-        return out
+    def first_call(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first_s[name] = round(time.perf_counter() - t0, 3)
 
     # ---- the spatial step against the dense step, three free-running
     # steps, held after 1 and 3. The reference is the dense handler on its
@@ -2461,7 +2623,8 @@ def spatial_phase(dev, results) -> dict:
     # amplifies, so it is held after the first step at FUSED_TOL; past K a
     # cell's rotating winner hash reads position bits, so an ulp picks
     # other winners and the routes part by more over later steps (ROADMAP
-    # Queue 3): its difference after steps 2 and 3 is printed ----
+    # Queue 3): its difference after steps 2 and 3 is printed. The first
+    # step builds the step's graph ----
     from egg_fluid_simulation_tpu_torch.ops import solver as SO
 
     def plane_route(fn):
@@ -2491,12 +2654,13 @@ def spatial_phase(dev, results) -> dict:
                                            .abs().max()))
         return err
 
-    n_steps = 0
     for k in range(1, SPATIAL_CHECK_STEPS + 1):
-        spatial_run(hs.step_once)
+        if k == 1:
+            first_call("step_once", hs.step_once)
+        else:
+            hs.step_once()
         plane_route(hp.step_once)
         hd.step_once()
-        n_steps += 1
         fused_err = state_err(hs.state, hd.state)
         log("spatial_1x1.fused_route", steps=k, max_abs_err=fused_err,
             tol=(f"pos/prev {FUSED_TOL} px, vel {FUSED_VEL_TOL} px/s"
@@ -2526,10 +2690,11 @@ def spatial_phase(dev, results) -> dict:
                                  f"with the dense step after {k} steps")
     del hp
 
-    # ---- settle, then capture the run's own local window once ----
-    spatial_run(lambda: hs.run_steps(SPATIAL_SETTLE))
+    # ---- settle (the first resident call builds its graphs), then one
+    # eager step that keeps the run's own local window for kernel D ----
+    first_call("run_steps(2)", lambda: hs.run_steps(2))
+    hs.run_steps(SPATIAL_SETTLE - 2)
     hd.run_steps(SPATIAL_SETTLE)
-    n_steps += SPATIAL_SETTLE
     seen = []
     sweep_local = S._sweep_local
 
@@ -2540,55 +2705,84 @@ def spatial_phase(dev, results) -> dict:
 
     S._sweep_local = sweep_kept
     try:
-        spatial_run(hs.step_once)
+        with eager_graphs(hs):
+            hs.step_once()
     finally:
         S._sweep_local = sweep_local
-    n_steps += 1
+    viewport = (0, 0, 1800, 1800)
+    first_call("draw", lambda: hs.draw(viewport=viewport))
+    log("spatial_graph.first_call", seconds=first_s,
+        capture_s={g.kind: round(g.capture_seconds, 3)
+                   for g in hs._spatial_graphs()._graphs.values()})
+
+    # ---- replayed against eager from one state, both branches ----
+    launches = check_spatial_graph(hs, viewport)
+
+    # ---- replayed against eager, timed: wall and device ms ----
+    per = hs._options.n_substeps * hs._options.n_collision_steps * 2
+    timed = graph_vs_eager(
+        hs, "spatial_1x1.run_steps", lambda: hs.run_steps(SPATIAL_CHAIN), 1,
+        GRAPH_BLOCKS, expect={"sweep_planes": per * SPATIAL_CHAIN},
+        line="spatial_graph")
+    per_unit("spatial_1x1.run_steps", timed, SPATIAL_CHAIN, "step",
+             line="spatial_graph")
+    graph_vs_eager(hs, "spatial_1x1.step_once", hs.step_once, GRAPH_UNITS,
+                   GRAPH_BLOCKS, expect={"sweep_planes": per},
+                   line="spatial_graph")
+    graph_vs_eager(hs, "spatial_1x1.draw",
+                   lambda: hs.draw(viewport=viewport), DRAW_UNITS,
+                   GRAPH_BLOCKS, expect={"splat": 2}, line="spatial_graph")
 
     # ---- per-step time of resident steps, in turns: the spatial
-    # handler's run_steps, the bare spatial_multi_step under it (without
-    # the handler's host read of the migration counters and its
-    # redistribute) and the dense handler's run_steps; then one traced
-    # block of each handler ----
+    # handler's run_steps, the bare replayed resident steps under it
+    # (without the handler's read of the migration counters and its
+    # redistribute) and the dense handler's run_steps; the host
+    # redistribute alone (host-clock ms a call, its result dropped); then
+    # one traced block of each handler ----
     S.host_reads = 0
-    _, multi = hs._fns()
+    graphs = hs._spatial_graphs()
     dt, relax = hs._inner._step_scalars(1 / 60)
 
     def bare():
-        hs._sp_state, hs._sp_stats, _, hs._sp_wide = multi(
+        hs._sp_state, hs._sp_stats, _, hs._sp_wide, _ = graphs.steps(
             hs._sp_state, hs._inner._device_cfg2(), dt, relax, SPATIAL_CHAIN,
             wide_state=hs._sp_wide)
 
     times = {"spatial": [], "spatial_multi_step": [], "dense": []}
     for _ in range(SPATIAL_BLOCKS):
-        for name, run, fn in (
-                ("spatial", spatial_run,
-                 lambda: hs.run_steps(SPATIAL_CHAIN)),
-                ("spatial_multi_step", spatial_run, bare),
-                ("dense", lambda f: f(), lambda: hd.run_steps(SPATIAL_CHAIN))):
+        for name, fn in (("spatial", lambda: hs.run_steps(SPATIAL_CHAIN)),
+                         ("spatial_multi_step", bare),
+                         ("dense", lambda: hd.run_steps(SPATIAL_CHAIN))):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            run(fn)
+            fn()
             end.record()
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end) / SPATIAL_CHAIN)
-    n_steps += 2 * SPATIAL_BLOCKS * SPATIAL_CHAIN
     reads = S.host_reads / (2 * SPATIAL_BLOCKS * SPATIAL_CHAIN)
-    sp_trace = spatial_run(lambda: traced(
-        lambda: hs.run_steps(SPATIAL_CHAIN), SPATIAL_CHAIN))
+    redistribute_ms = []
+    for _ in range(SPATIAL_BLOCKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.redistribute(hs._sp_state, hs._cell_sizes(), hs.layout, hs._mesh,
+                       from_spatial=True)
+        torch.cuda.synchronize()
+        redistribute_ms.append((time.perf_counter() - t0) * 1e3)
+    sp_trace = traced(lambda: hs.run_steps(SPATIAL_CHAIN), SPATIAL_CHAIN)
     dn_trace = traced(lambda: hd.run_steps(SPATIAL_CHAIN), SPATIAL_CHAIN)
-    n_steps += SPATIAL_CHAIN
     validate_state(hd)
-    frame = spatial_run(lambda: hs.draw(viewport=(0, 0, 1800, 1800)))
+    frame = hs.draw(viewport=viewport)
     torch.cuda.synchronize()
     p50 = {n: float(np.median(v)) for n, v in times.items()}
     log("spatial_1x1", spatial_1x1_step_ms_65k=round(p50["spatial"], 4),
         dense_step_ms_65k=round(p50["dense"], 4),
         spatial_1x1_vs_dense=round(p50["spatial"] / p50["dense"], 4),
         spatial_multi_step_ms=round(p50["spatial_multi_step"], 4),
+        redistribute_ms=round(float(np.median(redistribute_ms)), 4),
         blocks_ms={n: [round(x, 4) for x in v] for n, v in times.items()},
+        redistribute_blocks_ms=[round(x, 4) for x in redistribute_ms],
         chain=SPATIAL_CHAIN, settle_steps=SPATIAL_SETTLE,
         rebin_host_reads_per_step=reads,
         redistributes=hs._redistribute_count, card=nvidia_smi())
@@ -2596,22 +2790,20 @@ def spatial_phase(dev, results) -> dict:
         spatial={k: round(v, 4) for k, v in sp_trace.items()
                  if k not in ("by_kernel", "top")},
         dense={k: round(v, 4) for k, v in dn_trace.items()
-               if k not in ("by_kernel", "top")})
+               if k not in ("by_kernel", "top")},
+        spatial_launches=sp_trace["by_kernel"])
     log("spatial_1x1.draw", frame=tuple(frame.shape),
         frame_finite=bool(torch.isfinite(frame).all()),
-        alpha_max=round(float(frame[..., 3].max()), 4),
-        steps=n_steps, launches=launches)
-    per = hs._options.n_substeps * hs._options.n_collision_steps * 2
+        alpha_max=round(float(frame[..., 3].max()), 4))
     if not (bool(torch.isfinite(frame).all())
             and float(frame[..., 3].max()) > 0.5):
         raise AssertionError("spatial_1x1: frame is not finite or empty")
-    if not (launches["sweep_planes"] == per * n_steps
-            and launches["splat"] >= 2
-            and launches["place_planes"] == launches["substep_pass"]
-            == launches["count_planes"] == launches["sweep_planes_sym"]
-            == launches["splat_tiles"] == 0):
-        raise AssertionError(f"spatial_1x1: launch counts {launches}, "
-                             f"expected {per * n_steps} sweeps")
+    if reads != 0 or sp_trace["by_kernel"]["sweep_planes"] \
+            != per * SPATIAL_CHAIN:
+        raise AssertionError(f"spatial_1x1: {reads} host reads of the rebin "
+                             f"decision a replayed step, or D launched "
+                             f"{sp_trace['by_kernel']} in {SPATIAL_CHAIN} "
+                             f"steps")
 
     # ---- kernel D on the run's local window: window 1, window 3 with the
     # fresh mask, each static and through the device flag ----
@@ -2719,7 +2911,8 @@ def spatial_phase(dev, results) -> dict:
         seconds=round(time.perf_counter() - t_phase, 2))
     del hs, hd
     dist.destroy_process_group()
-    return launches
+    return {"sweep_planes": launches["run_steps.rebin"]["sweep_planes"],
+            "splat": launches["draw"]["splat"]}
 
 
 def main() -> int:

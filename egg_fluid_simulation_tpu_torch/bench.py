@@ -36,7 +36,11 @@ ms at 1M, ``unit``, ``vs_baseline`` = 16 ms frame / ``value``, ``stage``,
   wide sweep, ``wide_budget_substeps`` left as it is);
 - ``spatial_1x1``: ``spatial_1x1_step_ms_65k``, ``dense_step_ms_65k``,
   ``spatial_1x1_vs_dense`` (a 1 x 1 ``SpatialHandler`` against the dense
-  handler, 65,536 particles, 60 settle steps).
+  handler, 65,536 particles, 60 settle steps; on a card the spatial
+  handler's resident steps replay from its graphs,
+  ``parallel/spatial_graph.py``), ``spatial_host_syncs_per_step_65k``
+  (host reads of the spatial rebin decision a step over its timed blocks:
+  0 when replayed).
 
 Timing: blocks of a fixed number of steps or frames between two CUDA events
 (``utils.profiling.StepTimer``), one untimed warm-up block first (it builds
@@ -72,6 +76,7 @@ from . import (SimulationHandler, SolverOptions, SpatialHandler,
 from .ops import render as R
 from .ops.render_graph import render_handler_frame
 from .ops import solver as S
+from .parallel import spatial as SP
 from .parallel import spatial_bench
 from .utils.profiling import StepTimer, collision_drop_stats
 
@@ -111,9 +116,10 @@ TIMED_KEYS = ("step_ms_10k", "step_ms_1m", "update_ms_1m", "step_render_ms_1m",
               "step_ms_1m_default_opts", "spatial_1x1_step_ms_65k",
               "dense_step_ms_65k")
 # the keys the port adds: the device, the engine of the 10k stage, the
-# replayed update beside step_ms_1m and what explains the gap between them
+# replayed update beside step_ms_1m and what explains the gap between them,
+# and the spatial handler's host reads of its rebin decision
 PORT_KEYS = ("device", "engine_10k", "update_ms_1m", "host_syncs_per_step_1m",
-             "rebins_1m")
+             "rebins_1m", "spatial_host_syncs_per_step_65k")
 
 # Each stage's sizes: particles, settle steps, steps or frames a timed block,
 # timed blocks (bench.py's counts of particles and settle steps)
@@ -421,7 +427,12 @@ def stage_spatial_1x1(device, n: int, settle: int, block: int,
     try:
         hs = build_handler(n, device, spatial=True)
         hs.run_steps(settle)
-        out = _steps_ms(hs, "spatial_1x1_step_ms_65k", block, blocks)
+        reads = []                 # after each block, warm-up included
+        out = _spread("spatial_1x1_step_ms_65k", _blocks_ms(
+            lambda: hs.run_steps(block), block, blocks, hs.device,
+            after=lambda: reads.append(SP.host_reads)))
+        out["spatial_host_syncs_per_step_65k"] = (
+            (reads[-1] - reads[0]) / (blocks * block))
         del hs
     finally:
         if started and dist.is_initialized():

@@ -73,7 +73,11 @@ class RenderGraph:
     """One render, captured (or, with ``capture=False``, run eagerly) on
     static buffers; see the module. ``static`` holds ``_render_frame``'s
     static arguments by name. Built from the first call's inputs, which it
-    copies in, and renders once: ``first`` holds that render's outputs."""
+    copies in, and renders once: ``first`` holds that render's outputs.
+    ``STATE_READ``: the state fields the render reads."""
+
+    STATE_READ = STATE_READ
+    CAPTURE_ERROR_MODE = "global"      # torch.cuda.graph's default
 
     def __init__(self, static: dict, state: ParticleState, stats: StepStats,
                  cfg2: DeviceConfig, scalars, *, capture: bool):
@@ -82,7 +86,7 @@ class RenderGraph:
         nothing = torch.empty((0,), device=dev)
         self._state = ParticleState(**{
             f.name: (torch.empty_like(getattr(state, f.name))
-                     if f.name in STATE_READ else nothing)
+                     if f.name in self.STATE_READ else nothing)
             for f in dataclasses.fields(ParticleState)})
         self._stats = StepStats(**{
             f.name: (torch.empty_like(getattr(stats, f.name))
@@ -121,7 +125,7 @@ class RenderGraph:
         Returns the number of buffers written."""
         alpha, thr, smooth, (x, y) = scalars
         tensors = [("state." + f, getattr(self._state, f), getattr(state, f))
-                   for f in STATE_READ]
+                   for f in self.STATE_READ]
         tensors += [("stats." + f, getattr(self._stats, f), getattr(stats, f))
                     for f in STATS_READ]
         tensors += [("cfg." + f.name, getattr(self._cfg, f.name),
@@ -162,7 +166,8 @@ class RenderGraph:
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph,
+                              capture_error_mode=self.CAPTURE_ERROR_MODE):
             out = self._body()
         self.pool_bytes = torch.cuda.memory_reserved(dev) - before
         self._graph = graph

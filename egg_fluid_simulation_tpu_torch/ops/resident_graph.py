@@ -44,10 +44,15 @@ the eager loop.
 ``ResidentGraphs(capture=False)`` runs the same parts eagerly on the static
 buffers, reading the rebin flag on the host: the plumbing on any device,
 no graph (how it is tested on the CPU).
+
+:class:`LoopGraph` (the capture of a loop's parts, the IF node) and
+:func:`kept` (the cache of the most recently used) are shared with the
+spatial layer's graphs (``parallel/spatial_graph.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
 
@@ -58,7 +63,8 @@ from ..state import ParticleState
 from . import solver
 from .step_graph import StaticInputs, StepGraphs, graph_key, sync_errors
 
-__all__ = ["ResidentGraph", "ResidentGraphs", "resident_key"]
+__all__ = ["LoopGraph", "ResidentGraph", "ResidentGraphs", "resident_key",
+           "kept"]
 
 KINDS = ("steps", "frames")
 
@@ -69,7 +75,101 @@ def resident_key(kind: str, state: ParticleState,
     return (kind, *graph_key(state, options))
 
 
-class ResidentGraph(StaticInputs):
+def kept(cache: OrderedDict, key, make, limit: int):
+    """``(cache[key], False)``, or ``(make(), True)`` stored under ``key``
+    when missing; the ``limit`` most recently used kept."""
+    g = cache.get(key)
+    if g is not None:
+        cache.move_to_end(key)
+        return g, False
+    g = cache[key] = make()
+    while len(cache) > limit:
+        cache.popitem(last=False)
+    return g, True
+
+
+class LoopGraph(StaticInputs):
+    """A loop's parts on static buffers, each captured as a CUDA graph and
+    replayed, or run eagerly where nothing was captured: the *enter* (which
+    makes ``loop``, whose ``pops[i].rebin`` is population ``i``'s rebin
+    branch), the *advance* (one step, its rebin an IF node on the device
+    flag: :meth:`_if_node`) and the *exit*. ``_graphs`` maps a part's name
+    to its graph; ``rebin.<i>`` are the branches. What
+    :class:`ResidentGraph` and the spatial layer's graphs share."""
+
+    CAPTURE_ERROR_MODE = "global"      # torch.cuda.graph's default
+
+    def __init__(self, state: ParticleState, cfg2: DeviceConfig):
+        super().__init__(state, cfg2)
+        self.loop = None           # the parts' buffers, made by the enter
+        self._graphs = {}          # part -> torch.cuda.CUDAGraph
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0        # the parts' private memory pools
+
+    def _if_node(self, pred, pop_index: int) -> None:
+        """The rebin of population ``pop_index`` in an IF node on ``pred``
+        of the graph being captured on the current stream."""
+        from .kernels import library
+        err = library.load().egg_if_node(
+            library.stream_handle(pred.device), pred.data_ptr(),
+            self._graphs[f"rebin.{pop_index}"].raw_cuda_graph())
+        library.check("egg_if_node", err)
+
+    def _capture_part(self, name: str, body, pool=None, body_only=False):
+        """``body`` captured as part ``name``; the graph is kept (its nodes
+        can be counted) and instantiated unless it is only an IF node's
+        body."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode=self.CAPTURE_ERROR_MODE):
+            body()
+        if not body_only:
+            graph.instantiate()
+        self._graphs[name] = graph
+        return graph
+
+    @contextlib.contextmanager
+    def _measured(self, dev):
+        """Inside, captures; their time goes to ``capture_seconds`` and the
+        memory they reserve to ``pool_bytes``."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        yield
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - before
+
+    def _capture_loop(self, dev, enter, advance, exit=None, *,
+                      branch_graphs: bool = False) -> None:
+        """Record the loop's parts. The enter, the advance and the exit
+        share one memory pool: the buffers the enter makes stay live for the
+        others. Each population's rebin branch is captured after the enter,
+        into a pool of its own (its temporaries must not alias the
+        advance's, inside which it runs): kept as the body of the advance's
+        IF node, or with ``branch_graphs`` instantiated, to be replayed on
+        its own. Raises if a capture fails."""
+        with self._measured(dev):
+            pool = self._capture_part("enter", enter).pool()
+            rebin_pool = None
+            for i, p in enumerate(self.loop.pops):
+                rebin_pool = self._capture_part(
+                    f"rebin.{i}", p.rebin, pool=rebin_pool,
+                    body_only=not branch_graphs).pool()
+            self._capture_part("advance", advance, pool=pool)
+            if exit is not None:
+                self._capture_part("exit", exit, pool=pool)
+
+    def _run(self, name: str, body) -> None:
+        """Part ``name``: its graph replayed, or ``body()`` if none."""
+        graph = self._graphs.get(name)
+        if graph is None:
+            body()
+        else:
+            graph.replay()
+
+
+class ResidentGraph(LoopGraph):
     """One resident loop of ``kind`` ("steps" or "frames"), its parts
     captured (or, with ``capture=False``, run eagerly) on static buffers;
     see the module. Built from the first call's inputs, which it copies in;
@@ -83,16 +183,14 @@ class ResidentGraph(StaticInputs):
                              f"{KINDS}")
         super().__init__(state, cfg2)
         self.kind, self.options, self.counter = kind, options, counter
-        self.loop = None           # the parts' buffers, made by the enter
         self._merged = None        # the exit's outputs
-        self._graphs = {}          # part -> torch.cuda.CUDAGraph (the
-        #                            parts, and rebin.<i>, the branches)
-        self.capture_seconds = 0.0
-        self.pool_bytes = 0        # the parts' shared private memory pool
         self.load(state, cfg2, step_delta, relaxation, wide_state)
         if capture:
             self._warm_up()
-            self._capture(state.device)
+            self._capture_loop(
+                state.device, self._enter,
+                lambda: self._advance(cond=self._if_node),
+                self._exit if self.kind == "steps" else None)
 
     # ------------------------------------------------------------- parts --
 
@@ -123,57 +221,6 @@ class ResidentGraph(StaticInputs):
             if self.kind == "steps":
                 self._exit()
         self.counter.copy_(saved)
-
-    def _if_node(self, pred, pop_index: int) -> None:
-        """The rebin of population ``pop_index`` in an IF node on ``pred``
-        of the graph being captured on the current stream."""
-        from .kernels import library
-        err = library.load().egg_if_node(
-            library.stream_handle(pred.device), pred.data_ptr(),
-            self._graphs[f"rebin.{pop_index}"].raw_cuda_graph())
-        library.check("egg_if_node", err)
-
-    def _capture(self, dev) -> None:
-        """Record the parts in CUDA graphs. The enter, the step (or frame)
-        and the exit share one memory pool: the buffers the enter makes stay
-        live for the others. Each population's rebin branch is captured
-        first, into a pool of its own (its temporaries must not alias the
-        step's, inside which it runs), and kept as a graph; the step's
-        capture adds a copy of it as the body of an IF node. Raises if a
-        capture fails."""
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._enter()
-        self._graphs["enter"] = graph
-        rebin_pool = None
-        for i, r in enumerate(self.loop.pops):
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph, pool=rebin_pool):
-                r.rebin()
-            rebin_pool = graph.pool()
-            self._graphs[f"rebin.{i}"] = graph
-        pool = self._graphs["enter"].pool()
-        for name, body in (("advance", lambda: self._advance(
-                                cond=self._if_node)),
-                           *((("exit", self._exit),)
-                             if self.kind == "steps" else ())):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                body()
-            self._graphs[name] = graph
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - before
-
-    def _run(self, name: str, body) -> None:
-        graph = self._graphs.get(name)
-        if graph is None:
-            body()
-        else:
-            graph.replay()
 
     def enter(self) -> None:
         """Bin from what the static buffers hold."""
@@ -214,18 +261,15 @@ class ResidentGraphs:
         if self.rebins is None:
             self.rebins = torch.zeros((2,), dtype=torch.int32,
                                       device=state.device)
-        key = resident_key(kind, state, options)
-        g = self._graphs.get(key)
-        if g is None:
-            g = ResidentGraph(kind, state, cfg2, step_delta, relaxation,
-                              options, wide_state, self.rebins,
-                              capture=self.capture)
+        g, made = kept(self._graphs, resident_key(kind, state, options),
+                       lambda: ResidentGraph(kind, state, cfg2, step_delta,
+                                             relaxation, options, wide_state,
+                                             self.rebins,
+                                             capture=self.capture),
+                       self.MAX_GRAPHS)
+        if made:
             self.captures += 1
-            self._graphs[key] = g
-            while len(self._graphs) > self.MAX_GRAPHS:
-                self._graphs.popitem(last=False)
         else:
-            self._graphs.move_to_end(key)
             g.load(state, cfg2, step_delta, relaxation, wide_state)
         return g
 

@@ -35,9 +35,10 @@ replays it (``ops/step_graph.py``).
 Multi-step residency (:func:`multi_step`, :func:`multi_step_frames`) keeps
 the binned layout across steps and rebins only when the drift since bin
 time passes a quarter cell for more than ``rebin_tolerance`` of the live
-particles. That decision is a branch on the host: it costs one
-device-to-host read per population per resident step, counted in
-``host_syncs``; ``rebins`` counts the rebins per population.
+particles. Run eagerly, that decision is a branch on the host: it costs
+one device-to-host read per population per resident step, counted in
+``host_syncs``; ``rebins`` counts the rebins per population. Replayed
+(``ops/resident_graph.py``), it is an IF node taken on the card.
 """
 
 from __future__ import annotations
@@ -308,11 +309,12 @@ def _drift_over(disp, occ, thresh2):
 
 def wide_state_init(options: SolverOptions, device="cpu"):
     """Fresh violence-episode state ``(trip, budget, calm)`` of the
-    wide-sweep gate, as device tensors."""
-    return (torch.tensor(False, device=device),
-            torch.tensor(options.wide_budget_substeps, dtype=torch.int32,
-                         device=device),
-            torch.tensor(0, dtype=torch.int32, device=device))
+    wide-sweep gate, as device tensors (fills, not copies from the host: a
+    CUDA graph can capture them)."""
+    return (torch.zeros((), dtype=torch.bool, device=device),
+            torch.full((), options.wide_budget_substeps, dtype=torch.int32,
+                       device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
 
 
 def _gated_substeps(run, positions, occ, pred_disp, fb, fallback_substep,
@@ -650,30 +652,42 @@ def _population_step_dense(pos, vel, mass_t, batch_slot, act,
 
 # ------------------------------------ dense engine (multi-step residency) --
 
-def _rebin_if(pred, pop_index: int, fn, force=None, cond=None) -> None:
+def rebin_if(pred, pop_index: int, fn, force=None, cond=None, *,
+             count) -> None:
     """The resident rebin decision (JAX: a ``lax.cond``): run ``fn`` when
-    the 0-dim bool tensor ``pred`` is true.
+    the 0-dim bool tensor ``pred`` is true. Shared by this module's
+    resident loops and the spatial layer's.
 
     ``cond`` (a graph being captured gives it) records the branch instead,
     as ``cond(pred, pop_index)``: an IF node of the graph on ``pred``, whose
     body is ``fn`` captured beforehand, so the card takes the branch at each
     replay and nothing is read back. Otherwise ``pred`` is read on the host
-    (one read, counted in ``host_syncs``; ``rebins`` counts the branches
-    taken). ``force`` (a bool) decides without reading ``pred`` and counts
-    nothing on the host (a graph's warm-up runs the branch eagerly that
-    way). ``fn`` writes its results into buffers allocated before, with
-    ``copy_``: the graph after the node reads fixed addresses."""
-    global host_syncs
+    and ``count(pop_index, taken)`` counts the read in the caller's host
+    counters. ``force`` (a bool) decides without reading ``pred`` and counts
+    nothing (:class:`.resident_graph.ResidentGraph`'s warm-up runs the
+    branch eagerly that way). ``fn`` writes its results into buffers
+    allocated before, with ``copy_``: the graph after the node reads fixed
+    addresses."""
     if cond is not None:
         cond(pred, pop_index)
         return
     if force is None:
-        host_syncs += 1
         force = bool(pred)
-        if force:
-            rebins[pop_index] += 1
+        count(pop_index, force)
     if force:
         fn()
+
+
+def _count_read(pop_index: int, taken: bool) -> None:
+    global host_syncs
+    host_syncs += 1
+    if taken:
+        rebins[pop_index] += 1
+
+
+def _rebin_if(pred, pop_index: int, fn, force=None, cond=None) -> None:
+    """:func:`rebin_if` counted in ``host_syncs`` and ``rebins``."""
+    rebin_if(pred, pop_index, fn, force, cond, count=_count_read)
 
 
 def _copy_into(dsts, srcs) -> None:

@@ -176,14 +176,16 @@ class StaticInputs:
                    getattr(cfg2, f.name))
         yield "step_delta", self._scalars[0], step_delta
         yield "relaxation", self._scalars[1], relaxation
+        if wide_state is None:
+            return
         for i in range(2):
             for j, name in enumerate(("trip", "budget", "calm")):
                 yield f"wide.{i}.{name}", self._wide[i][j], wide_state[i][j]
 
     def load(self, state, cfg2, step_delta, relaxation, wide_state) -> int:
         """Copy into the static buffers every input (all tensors) that is
-        not the tensor, at the version, they last held; returns the number
-        copied."""
+        not the tensor, at the version, they last held (``wide_state`` None:
+        the wide-gate buffers are not read); returns the number copied."""
         return copy_in(self._held, self._inputs(state, cfg2, step_delta,
                                                 relaxation, wide_state))
 

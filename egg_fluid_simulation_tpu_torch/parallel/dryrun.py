@@ -10,7 +10,9 @@ step against the single-device step of the same state (positions rtol 1e-5
 / atol 1e-4 px), the 2D spatial step (halo exchange, migration) against the
 single-device dense step (centroids rtol 1e-4 / atol 1e-3 px), three
 resident spatial steps without a migration drop, the sharded render, and
-the SpatialHandler product flow. ``--device`` is required: on a machine
+the SpatialHandler product flow, which on a card replays its steps and
+draws from CUDA graphs (``parallel/spatial_graph.py``), held bit for bit
+against the same flow on the eager route (frame within 1e-6). ``--device`` is required: on a machine
 with one card, more than one rank works only as gloo ranks on the CPU, and
 the script does not choose that for the caller.
 """
@@ -155,6 +157,32 @@ def check(n_ranks: int, device: str) -> None:
         print(f"dryrun: SpatialHandler product flow OK (add / update / "
               f"run_steps / draw / get_position on the {db}x{dx} mesh)",
               flush=True)
+
+    # ---- the same flow on the eager route: on a card the handler above
+    # replayed its steps and draws from CUDA graphs ----
+    from egg_fluid_simulation_tpu_torch.ops.step_graph import EAGER
+    from egg_fluid_simulation_tpu_torch.parallel.spatial_graph import (
+        STATE_OUT, rebin_route)
+    he = SpatialHandler(default_white_config(), default_yolk_config(),
+                        db=db, dx=dx, capacity=capacity, max_batches=8,
+                        options=sp_opts, device=device)
+    he._spatial = EAGER
+    bid = he.add(60.0, 50.0, 25.0, 8.0, None, None, 50, 12)
+    he.set_target_position(bid, 100.0, 80.0)
+    he.update(2 / 60)
+    he.run_steps(2)
+    frame_e = he.draw(viewport=(0, 0, 256, 256)).cpu().numpy()
+    unequal = [f for f in STATE_OUT if not torch.equal(
+        getattr(hp.state, f), getattr(he.state, f))]
+    frame_err = float(np.abs(frame2 - frame_e).max())
+    if unequal or frame_err > 1e-6:
+        raise AssertionError(f"the replayed SpatialHandler differs from the "
+                             f"eager one: {unequal}, frame {frame_err}")
+    if lead:
+        route = ("eager on the CPU" if hp._spatial is None
+                 else f"graphs, rebin route {rebin_route(hp.mesh)}")
+        print(f"dryrun: SpatialHandler ({route}) = the eager route, bit for "
+              f"bit (frame {frame_err})", flush=True)
 
 
 def main(argv=None) -> int:

@@ -21,7 +21,8 @@ The collectives, as ``shard_map`` bodies use them there:
 
 Every collective adds the bytes this rank sends to a per-category counter
 (:class:`CollectiveCounter`, read by :mod:`.accounting`): a ring shift its
-payload, an all-reduce or an all-gather its contribution.
+payload, an all-reduce or an all-gather its contribution (a replayed graph
+adds the tally of its capture, :mod:`.spatial_graph`).
 
 Backends: NCCL for CUDA tensors, gloo for CPU tensors. A mesh of more than
 one rank needs a process group of exactly its size (``torchrun`` sets one
@@ -61,11 +62,18 @@ class CollectiveCounter:
     def add(self, category: str, nbytes: int) -> None:
         self.bytes[category] = self.bytes.get(category, 0) + int(nbytes)
 
+    def add_all(self, counts: Dict[str, int]) -> None:
+        for category, nbytes in counts.items():
+            self.add(category, nbytes)
+
     def reset(self) -> None:
         self.bytes = {}
 
     def snapshot(self) -> Dict[str, int]:
         return dict(self.bytes)
+
+    def restore(self, snapshot: Dict[str, int]) -> None:
+        self.bytes = dict(snapshot)
 
 
 def backend_for(device) -> str:

@@ -32,9 +32,19 @@ Where the JAX package branches on a traced predicate (``lax.cond``):
 - the violence gate of the wide sweep: its drift metric is summed over the
   mesh, and the flag stays on the device: kernel D reads it (window 3 and
   the fresh-cell mask when set). No host read;
-- the rebin of :func:`spatial_multi_step`: the drift count is summed over
-  the mesh (every rank reads the same number) and read on the host, one read
-  per population and resident step, counted in ``host_reads``.
+- the rebin of the resident steps (:class:`SpatialSteps`): the drift count
+  is summed over the mesh, so every rank computes the same flag. Where the
+  steps are replayed from CUDA graphs (``parallel/spatial_graph.py``, how a
+  card runs them) on a one-rank mesh, the flag stays on the device: an IF
+  node of the step's graph takes the branch, and nothing is read. Replayed
+  on more ranks, the step writes both populations' flags and the host
+  reads them once a step. The eager loop (:func:`spatial_multi_step`)
+  reads the flag on the host, one read per population and resident step.
+  Every host read is counted in ``host_reads``.
+
+The step, the resident steps and the draw read nothing from the device
+(the migrants land through a dump row, not a boolean mask; the draw's
+outline thickness can come from the host), so each can be captured.
 """
 
 from __future__ import annotations
@@ -50,15 +60,15 @@ from ..ops import render as render_ops
 from ..ops import solver as solver_ops
 from ..ops.grid import segment_extent
 from ..ops.kernels import sweep_kernel
-from ..ops.solver import SolverOptions
+from ..ops.solver import SolverOptions, _copy_into
 from ..state import PARTICLE_FIELDS, ParticleState, StepStats
 from ..utils.mathx import EPS, torch_mix
 from .mesh import BANDS, BLOCKS, Mesh, make_spatial_mesh
 from .sharding import global_stats, unshard_state
 
-__all__ = ["SpatialLayout", "make_spatial_mesh", "spatial_step",
-           "spatial_multi_step", "redistribute", "owner_of", "spatial_draw",
-           "host_reads"]
+__all__ = ["SpatialLayout", "SpatialSteps", "make_spatial_mesh",
+           "spatial_step", "spatial_multi_step", "redistribute", "owner_of",
+           "spatial_draw", "draw_frame", "host_reads", "rebins"]
 
 RP = dense_ops.ROW_PAD
 N_AUX = solver_ops.AUX_TD + 1     # ride-along plane fields (JAX N_AUX)
@@ -66,6 +76,7 @@ _MIG_FIELDS = 15  # as JAX names it; a migrant row is 16 floats (pos2 prev2
                   # vel2 last2 radius mass_t inv_mass batch color4) plus the
                   # validity flag: _MIG_FIELDS + 2 columns
 host_reads = 0    # host reads of the resident rebin decision
+rebins = [0, 0]   # rebins the host decided, per population (white, yolk)
 
 
 class SpatialLayout(NamedTuple):
@@ -312,10 +323,13 @@ def _pack_migrants(fields, send_mask, cap: int):
 
 
 def _place_migrants(fields, active, bufs, n_free_needed: int):
-    """Scatter received migrant rows into free (inactive) slots, in place.
+    """Scatter received migrant rows into free (inactive) slots.
 
     Returns ``(fields, active, n_dropped)``: rows beyond the free-slot supply
-    are dropped and counted. Out-of-range gathers clamp, as XLA's do."""
+    are dropped and counted. Out-of-range gathers clamp, as XLA's do; a row
+    that finds no free slot is written to a dump row past the end (JAX's
+    ``mode="drop"``), so the scatter needs no boolean mask and reads nothing
+    from the device."""
     n = active.shape[0]
     dev = fields.device
     key = torch.where(active, 1, 0).to(torch.int32)      # free slots first
@@ -328,7 +342,8 @@ def _place_migrants(fields, active, bufs, n_free_needed: int):
                                              device=dev)])
     offset = torch.zeros((), dtype=torch.int64, device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    fields, active = fields.clone(), active.clone()
+    fields = torch.cat([fields, fields.new_zeros((1, fields.shape[1]))])
+    active = torch.cat([active, active.new_zeros((1,))])
     for buf in bufs:
         rows, valid = buf[:, :-1], buf[:, -1] > 0.5
         cap = rows.shape[0]
@@ -341,13 +356,13 @@ def _place_migrants(fields, active, bufs, n_free_needed: int):
         dst_ok = valid & (dst_i < n_free_needed)
         dst = torch.clamp(torch.where(dst_ok, dst_i, n_free_needed),
                           max=free_ext.shape[0] - 1)
-        target = free_ext[dst]
         usable = dst_ok & ok_ext[dst]
-        fields[target[usable]] = rows[usable]
-        active[target[usable]] = True
+        target = torch.where(usable, free_ext[dst], n)   # n: the dump row
+        fields[target] = rows
+        active.index_fill_(0, target, True)   # a fill: no host copy
         dropped = dropped + torch.sum(valid & ~usable)
         offset = offset + nv
-    return fields, active, dropped
+    return fields[:n], active[:n], dropped
 
 
 def _migrate_axis(fields, active, want_dir, axis: str, size: int, cap: int,
@@ -580,7 +595,8 @@ def spatial_step(mesh: Mesh, lay: SpatialLayout, options: SolverOptions):
     (see :func:`redistribute`); the semantics of the single-card dense
     engine with ``budget_mode='off'`` and ``dense_rebin='step'``. ``info``
     is a (2, 2) int64 tensor of (migration-dropped, in-transit) counts per
-    population, summed over the mesh."""
+    population, summed over the mesh. The step reads nothing from the
+    device."""
     lay.check()
     if options.budget_mode != "off":
         raise ValueError("spatial_step implements budget_mode='off' (the "
@@ -637,147 +653,230 @@ def spatial_step(mesh: Mesh, lay: SpatialLayout, options: SolverOptions):
     return step
 
 
+# -------------------------------------------------------- resident steps --
+
+def _count_read(pop_index: int, taken: bool) -> None:
+    global host_reads
+    host_reads += 1
+    if taken:
+        rebins[pop_index] += 1
+
+
+def _rebin_if(pred, pop_index: int, fn, cond=None) -> None:
+    """The resident rebin decision on the psum'd predicate (JAX: a
+    ``lax.cond``), :func:`.solver.rebin_if`: run ``fn`` when ``pred`` is
+    true, read on the host (counted in ``host_reads``; ``rebins`` counts the
+    branches taken) unless ``cond`` records the branch (a capture)."""
+    solver_ops.rebin_if(pred, pop_index, fn, cond=cond, count=_count_read)
+
+
+class _SpatialPop:
+    """One population's carry across resident steps (JAX
+    ``spatial_multi_step``'s per-population carry): the local plane window,
+    the particle arrays, the drift reference, the migration drop count and
+    the wide-gate state, in buffers that :meth:`step` and :meth:`rebin`
+    update in place, so a captured step replays on fixed addresses.
+    Construction is the *enter*: bin this rank's particles and fill every
+    halo."""
+
+    # per-particle arrays of the carry, in the order _fields packs them
+    ARRAYS = ("pos", "prev", "vel", "last", "radius", "mass_t", "inv_mass",
+              "batch_slot", "color")
+
+    def __init__(self, loop: "SpatialSteps", i: int, wide):
+        st = loop.state
+        self.loop, self.i = loop, i
+        active = st.batch_slot[i] >= 0
+        env, self.planes, self.aux, self.slot = loop.bin(
+            i, st.pos[i], st.vel[i], st.mass_t[i], st.batch_slot[i], active)
+        # the particle-independent pieces, stable across migrations
+        self.static_env = {k: env[k] for k in
+                           ("damp", "follow_c", "cell_size", "params")}
+        self.thresh2 = (0.25 * env["cell_size"]) ** 2
+        # copies: the steps update them in place
+        self.ref_pos = st.pos[i].clone()
+        self.pos, self.prev, self.vel = (st.pos[i].clone(),
+                                         st.prev[i].clone(),
+                                         st.vel[i].clone())
+        self.last = st.pos[i].clone()
+        self.mass_t = st.mass_t[i].clone()
+        self.batch_slot = st.batch_slot[i].clone()
+        self.color = st.color[i].clone()
+        self.inv_mass, self.radius = env["inv_mass"], env["radius"]
+        self.tx, self.ty, self.td = env["tx"], env["ty"], env["td"]
+        self.dropped = torch.zeros((), dtype=torch.int64, device=st.device)
+        self.ws = [t.clone() for t in wide]
+
+    def _env(self):
+        return dict(self.static_env, inv_mass=self.inv_mass,
+                    radius=self.radius, tx=self.tx, ty=self.ty, td=self.td)
+
+    def fields(self):
+        """The (C, 16) migrant row of every particle of the carry."""
+        return _fields(*(getattr(self, f) for f in self.ARRAYS))
+
+    def step(self, cond=None) -> None:
+        """One resident step: the substeps on the window, the fallback
+        integration, the particle arrays merged, then the rebin when the
+        drift since bin time, relative to the mesh-wide mean, passes a
+        quarter cell for more than ``rebin_tolerance`` of the live
+        particles (counts summed over the mesh: every rank branches
+        alike)."""
+        lp, mesh, options = self.loop, self.loop.mesh, self.loop.options
+        act = self.batch_slot >= 0
+        env = self._env()
+        n_live = torch.clamp(mesh.psum(torch.sum(act).to(torch.float32)),
+                             min=1.0)
+        ws = _plane_run_local(self.planes, self.aux, env, lp.sub_dt,
+                              lp.relaxation, options, lp.lay, mesh,
+                              lp.cohesion, n_live, wide=tuple(self.ws))
+        _copy_into(self.ws, ws)
+        fb_p, fb_prev, fb_v = _fallback_steps(self.pos, self.vel, env, act,
+                                              lp.sub_dt, options.n_substeps)
+        p_pl, prev_pl, v_pl, in_grid = _extract_local(self.planes, self.aux,
+                                                      self.slot)
+        sel = (in_grid & act)[:, None]
+        p = torch.where(sel, p_pl, fb_p)
+        # pre-step positions anchor frame interpolation
+        _copy_into((self.last, self.pos, self.prev, self.vel),
+                   (self.pos, p, torch.where(sel, prev_pl, fb_prev),
+                    torch.where(sel, v_pl, fb_v)))
+        d = p - self.ref_pos
+        mean_d = mesh.psum(torch.sum(torch.where(act[:, None], d, 0.0),
+                                     dim=0)) / n_live
+        rel2 = torch.sum((d - mean_d) ** 2, dim=1)
+        n_over = mesh.psum(torch.sum(act & (rel2 > self.thresh2)).to(
+            torch.float32))
+        _rebin_if(n_over > options.rebin_tolerance * n_live, self.i,
+                  self.rebin, cond)
+
+    def rebin(self) -> None:
+        """The rebin branch: migrate movers one hop (y then x), bin again
+        and exchange every field's halo on the new ownership, all written
+        into the carry's buffers; adds one to the loop's counter."""
+        lp = self.loop
+        fields, act3, dropped = _migrate(
+            self.fields(), self.batch_slot >= 0,
+            self.static_env["cell_size"], lp.lay, lp.mesh)
+        pos, vel, mass_t = fields[:, 0:2], fields[:, 4:6], fields[:, 9]
+        batch_slot = torch.where(act3, fields[:, 11].to(torch.int32), -1)
+        env, planes, aux, slot = lp.bin(self.i, pos, vel, mass_t, batch_slot,
+                                        act3)
+        _copy_into((self.planes, self.aux, self.slot, self.ref_pos, self.pos,
+                    self.prev, self.vel, self.last, self.mass_t,
+                    self.batch_slot, self.color, self.inv_mass, self.radius,
+                    self.tx, self.ty, self.td),
+                   (planes, aux, slot, pos, pos, fields[:, 2:4], vel,
+                    fields[:, 6:8], mass_t, batch_slot, fields[:, 12:16],
+                    env["inv_mass"], env["radius"], env["tx"], env["ty"],
+                    env["td"]))
+        self.dropped.add_(dropped)
+        if lp.counter is not None:
+            lp.counter[self.i].add_(1)
+
+
+class SpatialSteps:
+    """The resident steps of :func:`spatial_multi_step`, both populations,
+    in three parts: construction (*enter*: bin this rank's particles and
+    fill the halos), :meth:`step` (one resident step) and :meth:`exit` (the
+    final migration, which restores the ownership invariant, and the
+    stats). Every part reads and writes buffers made at the enter, so each
+    can be captured once and replayed (``parallel/spatial_graph.py``);
+    ``pops[i].rebin`` is population ``i``'s rebin branch. ``counter`` (a
+    (2,) int32 device tensor or None) adds one per rebin at the
+    population's index; ``cond`` goes to :func:`_rebin_if`."""
+
+    @staticmethod
+    def check(lay: SpatialLayout, options: SolverOptions) -> None:
+        """Raise unless ``lay`` and ``options`` admit the resident steps."""
+        lay.check()
+        if options.budget_mode != "off" or options.dense_rebin != "step":
+            raise ValueError("spatial_multi_step requires the plane-resident "
+                             "dense configuration (budget_mode='off', "
+                             "dense_rebin='step')")
+
+    def __init__(self, mesh: Mesh, lay: SpatialLayout, options: SolverOptions,
+                 state: ParticleState, cfg2: DeviceConfig, step_delta,
+                 relaxation, wide_state=None, counter=None):
+        self.mesh, self.lay, self.options = mesh, lay, options
+        self.state, self.relaxation, self.counter = state, relaxation, counter
+        self.cohesion = options.cohesion_mode == "spacing"
+        dev = state.device
+        step_delta = torch.as_tensor(step_delta, dtype=torch.float32,
+                                     device=dev)
+        self.sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)
+        self.follow_radius = torch.sqrt(torch.clamp(state.batch_radius,
+                                                    min=0.0))
+        self.cfgs = [population_config(cfg2, i) for i in range(2)]
+        if wide_state is None:
+            wide_state = [solver_ops.wide_state_init(options, dev)
+                          for _ in range(2)]
+        self.pops = [_SpatialPop(self, i, wide_state[i]) for i in range(2)]
+
+    def bin(self, i, pos, vel, mass_t, batch_slot, active):
+        """Population ``i``'s environment, binned window and slots."""
+        env = _pop_env(self.cfgs[i], mass_t, active, batch_slot,
+                       self.state.batch_target, self.follow_radius[i],
+                       self.sub_dt, self.options, self.lay)
+        planes, aux, slot = _bin_and_exchange(pos, vel, batch_slot, active,
+                                              env, self.lay, self.mesh)
+        return env, planes, aux, slot
+
+    def step(self, cond=None) -> None:
+        for p in self.pops:
+            p.step(cond)
+
+    def exit(self):
+        """``(fields, stats, info, wide_state)``: the state fields the steps
+        wrote (``_new_state``'s form, fresh tensors), the step statistics,
+        the (2, 2) (migration-dropped, in-transit) counts summed over the
+        mesh, and the carried wide-gate state."""
+        lay = self.lay
+        outs, finals, info = [], [], []
+        for p in self.pops:
+            fields, act, dropped = _migrate(
+                p.fields(), p.batch_slot >= 0, p.static_env["cell_size"], lay,
+                self.mesh)
+            outs.append(_unpack(fields, act))
+            finals.append((fields, act))
+            n_transit = torch.sum(act & (p.slot >= lay.rows * lay.width))
+            info.append(torch.stack([p.dropped + dropped, n_transit]))
+        stats = _stats(finals, self.state.max_batches, self.mesh)
+        info = self.mesh.psum(torch.stack(info))
+        fields = {f: torch.stack([o[f] for o in outs]) for f in outs[0]}
+        return fields, stats, info, tuple(tuple(p.ws) for p in self.pops)
+
+
 def spatial_multi_step(mesh: Mesh, lay: SpatialLayout,
                        options: SolverOptions):
     """Plane-RESIDENT steps over the 2D spatial mesh (JAX
-    ``spatial_multi_step``).
+    ``spatial_multi_step``), run eagerly (:class:`SpatialSteps`).
 
     Each rank keeps its local plane window across steps and pays per step
     only the substeps and their X/Y halo refreshes. A fresh binning, the
     full-field halo exchange and one-hop migration run only when the drift
     since bin time, summed over the mesh, passes a quarter cell for more
     than ``rebin_tolerance`` of the live particles: every rank reads the
-    same sum, so the ranks branch alike (one host read per population and
-    step, ``host_reads``). Between rebins particles that crossed an
-    ownership boundary stay in their bin-time rank's planes, pair-correct
-    through the halos.
+    same sum, so the ranks branch alike. This eager loop reads the decision
+    on the host, one read per population and step (``host_reads``); the
+    replayed loop of ``parallel/spatial_graph.py`` takes it on the device.
+    Between rebins particles that crossed an ownership boundary stay in
+    their bin-time rank's planes, pair-correct through the halos.
 
     Returns ``fn(state, cfg2, step_delta, relaxation, n_steps,
     wide_state=None) -> (state, stats, info, wide_state_out)``; ``info`` is
     (2, 2): (migration-dropped, in-transit)."""
-    lay.check()
-    if options.budget_mode != "off" or options.dense_rebin != "step":
-        raise ValueError("spatial_multi_step requires the plane-resident "
-                         "dense configuration (budget_mode='off', "
-                         "dense_rebin='step')")
-    n_sub = options.n_substeps
-    cohesion = options.cohesion_mode == "spacing"
-
-    def rebin_needed(n_over, n_live) -> bool:
-        global host_reads
-        host_reads += 1
-        return bool(n_over > options.rebin_tolerance * n_live)
+    SpatialSteps.check(lay, options)
 
     @torch.no_grad()
     def call(state: ParticleState, cfg2: DeviceConfig, step_delta,
              relaxation, n_steps: int, wide_state=None):
-        dev = state.device
-        step_delta = torch.as_tensor(step_delta, dtype=torch.float32,
-                                     device=dev)
-        sub_dt = torch.clamp(step_delta / n_sub, min=EPS)
-        follow_radius = torch.sqrt(torch.clamp(state.batch_radius, min=0.0))
-        if wide_state is None:
-            wide_state = (solver_ops.wide_state_init(options, dev),
-                          solver_ops.wide_state_init(options, dev))
-        cfgs = [population_config(cfg2, i) for i in range(2)]
-
-        def bin_pop(i, pos, vel, mass_t, batch_slot, active):
-            env = _pop_env(cfgs[i], mass_t, active, batch_slot,
-                           state.batch_target, follow_radius[i], sub_dt,
-                           options, lay)
-            planes, aux, slot = _bin_and_exchange(pos, vel, batch_slot,
-                                                  active, env, lay, mesh)
-            return env, planes, aux, slot
-
-        carries, static_env = [], []
-        for i in range(2):
-            active = state.batch_slot[i] >= 0
-            env, planes, aux, slot = bin_pop(
-                i, state.pos[i], state.vel[i], state.mass_t[i],
-                state.batch_slot[i], active)
-            # the particle-independent pieces, stable across migrations
-            static_env.append({k: env[k] for k in
-                               ("damp", "follow_c", "cell_size", "params")})
-            carries.append(dict(
-                planes=planes, aux=aux, slot=slot, ref_pos=state.pos[i],
-                pos=state.pos[i], prev=state.prev[i], vel=state.vel[i],
-                last=state.pos[i], mass_t=state.mass_t[i],
-                batch_slot=state.batch_slot[i], color=state.color[i],
-                inv_mass=env["inv_mass"], radius=env["radius"],
-                tx=env["tx"], ty=env["ty"], td=env["td"],
-                dropped=torch.zeros((), dtype=torch.int64, device=dev),
-                wide=wide_state[i]))
-
-        def pop_body(i, c):
-            se = static_env[i]
-            act = c["batch_slot"] >= 0
-            env = dict(se, inv_mass=c["inv_mass"], radius=c["radius"],
-                       tx=c["tx"], ty=c["ty"], td=c["td"])
-            last = c["pos"]     # pre-step positions anchor frame interpolation
-            n_live = torch.clamp(mesh.psum(torch.sum(act).to(torch.float32)),
-                                 min=1.0)
-            c["wide"] = _plane_run_local(c["planes"], c["aux"], env, sub_dt,
-                                         relaxation, options, lay, mesh,
-                                         cohesion, n_live, wide=c["wide"])
-            fb_p, fb_prev, fb_v = _fallback_steps(c["pos"], c["vel"], env,
-                                                  act, sub_dt, n_sub)
-            p_pl, prev_pl, v_pl, in_grid = _extract_local(
-                c["planes"], c["aux"], c["slot"])
-            sel = (in_grid & act)[:, None]
-            p = torch.where(sel, p_pl, fb_p)
-            c.update(pos=p, prev=torch.where(sel, prev_pl, fb_prev),
-                     vel=torch.where(sel, v_pl, fb_v), last=last)
-
-            # mesh-wide drift relative to the mean since bin time
-            thresh2 = (0.25 * se["cell_size"]) ** 2
-            d = p - c["ref_pos"]
-            mean_d = mesh.psum(torch.sum(torch.where(act[:, None], d, 0.0),
-                                         dim=0)) / n_live
-            rel2 = torch.sum((d - mean_d) ** 2, dim=1)
-            n_over = mesh.psum(torch.sum(act & (rel2 > thresh2)).to(
-                torch.float32))
-            if not rebin_needed(n_over, n_live):
-                return c
-            # migrate movers one hop (y then x), then rebin and exchange
-            # every field's halo on the new ownership
-            fields = _fields(c["pos"], c["prev"], c["vel"], c["last"],
-                             c["radius"], c["mass_t"], c["inv_mass"],
-                             c["batch_slot"], c["color"])
-            fields, act3, dropped = _migrate(fields, act, se["cell_size"],
-                                             lay, mesh)
-            pos, vel, mass_t = fields[:, 0:2], fields[:, 4:6], fields[:, 9]
-            batch_slot = torch.where(act3, fields[:, 11].to(torch.int32), -1)
-            env2, planes2, aux2, slot2 = bin_pop(i, pos, vel, mass_t,
-                                                 batch_slot, act3)
-            return dict(
-                planes=planes2, aux=aux2, slot=slot2, ref_pos=pos, pos=pos,
-                prev=fields[:, 2:4], vel=vel, last=fields[:, 6:8],
-                mass_t=mass_t, batch_slot=batch_slot, color=fields[:, 12:16],
-                inv_mass=env2["inv_mass"], radius=env2["radius"],
-                tx=env2["tx"], ty=env2["ty"], td=env2["td"],
-                dropped=c["dropped"] + dropped, wide=c["wide"])
-
+        loop = SpatialSteps(mesh, lay, options, state, cfg2, step_delta,
+                            relaxation, wide_state)
         for _ in range(int(n_steps)):
-            carries = [pop_body(i, c) for i, c in enumerate(carries)]
-
-        # final migration (restores the ownership invariant) and stats
-        outs, finals, info = [], [], []
-        for i, c in enumerate(carries):
-            act_l = c["batch_slot"] >= 0
-            fields = _fields(c["pos"], c["prev"], c["vel"], c["last"],
-                             c["radius"], c["mass_t"], c["inv_mass"],
-                             c["batch_slot"], c["color"])
-            fields, act, dropped = _migrate(fields, act_l,
-                                            static_env[i]["cell_size"], lay,
-                                            mesh)
-            outs.append(_unpack(fields, act))
-            finals.append((fields, act))
-            n_transit = torch.sum(act & (c["slot"] >= lay.rows * lay.width))
-            info.append(torch.stack([c["dropped"] + dropped, n_transit]))
-        stats = _stats(finals, state.max_batches, mesh)
-        info = mesh.psum(torch.stack(info))
-        return (_new_state(state, outs), stats, info,
-                tuple(c["wide"] for c in carries))
+            loop.step()
+        fields, stats, info, wide = loop.exit()
+        return state.replace(**fields), stats, info, wide
 
     return call
 
@@ -861,8 +960,58 @@ def redistribute(state: ParticleState, cfg2_cell_size, lay: SpatialLayout,
 
 # ---------------------------------------------------------- sharded render --
 
+@torch.no_grad()
+def draw_frame(mesh: Mesh, state: ParticleState, stats: StepStats,
+               cfg2: DeviceConfig, interpolation_alpha, threshold, smoothness,
+               viewport_origin, *, opts2, vw: int, vh: int,
+               use_lighting: bool, thickness=None):
+    """One sharded frame (:func:`spatial_draw`): ``interpolation_alpha``,
+    ``threshold`` and ``smoothness`` are 0-dim float32 tensors and
+    ``viewport_origin`` a (2,) float32 tensor on the state's device;
+    ``thickness`` each population's outline thickness as a host float
+    (without it the outline pass reads ``cfg2``'s from the device). With
+    ``thickness`` it reads nothing from the device, so a graph can capture
+    it. Returns the (vh, vw, 4) frame."""
+    dev = state.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    alpha_t = interpolation_alpha
+    centers = (stats.last_centroid
+               + (stats.centroid - stats.last_centroid) * alpha_t)
+    screen_rgb = torch.zeros((vh, vw, 3), **f32)
+    screen_a = torch.zeros((vh, vw), **f32)
+    for i in (0, 1):  # white first, then yolk (:2163-2171)
+        opts = opts2[i]
+        cfg = population_config(cfg2, i)
+        active = state.batch_slot[i] >= 0
+        alpha_local, _, _ = render_ops.splat_population(
+            state.pos[i], state.last_pos[i], state.vel[i],
+            state.radius[i], state.color[i], active, centers[i], alpha_t,
+            cfg.texture_scale, cfg.motion_blur, opts, upsample=False)
+        # 1 - prod_rank(1 - a_rank), through one log-space sum
+        log1m = torch.log(torch.clamp(1.0 - alpha_local, min=1e-30))
+        alpha = 1.0 - torch.exp(mesh.psum(log1m, "render"))
+        rgba = render_ops.render_population(
+            alpha, None, cfg, threshold, smoothness, use_lighting, opts,
+            px_scale=float(opts.downsample),
+            outline_thickness=None if thickness is None else thickness[i])
+        if opts.downsample > 1:
+            rgba = render_ops._resize_linear_up(rgba, opts.canvas_size)
+        # pasted at the RAW centroid like the reference (:2132-2133);
+        # only the splat centres on the interpolated one
+        corner = stats.centroid[i] - 0.5 * opts.canvas_size - viewport_origin
+        screen_rgb, screen_a = render_ops._paste_src_over_frac(
+            screen_rgb, screen_a, rgba, corner)
+    return torch.cat([screen_rgb, screen_a[..., None]], dim=-1)
+
+
+def check_draw_options(opts2) -> None:
+    if opts2[0].use_particle_color or opts2[1].use_particle_color:
+        raise ValueError("spatial_draw does not support per-particle colour")
+
+
 def spatial_draw(mesh: Mesh, lay: SpatialLayout, opts2, viewport,
-                 threshold: float, smoothness: float, use_lighting: bool):
+                 threshold: float, smoothness: float, use_lighting: bool,
+                 thickness=None):
     """A renderer of spatial-layout states over the mesh.
 
     Screen-blend accumulation is ``1 - prod(1 - a)`` over particles and the
@@ -872,49 +1021,22 @@ def spatial_draw(mesh: Mesh, lay: SpatialLayout, opts2, viewport,
     coarse resolution (the blend does not commute with the resampling).
     Outline, lighting and the paste then run on every rank alike, so every
     rank returns the same frame. ``opts2``: (white, yolk) RenderOptions;
-    per-particle colour is not supported here (as in JAX).
+    per-particle colour is not supported here (as in JAX). ``thickness``:
+    see :func:`draw_frame`.
 
     Returns ``draw(state, stats, cfg2, interpolation_alpha) -> (H, W, 4)``.
     """
-    if opts2[0].use_particle_color or opts2[1].use_particle_color:
-        raise ValueError("spatial_draw does not support per-particle colour")
+    check_draw_options(opts2)
     x, y, vw, vh = viewport
-    vw, vh = int(vw), int(vh)
 
-    @torch.no_grad()
     def draw(state: ParticleState, stats: StepStats, cfg2: DeviceConfig,
              interpolation_alpha):
-        dev = state.device
-        f32 = dict(dtype=torch.float32, device=dev)
-        alpha_t = torch.as_tensor(interpolation_alpha, **f32)
-        thr = torch.tensor(threshold, **f32)
-        smooth = torch.tensor(smoothness, **f32)
-        origin = torch.tensor([x, y], **f32)
-        centers = (stats.last_centroid
-                   + (stats.centroid - stats.last_centroid) * alpha_t)
-        screen_rgb = torch.zeros((vh, vw, 3), **f32)
-        screen_a = torch.zeros((vh, vw), **f32)
-        for i in (0, 1):  # white first, then yolk (:2163-2171)
-            opts = opts2[i]
-            cfg = population_config(cfg2, i)
-            active = state.batch_slot[i] >= 0
-            alpha_local, _, _ = render_ops.splat_population(
-                state.pos[i], state.last_pos[i], state.vel[i],
-                state.radius[i], state.color[i], active, centers[i], alpha_t,
-                cfg.texture_scale, cfg.motion_blur, opts, upsample=False)
-            # 1 - prod_rank(1 - a_rank), through one log-space sum
-            log1m = torch.log(torch.clamp(1.0 - alpha_local, min=1e-30))
-            alpha = 1.0 - torch.exp(mesh.psum(log1m, "render"))
-            rgba = render_ops.render_population(
-                alpha, None, cfg, thr, smooth, use_lighting, opts,
-                px_scale=float(opts.downsample))
-            if opts.downsample > 1:
-                rgba = render_ops._resize_linear_up(rgba, opts.canvas_size)
-            # pasted at the RAW centroid like the reference (:2132-2133);
-            # only the splat centres on the interpolated one
-            corner = stats.centroid[i] - 0.5 * opts.canvas_size - origin
-            screen_rgb, screen_a = render_ops._paste_src_over_frac(
-                screen_rgb, screen_a, rgba, corner)
-        return torch.cat([screen_rgb, screen_a[..., None]], dim=-1)
+        f32 = dict(dtype=torch.float32, device=state.device)
+        return draw_frame(
+            mesh, state, stats, cfg2,
+            torch.as_tensor(interpolation_alpha, **f32),
+            torch.tensor(threshold, **f32), torch.tensor(smoothness, **f32),
+            torch.tensor([x, y], **f32), opts2=opts2, vw=int(vw),
+            vh=int(vh), use_lighting=use_lighting, thickness=thickness)
 
     return draw

@@ -11,13 +11,18 @@ of them with ~``--particles`` white particles, and prints one JSON line
 
 - per-step wall time of the resident steps (``run_steps`` of 10, median of
   3): with ``--device cuda`` the span between two CUDA events around the
-  steps, which holds the host's work between launches (the rebin decision's
-  and the migration counters' reads, a redistribute when migration
-  overflows), so a wall time and not the device's busy time; with
-  ``--device cpu`` the host clock of gloo ranks, a CPU number;
-- the bytes each rank sent in one spatial step, counted per category at the
-  collective call sites (``accounting.measured_collective_bytes``), next
-  to the analytic model (``SpatialLayout.collective_bytes_per_step``).
+  steps, replayed from CUDA graphs (``parallel/spatial_graph.py``), which
+  holds the host's work between launches (the migration counters' read, on
+  more than one rank the rebin flags' read a step, a redistribute when
+  migration overflows), so a wall time and not the device's busy time; with
+  ``--device cpu`` the eager steps on the host clock of gloo ranks, a CPU
+  number; the route and the host reads of the rebin decision a step;
+- the bytes each rank sent in one spatial step, per category
+  (``accounting.measured_collective_bytes``: counted at the collective call
+  sites on the CPU, from the replayed step's tallies on a card), next to the
+  analytic model (``SpatialLayout.collective_bytes_per_step``), and the
+  bytes a resident step sent in a ``run_steps`` of 10 (the branches' by the
+  rebins the device counted).
 
 ``--device`` is required: on a machine with one card more than one rank
 works only as gloo ranks on the CPU, and the script does not choose that for
@@ -44,8 +49,11 @@ def bench(n_ranks: int, n_target: int, device: str) -> None:
     from egg_fluid_simulation_tpu_torch import (SolverOptions, SpatialHandler,
                                                 default_white_config,
                                                 default_yolk_config)
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
     from egg_fluid_simulation_tpu_torch.parallel.accounting import \
         measured_collective_bytes
+    from egg_fluid_simulation_tpu_torch.parallel.spatial_graph import \
+        rebin_route
 
     db, dx = MESHES[n_ranks]
     per_batch = max(200, n_target // 16)
@@ -72,17 +80,22 @@ def bench(n_ranks: int, n_target: int, device: str) -> None:
     dev = h.device
     cuda = dev.type == "cuda"
 
-    # ---- bytes of one spatial step, counted at the call sites ----
+    # ---- bytes of one spatial step: the eager step's call sites on the
+    # CPU, the replayed step's tallies on a card ----
     h._ensure_spatial()
-    step, _ = h._fns()
+    graphs = h._spatial_graphs()
+    step = h._fns()[0] if graphs is None else graphs.step
     dt, relax = h._inner._step_scalars(1 / 60)
     (h._sp_state, h._sp_stats, _), counted = measured_collective_bytes(
         h.mesh, step, h._sp_state, h._inner._device_cfg2(), dt, relax)
     analytic = h.layout.collective_bytes_per_step(options)
 
-    # ---- per-step time of the resident steps ----
+    # ---- per-step time and bytes of the resident steps ----
     h.run_steps(2)
     chain, times = 10, []
+    S.host_reads = 0
+    _, resident = measured_collective_bytes(h.mesh, h.run_steps, chain)
+    reads = S.host_reads / chain
     for _ in range(3):
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
@@ -116,6 +129,11 @@ def bench(n_ranks: int, n_target: int, device: str) -> None:
                                           if k != "total"},
             "collective_bytes_analytic_per_step": analytic["total_per_step"],
             "collective_bytes_analytic": analytic,
+            "collective_bytes_resident_per_step": {
+                k: v / chain for k, v in resident.items()},
+            "route": ("eager" if graphs is None
+                      else f"graphs, rebin {rebin_route(h.mesh)}"),
+            "rebin_host_reads_per_step": reads,
             "migration_dropped": int(info[:, 0].sum()),
         }), flush=True)
 

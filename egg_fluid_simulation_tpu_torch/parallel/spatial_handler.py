@@ -19,10 +19,16 @@ Every rank runs the same calls (SPMD): the host bookkeeping is replicated.
   mutating calls first pull it back into the prefix layout
   (``_sync_inner``, an all-gather).
 - **Automatic migration recovery.** Every update reads the step's migration
-  counters on the host; dropped particles or an in-transit backlog above 5%
-  of the live ones trigger a warning and a full ``redistribute``.
+  counters on the host (one read a call, the rebins of the call with them);
+  dropped particles or an in-transit backlog above 5% of the live ones
+  trigger a warning and a full ``redistribute``.
 - **Resident fast-forward.** ``run_steps`` (and an ``update`` of more than
-  one step) uses :func:`~.spatial.spatial_multi_step`.
+  one step) uses the resident steps of :func:`~.spatial.spatial_multi_step`.
+- **Graph replays on a card.** ``update``, ``step_once``, ``run_steps`` and
+  ``draw`` replay the step, the resident steps and the frame from CUDA
+  graphs (:mod:`.spatial_graph`), the rebin decision taken on the card; on
+  the CPU (and while ``_spatial`` is ``step_graph.EAGER``) they run
+  eagerly, the rebin decision read on the host.
 """
 
 from __future__ import annotations
@@ -36,11 +42,13 @@ import torch
 from ..handler import SimulationHandler, _compute_stats
 from ..ops import render as render_ops
 from ..ops.solver import SolverOptions
+from ..ops.step_graph import EAGER
 from ..state import ParticleState
 from ..utils import log
 from . import spatial as S
 from .mesh import make_spatial_mesh
 from .sharding import unshard_state
+from .spatial_graph import SpatialGraphs
 
 __all__ = ["SpatialHandler"]
 
@@ -110,6 +118,7 @@ class SpatialHandler:
         self._step_fn = None
         self._multi_fn = None
         self._draw_cache = {}
+        self._spatial = None    # SpatialGraphs on a card (first call)
         self._last_info = None
         self._redistribute_count = 0
 
@@ -246,9 +255,54 @@ class SpatialHandler:
                                                   self._options)
         return self._step_fn, self._multi_fn
 
-    def _after_step(self, info) -> None:
+    def _spatial_graphs(self):
+        """The handler's captured step, resident steps and draws on a card
+        (made at the first call); None on the CPU and while ``_spatial`` is
+        ``step_graph.EAGER`` (the eager route)."""
+        if self._spatial is EAGER:
+            return None
+        if self._spatial is None:
+            if self._mesh.device.type != "cuda":
+                return None
+            self._spatial = SpatialGraphs(self._mesh, self._layout,
+                                          self._options)
+        return self._spatial
+
+    def _step(self, step_delta) -> None:
+        """One :func:`~.spatial.spatial_step`."""
+        cfg2 = self._inner._device_cfg2()
+        dt, relax = self._inner._step_scalars(step_delta)
+        graphs = self._spatial_graphs()
+        if graphs is None:
+            step, _ = self._fns()
+            self._sp_state, self._sp_stats, info = step(
+                self._sp_state, cfg2, dt, relax)
+        else:
+            self._sp_state, self._sp_stats, info = graphs.step(
+                self._sp_state, cfg2, dt, relax)
+        self._after_step(info)
+
+    def _steps(self, n_steps: int, step_delta) -> None:
+        """``n_steps`` resident steps (:func:`~.spatial.spatial_multi_step`)."""
+        cfg2 = self._inner._device_cfg2()
+        dt, relax = self._inner._step_scalars(step_delta)
+        graphs = self._spatial_graphs()
+        if graphs is None:
+            _, multi = self._fns()
+            self._sp_state, self._sp_stats, info, self._sp_wide = multi(
+                self._sp_state, cfg2, dt, relax, n_steps,
+                wide_state=self._sp_wide)
+            taken = None
+        else:
+            (self._sp_state, self._sp_stats, info, self._sp_wide,
+             taken) = graphs.steps(self._sp_state, cfg2, dt, relax, n_steps,
+                                   wide_state=self._sp_wide)
+        self._after_step(info, taken)
+
+    def _after_step(self, info, taken=None) -> None:
         """Migration-health recovery, from the step's counters read on the
-        host (the same on every rank):
+        host (the same on every rank; ``taken``, the replayed loop's rebins,
+        in the same read, for the branches' collective bytes):
 
         - dropped > 0: a receiver ran out of free slots and those rows are
           gone from the device state; lay the survivors out again;
@@ -256,7 +310,13 @@ class SpatialHandler:
           ring (``migrate_cap`` a direction) cannot keep up, e.g. with a
           teleported clump; in-transit particles integrate without
           collision, so the host redistribute places everyone at once."""
-        self._last_info = info.cpu().numpy()
+        flat = info.reshape(-1)
+        if taken is not None:
+            flat = torch.cat([flat, taken.to(flat.dtype)])
+        host = flat.cpu().numpy()
+        self._last_info = host[:4].reshape(2, 2)
+        if taken is not None:
+            self._spatial.count_branches(host[4:])
         if not self._auto_redistribute:
             return
         dropped = int(self._last_info[:, 0].sum())
@@ -281,9 +341,6 @@ class SpatialHandler:
             step_delta = 1 / 60
         log.assert_types(delta, "number", step_delta, "number")
         self._ensure_spatial()
-        step, multi = self._fns()
-        cfg2 = self._inner._device_cfg2()
-        dt, relax = self._inner._step_scalars(step_delta)
 
         self._elapsed += delta
         max_n_steps = max(4, 4 * math.ceil((1 / 60) / step_delta))
@@ -294,23 +351,15 @@ class SpatialHandler:
         if self._elapsed >= step_delta:  # death-spiral cap (reference :203)
             self._elapsed = 0.0
         if n == 1:
-            self._sp_state, self._sp_stats, info = step(
-                self._sp_state, cfg2, dt, relax)
-            self._after_step(info)
+            self._step(step_delta)
         elif n > 1:
-            self._sp_state, self._sp_stats, info, self._sp_wide = multi(
-                self._sp_state, cfg2, dt, relax, n, wide_state=self._sp_wide)
-            self._after_step(info)
+            self._steps(n, step_delta)
         self._interpolation_alpha = min(max(self._elapsed / step_delta, 0.0),
                                         1.0)
 
     def step_once(self, step_delta: float = 1 / 60) -> None:
         self._ensure_spatial()
-        step, _ = self._fns()
-        dt, relax = self._inner._step_scalars(step_delta)
-        self._sp_state, self._sp_stats, info = step(
-            self._sp_state, self._inner._device_cfg2(), dt, relax)
-        self._after_step(info)
+        self._step(step_delta)
 
     def run_steps(self, n_steps: int, step_delta: float = 1 / 60) -> None:
         """``n_steps`` plane-resident steps
@@ -318,12 +367,7 @@ class SpatialHandler:
         if n_steps <= 0:
             return
         self._ensure_spatial()
-        _, multi = self._fns()
-        dt, relax = self._inner._step_scalars(step_delta)
-        self._sp_state, self._sp_stats, info, self._sp_wide = multi(
-            self._sp_state, self._inner._device_cfg2(), dt, relax,
-            int(n_steps), wide_state=self._sp_wide)
-        self._after_step(info)
+        self._steps(int(n_steps), step_delta)
 
     # ------------------------------------------------------------ render --
 
@@ -331,21 +375,35 @@ class SpatialHandler:
         """Sharded render: each rank splats its own particles, one log-space
         sum over the mesh combines them; returns the (H, W, 4) frame, the
         same on every rank. ``background`` is an optional (r, g, b, a)
-        composited under everything, as ``SimulationHandler.draw`` does."""
+        composited under everything, as ``SimulationHandler.draw`` does. On
+        a card the frame is a replay of the key's draw graph; the stats are
+        read once (:meth:`_frame_options`)."""
         if viewport is None:
             viewport = (0.0, 0.0, 800, 600)
         self._ensure_spatial()
         opts2 = self._frame_options()
-        key = (opts2, tuple(viewport))
-        if key not in self._draw_cache:
-            self._draw_cache[key] = S.spatial_draw(
-                self._mesh, self._layout, opts2, viewport,
-                self._inner._thresholding_threshold,
-                self._inner._thresholding_smoothness,
-                self._inner._use_lighting)
-        frame = self._draw_cache[key](
-            self._sp_state, self.stats, self._inner._device_cfg2(),
-            self._interpolation_alpha)
+        thickness = render_ops.outline_thickness(self._inner)
+        cfg2 = self._inner._device_cfg2()
+        graphs = self._spatial_graphs()
+        if graphs is None:
+            key = (opts2, tuple(viewport), thickness)
+            if key not in self._draw_cache:
+                self._draw_cache[key] = S.spatial_draw(
+                    self._mesh, self._layout, opts2, viewport,
+                    self._inner._thresholding_threshold,
+                    self._inner._thresholding_smoothness,
+                    self._inner._use_lighting, thickness=thickness)
+            frame = self._draw_cache[key](
+                self._sp_state, self.stats, cfg2, self._interpolation_alpha)
+        else:
+            x, y, w, h = viewport
+            frame = graphs.draw(
+                self._sp_state, self.stats, cfg2,
+                (self._interpolation_alpha,
+                 self._inner._thresholding_threshold,
+                 self._inner._thresholding_smoothness, (x, y)),
+                opts2=opts2, vw=w, vh=h,
+                use_lighting=self._inner._use_lighting, thickness=thickness)
         if background is not None:
             bg = torch.tensor(background, dtype=torch.float32,
                               device=frame.device)
@@ -357,12 +415,16 @@ class SpatialHandler:
 
     def _frame_options(self):
         """(white, yolk) RenderOptions of the current state: canvas buckets
-        from the step statistics, the per-bin budget from the density."""
+        from the step statistics, the per-bin budget from the density. The
+        stats come to the host in one read (``render.host_reads``)."""
         stats = self.stats
         counts = self.get_n_particles()
-        aabb_min = stats.aabb_min.cpu().numpy()
-        aabb_max = stats.aabb_max.cpu().numpy()
-        max_vel = stats.max_velocity.cpu().numpy()
+        host = torch.cat([stats.aabb_min.reshape(-1),
+                          stats.aabb_max.reshape(-1),
+                          stats.max_velocity.reshape(-1)]).cpu().numpy()
+        render_ops.host_reads += 1
+        aabb_min, aabb_max = host[0:4].reshape(2, 2), host[4:8].reshape(2, 2)
+        max_vel = host[8:10]
         opts = []
         for i, cfg in ((0, self._inner._white_config),
                        (1, self._inner._yolk_config)):

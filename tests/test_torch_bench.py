@@ -227,7 +227,7 @@ STAGE_KEYS = {
     "1m_step_default": {"step_ms_1m_default_opts"}
     | _spreads(["step_ms_1m_default_opts"]),
     "spatial_1x1": {"spatial_1x1_step_ms_65k", "dense_step_ms_65k",
-                    "spatial_1x1_vs_dense"}
+                    "spatial_1x1_vs_dense", "spatial_host_syncs_per_step_65k"}
     | _spreads(["spatial_1x1_step_ms_65k", "dense_step_ms_65k"]),
 }
 
@@ -259,6 +259,8 @@ def test_toy_run_values(toy_run):
     assert final["n_particles_headline"] == sum(n)
     assert len(final["rebins_1m"]) == 2
     assert final["host_syncs_per_step_1m"] >= 0
+    # the CPU steps the spatial handler eagerly: a read per population
+    assert final["spatial_host_syncs_per_step_65k"] == 2.0
 
 
 # ----------------------------------------------------------- failures --

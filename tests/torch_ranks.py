@@ -352,3 +352,104 @@ def handler_program(inputs, res):
     checkpoint.save(sh, str(inputs["ckpt_path"]))
     res["ckpt_n"] = np.asarray(sh.get_n_particles())
     res["ckpt_pos"] = sh.state.pos.numpy()     # synced: the prefix layout
+
+
+def spatial_graph_program(inputs, res):
+    """The spatial graphs' parts run eagerly on their static buffers
+    (``SpatialGraphs(capture=False)``) against the eager spatial layer, on a
+    db x dx mesh: from the redistributed state a step, and resident steps
+    that rebin (call ``a``: ``dt`` 1/60); from ``a``'s state and episode
+    state resident steps that do not (call ``b``: a tiny ``dt``); a draw of
+    ``b``'s state; each call's collective bytes and rebins. Then
+    ``SpatialHandler`` with and without the graphs through update,
+    run_steps and draw."""
+    from egg_fluid_simulation_tpu_torch.ops import render as R
+    from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+    from egg_fluid_simulation_tpu_torch.parallel.spatial_graph import (
+        SpatialGraphs, rebin_route)
+    from egg_fluid_simulation_tpu_torch.parallel.spatial_handler import \
+        SpatialHandler
+    mesh, lay, opts, state = _spatial_setup(inputs)
+    white, yolk, cfg2 = _configs(inputs)
+    cells = [float(c) for c in inputs["cells"]]
+    relax = torch.tensor(1.0)
+    dts = {"a": torch.tensor(1 / 60), "b": torch.tensor(float(inputs["dt_b"]))}
+    n_steps = {"a": int(inputs["n_a"]), "b": int(inputs["n_b"])}
+    opts2 = tuple(R.auto_render_options(c, 128) for c in (white, yolk))
+    thickness = tuple(float(c["outline_thickness"]) for c in (white, yolk))
+    st0 = S.redistribute(state, cells, lay, mesh)
+    res["route"] = np.asarray(rebin_route(mesh))
+
+    for route in ("eager", "graphs"):
+        graphs = (SpatialGraphs(mesh, lay, opts, capture=False)
+                  if route == "graphs" else None)
+        step = S.spatial_step(mesh, lay, opts)
+        multi = S.spatial_multi_step(mesh, lay, opts)
+
+        def counted(name, fn):
+            mesh.counter.reset()
+            S.host_reads = 0
+            S.rebins[:] = [0, 0]
+            out = fn()
+            res[f"{route}_{name}_reads"] = np.asarray(S.host_reads)
+            res[f"{route}_{name}_host_rebins"] = np.asarray(S.rebins)
+            return out
+
+        if graphs is None:
+            st1, stats1, info1 = counted("step", lambda: step(
+                st0, cfg2, dts["a"], relax))
+        else:
+            st1, stats1, info1 = counted("step", lambda: graphs.step(
+                st0, cfg2, dts["a"], relax))
+        res[f"{route}_step_bytes"] = np.asarray(json.dumps(
+            mesh.counter.snapshot(), sort_keys=True))
+        _save_state(res, f"{route}_step", st1, mesh)
+        _save_stats(res, f"{route}_step", stats1, info1)
+        st, ws = st0, None
+        for call in ("a", "b"):
+            if graphs is None:
+                st, stats, info, ws = counted(call, lambda: multi(
+                    st, cfg2, dts[call], relax, n_steps[call],
+                    wide_state=ws))
+                taken = np.asarray(S.rebins)
+            else:
+                st, stats, info, ws, taken = counted(call, lambda: graphs.steps(
+                    st, cfg2, dts[call], relax, n_steps[call], ws))
+                taken = taken.numpy()
+                graphs.count_branches(taken)
+            res[f"{route}_{call}_rebins"] = taken
+            res[f"{route}_{call}_bytes"] = np.asarray(json.dumps(
+                mesh.counter.snapshot(), sort_keys=True))
+            _save_state(res, f"{route}_{call}", st, mesh)
+            _save_stats(res, f"{route}_{call}", stats, info)
+            res[f"{route}_{call}_wide"] = np.asarray(
+                [[int(v) for v in w] for w in ws])
+        if graphs is None:
+            frame = S.spatial_draw(mesh, lay, opts2, (0.0, 0.0, 128, 96), 0.3,
+                                   0.01, True, thickness=thickness)(
+                st, stats, cfg2, 0.5)
+        else:
+            for _ in range(2):          # the build's render, then a replay
+                frame = graphs.draw(st, stats, cfg2, (0.5, 0.3, 0.01,
+                                                      (0.0, 0.0)),
+                                    opts2=opts2, vw=128, vh=96,
+                                    use_lighting=True, thickness=thickness)
+        res[f"{route}_frame"] = frame.numpy()
+
+    # ---- the handler, eagerly and through the graphs' parts ----
+    for route in ("eager", "graphs"):
+        h = SpatialHandler(white, yolk, db=lay.db, dx=lay.dx, capacity=512,
+                           max_batches=8, options=opts, device="cpu")
+        if route == "graphs":
+            h._spatial = SpatialGraphs(h.mesh, h.layout, opts, capture=False)
+        a = h.add(60.0, 50.0, 30.0, 10.0, None, None, 80, 12)
+        h.set_target_position(a, 110.0, 70.0)
+        h.update(1 / 60)
+        h.update(3 / 60)
+        h.run_steps(2)
+        res[f"handler_{route}_frame"] = h.draw(viewport=(0, 0, 160, 120),
+                                               background=(0.1, 0.1, 0.1,
+                                                           1.0)).numpy()
+        res[f"handler_{route}_info"] = np.asarray(h.last_migration_info)
+        _save_state(res, f"handler_{route}", h.state, h.mesh)
+        _save_stats(res, f"handler_{route}", h.stats)
