@@ -86,6 +86,21 @@ Then it drives the paths through the public API:
   replayed and eager in turns; ``checkpoint``: the demo's
   handler saved mid-session, loaded on the CPU and on the card (state bit
   for bit), one step on each (card vs CPU within the step tolerances);
+- ``sharded_graph``: the 1D particle-sharded step (``parallel/sharding.py``)
+  on a one-rank mesh (a 1-rank NCCL group in the process; its all-gather
+  returns its input), replayed from its CUDA graph
+  (``parallel/sharding_graph.py``) on the scene of ``gather_handler`` and
+  on bench.py's 65,536-white scene with the gather engine, budget off: the
+  first replayed step against the single-device gather step within
+  ``SHARDED_TOL``; three chained replays, traced and with any read of the
+  device an error, against the eager route bit for bit (``batch_pos_sum``
+  within ``STATS_RTOL``; bytes a step equal), kernel H's launches a step
+  from the trace (24: a front and a sweep a pass), no wrapper launch; the
+  graph's nodes, capture seconds and pool bytes; replayed against eager
+  timed (``sharded_graph.*.step.time``). Kernel H's front and sweep against
+  their plain versions at the 65k sharded pass's own arguments
+  (``check.gather_pairs.sharded``; the sweep within ``GATHER_TOL`` plus one
+  ulp of the position), which are the kernel line's ``.sharded`` entries;
 - ``spatial_1x1``: the 2D spatial layer (``parallel/``) on a one-rank mesh
   (a 1-rank NCCL group started in the process over an in-memory store; every
   halo a copy, no collective) at the 65,536-particle scene of bench.py's
@@ -129,7 +144,8 @@ Then it drives the paths through the public API:
 Kernel H has no TPU counterpart (XLA fuses the JAX package's
 ``solve_pairs``); its three entry points are the kernel line's
 ``gather_front``, ``gather_count`` and ``gather_sweep``, with the gather
-path's launches.
+path's launches, and ``gather_front.sharded`` and ``gather_sweep.sharded``
+with the sharded step's.
 Kernel G (``splat_tiles``) has no caller on any path: it is checked alone
 (``check.splat_tiles``) on slot-major candidates built from the 1M scene's
 render payload. The kernel line gives, per kernel, its launches on its
@@ -138,7 +154,7 @@ and, where one PyTorch call computes the same function, that call's time.
 A handler's fixed step is replayed from a CUDA graph, which runs its
 launches without the wrappers, so the launches of a path that replays
 (``main_path``, ``plane_path``, ``plane_modes``, ``gather_path``,
-``spatial_1x1``) are counted in a ``torch.profiler`` trace of its run, by
+``sharded_graph``, ``spatial_1x1``) are counted in a ``torch.profiler`` trace of its run, by
 kernel symbol
 (``launches_run``); the wrappers' counters, which count the eager first
 step and the capture, are printed beside them and must not be zero where
@@ -164,6 +180,7 @@ import numpy as np
 
 from egg_fluid_simulation_tpu_torch import bench as BENCH
 from egg_fluid_simulation_tpu_torch.bench import build_handler, render_frame_fn
+from egg_fluid_simulation_tpu_torch.utils.profiling import nvidia_smi
 
 SEED = 0
 N_WHITE = 1_000_000
@@ -223,6 +240,13 @@ SPATIAL_SETTLE = 60         # run_steps before timing (bench.py)
 SPATIAL_BLOCKS = 4          # timed blocks per handler, in turns
 SPATIAL_CHAIN = 10          # run_steps per timed block
 SPATIAL_GRAPH_STEPS = 5     # run_steps of a replayed-vs-eager block
+SHARDED_STEPS = 3           # chained sharded steps, replayed vs eager
+SHARDED_TOL = (1e-5, 1e-4)  # rtol, atol px: the one-rank sharded step vs
+                            # the single-device gather step (the dry run's)
+ULP = 2.0 ** -23            # float32 rounding, relative: kernel H's sweep
+                            # against its plain version on the 65k scene, whose
+                            # positions pass 1024 px (an ulp there 1.2e-4),
+                            # is held to GATHER_TOL + one ulp of the position
 CALM_DT = 1e-4              # s: steps that drift too little to rebin (the
                             # block that does not take the branch)
 BENCH_TIMEOUT_S = 420       # the quick bench's subprocess, start-up included
@@ -250,19 +274,6 @@ TILES_CULL_OPS = 10  # kernel G: one candidate's box against the tile
 def log(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
-
-
-def nvidia_smi() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60)
-    except FileNotFoundError:
-        return "nvidia-smi not found"
-    if out.returncode != 0 or not out.stdout.strip():
-        return f"nvidia-smi failed: {out.stderr.strip()}"
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -530,27 +541,12 @@ def traced(fn, n: int) -> dict:
                      for name, (ms, count) in top])
 
 
-NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 4: "child_graph",
-              13: "conditional"}
-
-
 def node_types(raw: int) -> dict:
-    """The top-level nodes of the CUDA graph ``raw`` (a ``cudaGraph_t``) by
-    type, counted with libcuda's ``cuGraphGetNodes``."""
-    import ctypes
-    cu = ctypes.CDLL("libcuda.so.1")
-    num = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(num)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * num.value)()
-    cu.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(num))
-    out = dict.fromkeys(NODE_TYPES.values(), 0)
-    out["other"] = 0
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
-        out[NODE_TYPES.get(kind.value, "other")] += 1
-    return out
+    """The top-level nodes of the CUDA graph ``raw`` by type
+    (``utils.profiling.graph_node_types``)."""
+    from egg_fluid_simulation_tpu_torch.utils.profiling import \
+        graph_node_types
+    return graph_node_types(raw)
 
 
 def body_nodes(body):
@@ -812,10 +808,11 @@ def per_unit(phase: str, timed: dict, n: int, unit: str,
 
 def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2,
                    expect=None, count_nodes: bool = False,
-                   line: str = "step_graph") -> dict:
+                   line: str = "step_graph", eager=None) -> dict:
     """``unit`` (an ``update``, a draw, or an ``update`` and a draw) of
     handler ``h`` with its fixed step and render replayed and run eagerly
-    (:func:`eager_graphs`), in alternating blocks of ``n``: host-clock wall
+    (:func:`eager_graphs`; ``eager``, a context manager factory, replaces
+    it for a unit that is not a handler's), in alternating blocks of ``n``: host-clock wall
     ms a unit (around work that ends in ``torch.cuda.synchronize()``) and
     CUDA-event ms between the block's ends; then one traced block of each
     (device ms, kernels, the library's kernels by symbol and busy share a
@@ -828,9 +825,10 @@ def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2,
     import torch
     walls = {"replay": [], "eager": []}
     events = {"replay": [], "eager": []}
+    eager = eager or (lambda: eager_graphs(h))
 
     def block(mode):
-        ctx = eager_graphs(h) if mode == "eager" else contextlib.nullcontext()
+        ctx = eager() if mode == "eager" else contextlib.nullcontext()
         with ctx:
             torch.cuda.synchronize()
             ev0 = torch.cuda.Event(enable_timing=True)
@@ -850,7 +848,7 @@ def graph_vs_eager(h, phase: str, unit, n: int, blocks: int = 2,
             block(mode)
     out = {}
     for mode in ("replay", "eager"):
-        ctx = eager_graphs(h) if mode == "eager" else contextlib.nullcontext()
+        ctx = eager() if mode == "eager" else contextlib.nullcontext()
         attempts = []
         with ctx:
             for _ in range(3 if expect else 1):
@@ -2112,20 +2110,12 @@ KERNEL_SYMBOLS = {"place_planes": "place_planes_kernel",
 
 
 def kernel_counts(prof) -> dict:
-    """Launches of each kernel of the library among a ``torch.profiler``
-    trace's CUDA kernel events, by symbol: what ran on the card, the
-    kernels of replayed CUDA graphs included."""
-    import re
-    import torch
-    by_symbol = {v: k for k, v in KERNEL_SYMBOLS.items()}
-    pattern = re.compile(r"(?<![\w])(" + "|".join(by_symbol) + r")(?![\w])")
-    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = pattern.search(e.name)
-            if m:
-                counts[by_symbol[m.group(1)]] += 1
-    return counts
+    """Launches of each kernel of the library in a ``torch.profiler`` trace,
+    by symbol (``utils.profiling.kernel_launches``): what ran on the card,
+    the kernels of replayed CUDA graphs included."""
+    from egg_fluid_simulation_tpu_torch.utils.profiling import \
+        kernel_launches
+    return kernel_launches(prof, KERNEL_SYMBOLS)
 
 
 @contextlib.contextmanager
@@ -2915,6 +2905,228 @@ def spatial_phase(dev, results) -> dict:
             "splat": launches["draw"]["splat"]}
 
 
+def check_sharded_pass(calls, results) -> dict:
+    """Kernel H's front and sweep against their plain versions on the
+    arguments the eager sharded step gave them in its first collision pass
+    (``calls``: entry point -> (args, kwargs)): the front bit for bit
+    (record as int32 bits, bucket), the sweep of the owned range within
+    ``GATHER_TOL``; each timed from a CUDA graph of 20 calls, its plain
+    version by CUDA events; the bound counts PAIR_OPS for each candidate
+    pair of the owned particles in their true 3x3 cells, the front
+    FRONT_OPS a particle. The sweep sums a particle's pair terms in
+    another order than the plain version, which can round ``pos + total``
+    to the neighbouring float: held to ``GATHER_TOL`` plus one ulp of the
+    position (``ULP``). Results go to ``gather_front.sharded`` and
+    ``gather_sweep.sharded``."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
+    fa, fk = calls["gather_front"]
+    sa, sk = calls["gather_sweep"]
+    rec, bucket = GK.gather_front(*fa, **fk)
+    prec, pbucket = GK.gather_front_plain(*fa, **fk)
+    front_exact = bool(torch.equal(rec.view(torch.int32),
+                                   prec.view(torch.int32))
+                       and torch.equal(bucket, pbucket))
+    got = GK.gather_sweep(*sa, **sk)
+    want = GK.gather_sweep_plain(*sa, **sk)
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - ULP * want.abs()).max())
+    record, grid = sa[0], sa[1]
+    off, cnt = sk["owned"]
+    act = GK.record_active(record)
+    cand, valid = GK.candidates(grid, act)
+    near = GK.in_cells(grid.cell_xy, torch.clamp(cand, min=0).long())
+    pairs = int((valid & near)[off:off + cnt].sum())
+    n = record.shape[0]
+    sweep_ms = graph_ms(lambda: GK.gather_sweep(*sa, **sk), 20)
+    front_ms = graph_ms(lambda: GK.gather_front(*fa, **fk), 20)
+    sweep_plain_ms = cuda_ms(lambda: GK.gather_sweep_plain(*sa, **sk), 3)
+    front_plain_ms = cuda_ms(lambda: GK.gather_front_plain(*fa, **fk), 3)
+    s_ms, s_by = bound(pairs * PAIR_OPS,
+                       nbytes(grid.table, record) + cnt * 8)
+    f_ms, f_by = bound(n * FRONT_OPS,
+                       nbytes(*(t for t in fa if torch.is_tensor(t)), rec,
+                              bucket))
+    results["gather_sweep.sharded"] = dict(
+        max_abs_err=err, ms=sweep_ms, plain_ms=sweep_plain_ms,
+        bound_ms=s_ms, bound_by=s_by, library_ms=None)
+    results["gather_front.sharded"] = dict(
+        max_abs_err=0.0, ms=front_ms, plain_ms=front_plain_ms,
+        bound_ms=f_ms, bound_by=f_by, library_ms=None)
+    out = dict(particles=n, owned=(off, cnt), k=grid.table.shape[1],
+               table_size=grid.table_size, pairs_in_cells=pairs,
+               front_bit_exact=front_exact, sweep_max_abs_err=err,
+               sweep_err_past_one_ulp=excess,
+               tol=f"{GATHER_TOL} px + one ulp of the position",
+               sweep_ms=round(sweep_ms, 5),
+               sweep_plain_ms=round(sweep_plain_ms, 4),
+               sweep_bound_ms=round(s_ms, 5), sweep_bound_by=s_by,
+               front_ms=round(front_ms, 5),
+               front_plain_ms=round(front_plain_ms, 4),
+               front_bound_ms=round(f_ms, 5), front_bound_by=f_by,
+               card=nvidia_smi())
+    log("check.gather_pairs.sharded", **out)
+    if not (front_exact and excess <= GATHER_TOL
+            and float((want - record[off:off + cnt, 0:2]).abs().max()) > 0.0):
+        raise AssertionError(f"sharded pass: kernel H disagrees with its "
+                             f"plain version, or the pass moved nothing "
+                             f"({out})")
+    return out
+
+
+def sharded_phase(dev, results) -> dict:
+    """``sharded_graph``: the 1D particle-sharded step
+    (``parallel/sharding.py``) on a one-rank mesh (a 1-rank NCCL group
+    started in the process over an in-memory store; its all-gather returns
+    its input and its all-reduces are nothing), replayed from its CUDA graph
+    (``parallel/sharding_graph.py``), on the scene of :func:`gather_handler`
+    and on bench.py's 65,536-white scene (``dryrun.N_TIMED``) with the
+    gather engine, budget off. On each: the first call (eager warm-up and
+    capture) timed; the first replayed step against the single-device
+    gather step (``solver.step``, same options) on the live particles within
+    ``SHARDED_TOL``; ``SHARDED_STEPS`` chained replays, traced and under
+    ``sync_errors`` (no host read), against the eager route from the same
+    state (``dryrun.chains_unequal``: bit for bit, ``batch_pos_sum`` within
+    ``STATS_RTOL``, the bytes a step equal), H's launches a step from the
+    trace (a front and a sweep a pass: 24) and no wrapper launch; the
+    graph's nodes, capture seconds and pool bytes; replayed against eager
+    timed (:func:`graph_vs_eager`: wall, device ms, kernels, busy share).
+    On the 65k scene kernel H against its plain version at the sharded
+    pass's own arguments (:func:`check_sharded_pass`). Returns H's launches
+    of the 65k scene's replayed run."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from egg_fluid_simulation_tpu_torch.ops import solver as SO
+    from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
+    from egg_fluid_simulation_tpu_torch.ops.step_graph import (EAGER,
+                                                               sync_errors)
+    from egg_fluid_simulation_tpu_torch.parallel import dryrun as DR
+    from egg_fluid_simulation_tpu_torch.parallel import sharding as SH
+    from egg_fluid_simulation_tpu_torch.parallel.mesh import init_single_rank
+    from egg_fluid_simulation_tpu_torch.parallel.sharding_graph import \
+        ShardedGraphs
+    from egg_fluid_simulation_tpu_torch.utils.profiling import \
+        graph_node_types
+
+    t_phase = time.perf_counter()
+    init_single_rank(dev)
+    mesh = SH.make_mesh(dev)
+    scenes = (("gather_8k", lambda: gather_handler(dev)),
+              ("65k", lambda: build_handler(DR.N_TIMED, dev, engine="gather",
+                                            budget_mode="off")))
+    launches = None
+    for scene, make in scenes:
+        h = make()
+        opts = dataclasses.replace(h._options, budget_mode="off")
+        cfg2 = h._device_cfg2()
+        dt, relax = h._step_scalars(1 / 60)
+        st0 = SH.shard_state(h.state, mesh)
+        graphs = ShardedGraphs(mesh, opts)
+        replay = SH.sharded_step(mesh, opts, graphs=graphs)
+        eager = SH.sharded_step(mesh, opts, graphs=EAGER)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, _ = replay(st0, cfg2, dt, relax)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+
+        # ---- the one-rank step against the single-device gather step ----
+        ref, _ = SO.step(h.state, cfg2, dt, relax, opts)
+        act = h.state.active_mask()
+        rtol, atol = SHARDED_TOL
+        ref_err = {f: float(((getattr(first, f) - getattr(ref, f)).abs()
+                             - rtol * getattr(ref, f).abs())[act].max())
+                   for f in ("pos", "prev")}
+        moved = float((first.pos - st0.pos).abs()[act].max())
+
+        # ---- replayed (traced, no device read) against eager; a trace
+        # that lost kernel records is taken again (up to three) ----
+        passes = 2 * opts.n_substeps * opts.n_collision_steps
+        expected = {"gather_front": passes, "gather_sweep": passes}
+        for attempt in range(1, 4):
+            with launches_run() as run:
+                with sync_errors():
+                    got = DR.chain(replay, st0, cfg2, dt, relax,
+                                   SHARDED_STEPS, mesh)
+            per_step = {k: v / SHARDED_STEPS
+                        for k, v in run["trace"].items() if v}
+            if per_step == expected:
+                break
+        want = DR.chain(eager, st0, cfg2, dt, relax, SHARDED_STEPS, mesh)
+        bad, err = DR.chains_unequal(got, want)
+        g = graphs.graph()
+        out = dict(particles=h.get_n_particles(), capacity=st0.capacity,
+                   table_size=opts.table_size, k=opts.slots_per_cell,
+                   first_call_s=round(first_s, 3),
+                   capture_s=round(g.capture_seconds, 3),
+                   pool_bytes=graphs.pool_bytes(),
+                   graph_nodes=graph_node_types(g._graph.raw_cuda_graph()),
+                   reference_excess=ref_err, moved_px=moved,
+                   reference_tol=f"rtol {rtol}, atol {atol} px",
+                   unequal=bad, batch_sum_rel_err=err,
+                   bytes_per_step=got[0][2], launches_per_step=per_step,
+                   h_per_step=sum(per_step.get(k, 0) for k in (
+                       "gather_front", "gather_sweep", "gather_count")),
+                   trace_attempts=attempt, wrapper_counts=run["wrappers"],
+                   host_reads_replayed=0,
+                   tol=f"bit for bit; batch_pos_sum rtol {STATS_RTOL}")
+        log(f"sharded_graph.{scene}", **out)
+        if (bad or err > STATS_RTOL or max(ref_err.values()) > atol
+                or not moved > 0.0 or graphs.captures != 1
+                or per_step != expected or any(run["wrappers"].values())):
+            raise AssertionError(f"sharded_graph.{scene}: the replayed step "
+                                 f"differs from the eager step or the "
+                                 f"single-device step, or ran otherwise than "
+                                 f"expected ({out})")
+
+        # ---- replayed against eager, timed ----
+        route = {"step": replay}
+        carry = {"st": first}
+
+        def unit():
+            carry["st"], _ = route["step"](carry["st"], cfg2, dt, relax)
+
+        @contextlib.contextmanager
+        def eager_route():
+            route["step"] = eager
+            try:
+                yield
+            finally:
+                route["step"] = replay
+
+        graph_vs_eager(None, f"{scene}.step", unit, GRAPH_UNITS, GRAPH_BLOCKS,
+                       expect=expected, line="sharded_graph",
+                       eager=eager_route)
+        if scene == "65k":
+            launches = run["trace"]
+            # H's arguments in the eager step's first pass
+            calls = {}
+            orig = {n: getattr(GK, n) for n in ("gather_front",
+                                                "gather_sweep")}
+
+            def keep(name):
+                def fn(*a, **k):
+                    calls.setdefault(name, (a, k))
+                    return orig[name](*a, **k)
+                return fn
+
+            for name in orig:
+                setattr(GK, name, keep(name))
+            try:
+                eager(st0, cfg2, dt, relax)
+            finally:
+                for name, fn in orig.items():
+                    setattr(GK, name, fn)
+            check_sharded_pass(calls, results)
+        del h, graphs, replay, eager
+    log("sharded_graph", seconds=round(time.perf_counter() - t_phase, 2),
+        card=nvidia_smi())
+    dist.destroy_process_group()
+    return {"gather_front.sharded": launches["gather_front"],
+            "gather_sweep.sharded": launches["gather_sweep"]}
+
+
 def main() -> int:
     import torch
     card = nvidia_smi()
@@ -3311,6 +3523,7 @@ def main() -> int:
         raise AssertionError("warmup changed the simulation state")
 
     gather_phases(dev, results)
+    sharded_launches = sharded_phase(dev, results)
     spatial_launches = spatial_phase(dev, results)
     torch.cuda.empty_cache()
     bench_phase()
@@ -3337,7 +3550,9 @@ def main() -> int:
              ("splat.spatial_1x1", src + "splat.cu", tpu + "splat_kernel.py:400"),
              ("gather_sweep", src + "gather_pairs.cu", no_tpu),
              ("gather_count", src + "gather_pairs.cu", no_tpu),
-             ("gather_front", src + "gather_pairs.cu", no_tpu)]
+             ("gather_front", src + "gather_pairs.cu", no_tpu),
+             ("gather_front.sharded", src + "gather_pairs.cu", no_tpu),
+             ("gather_sweep.sharded", src + "gather_pairs.cu", no_tpu)]
     # kernel G has no caller on any path: its launches are its check's
     launches["splat_tiles"] = results["splat_tiles"]["launches"]
     # D and C on the spatial path: that phase's own launches
@@ -3346,6 +3561,8 @@ def main() -> int:
     # H on the gather path (the small-scene default): that phase's launches
     for n in ("gather_sweep", "gather_count", "gather_front"):
         launches[n] = results[n]["launches"]
+    # H on the particle-sharded path: the replayed 65k steps' launches
+    launches.update(sharded_launches)
     kernels = [dict(name=n, route="cuda", source=s, replaces=r,
                     launches=launches[n],
                     **{key: results[n][key] for key in (

@@ -52,8 +52,6 @@ spatial layer's graphs (``parallel/spatial_graph.py``).
 
 from __future__ import annotations
 
-import contextlib
-import time
 from collections import OrderedDict
 
 import torch
@@ -61,7 +59,8 @@ import torch
 from ..config import DeviceConfig
 from ..state import ParticleState
 from . import solver
-from .step_graph import StaticInputs, StepGraphs, graph_key, sync_errors
+from .step_graph import (StaticInputs, StepGraphs, graph_key, measured,
+                         sync_errors)
 
 __all__ = ["LoopGraph", "ResidentGraph", "ResidentGraphs", "resident_key",
            "kept"]
@@ -128,18 +127,6 @@ class LoopGraph(StaticInputs):
         self._graphs[name] = graph
         return graph
 
-    @contextlib.contextmanager
-    def _measured(self, dev):
-        """Inside, captures; their time goes to ``capture_seconds`` and the
-        memory they reserve to ``pool_bytes``."""
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        yield
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - before
-
     def _capture_loop(self, dev, enter, advance, exit=None, *,
                       branch_graphs: bool = False) -> None:
         """Record the loop's parts. The enter, the advance and the exit
@@ -149,7 +136,7 @@ class LoopGraph(StaticInputs):
         advance's, inside which it runs): kept as the body of the advance's
         IF node, or with ``branch_graphs`` instantiated, to be replayed on
         its own. Raises if a capture fails."""
-        with self._measured(dev):
+        with measured(self, dev):
             pool = self._capture_part("enter", enter).pool()
             rebin_pool = None
             for i, p in enumerate(self.loop.pops):

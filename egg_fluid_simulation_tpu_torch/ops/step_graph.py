@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from collections import OrderedDict
 
 import torch
@@ -53,7 +54,7 @@ from ..state import ParticleState, StepStats
 from . import solver
 
 __all__ = ["EAGER", "StaticInputs", "StepGraph", "StepGraphs", "graph_key",
-           "copy_in", "sync_errors"]
+           "copy_in", "sync_errors", "measured"]
 
 # a handler's ``_step_graphs`` set to this runs its fixed steps eagerly on
 # any device (how a measurement times the eager step beside the replayed one)
@@ -139,6 +140,19 @@ def sync_errors():
         torch.cuda.set_sync_debug_mode(mode)
 
 
+@contextlib.contextmanager
+def measured(owner, dev):
+    """Inside, captures; their time goes to ``owner.capture_seconds`` and the
+    memory they reserve to ``owner.pool_bytes``."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    yield
+    owner.capture_seconds = time.perf_counter() - t0
+    owner.pool_bytes = torch.cuda.memory_reserved(dev) - before
+
+
 class StaticInputs:
     """Static buffers for everything a step reads (the state, the
     (2,)-leading config, the step scalars, the wide-gate state) and their
@@ -215,12 +229,16 @@ class StepGraph(StaticInputs):
 
     # -------------------------------------------------------------- step --
 
+    def _step(self):
+        """``(state, stats, wide_state)`` of one step of the static
+        buffers."""
+        return solver.step(self._state, self._cfg, *self._scalars,
+                           self.options, wide_state=self._wide)
+
     def _body(self) -> None:
         """One step on the static buffers: the carried state and the gate
         state written over the inputs, the stats into the stats buffer."""
-        new, stats, wide = solver.step(self._state, self._cfg,
-                                       *self._scalars, self.options,
-                                       wide_state=self._wide)
+        new, stats, wide = self._step()
         parts = [getattr(stats, f) for f in _STATS]
         if self._stats_layout is None:
             self._stats_layout = [(n, tuple(p.shape))

@@ -10,14 +10,18 @@ model): ``full_halo_exchange``, ``xy_refresh_per_pass``, ``migration``;
 besides them ``reductions`` (the gate's and the statistics' all-reduces,
 outside the model), ``render`` (the draw's log-space sum) and ``gather``
 (a whole state gathered for the host layout or the handler's sync). The 1D
-sharded step counts its per-pass gather under ``all_gather``.
+sharded step counts its per-pass gather under ``all_gather`` (6 floats a
+particle a pass) and its statistics' sum and max under ``reductions``.
 
 A replayed CUDA graph runs no Python, so no call site counts in it: the
 spatial graphs (``parallel/spatial_graph.py``) record each part's bytes
 once, at its eager warm-up, and add that tally at each replay; a rebin
 branch's tally is added as many times as the device counter says the
-branch ran (read with the call's migration counters). The counts are the
-same as the eager call sites' (``tests/test_torch_spatial_graph.py``).
+branch ran (read with the call's migration counters). The sharded step's
+graph (``parallel/sharding_graph.py``) keeps the bytes of its eager first
+step and adds them at each replay. The counts are the same as the eager
+call sites' (``tests/test_torch_spatial_graph.py``,
+``tests/test_torch_sharding_graph.py``).
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ The collectives, as ``shard_map`` bodies use them there:
 Every collective adds the bytes this rank sends to a per-category counter
 (:class:`CollectiveCounter`, read by :mod:`.accounting`): a ring shift its
 payload, an all-reduce or an all-gather its contribution (a replayed graph
-adds the tally of its capture, :mod:`.spatial_graph`).
+adds the tally of its warm-up, :mod:`.spatial_graph`, :mod:`.sharding_graph`).
 
 Backends: NCCL for CUDA tensors, gloo for CPU tensors. A mesh of more than
 one rank needs a process group of exactly its size (``torchrun`` sets one
@@ -33,6 +33,7 @@ running (:func:`init_single_rank`: an in-memory store, no network).
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import tempfile
@@ -44,13 +45,16 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "CollectiveCounter", "make_mesh", "make_spatial_mesh",
            "init_single_rank", "init_from_env", "backend_for", "spawn_ranks",
-           "BANDS", "BLOCKS", "PARTICLES"]
+           "BANDS", "BLOCKS", "PARTICLES", "CAPTURE_ERROR_MODE"]
 
 BANDS = "bands"          # spatial mesh axis 0: grid rows (y)
 BLOCKS = "blocks"        # spatial mesh axis 1: lane groups (x)
 PARTICLES = "particles"  # the 1D particle-sharded mesh
 
 GROUP_TIMEOUT_S = 60.0   # a collective's longest wait on a peer
+# the capture mode of a CUDA graph that may hold NCCL work: the process
+# group's watchdog thread queries events while another thread captures
+CAPTURE_ERROR_MODE = "thread_local"
 
 
 class CollectiveCounter:
@@ -74,6 +78,24 @@ class CollectiveCounter:
 
     def restore(self, snapshot: Dict[str, int]) -> None:
         self.bytes = dict(snapshot)
+
+    def since(self, snapshot: Dict[str, int]) -> Dict[str, int]:
+        """The bytes added since ``snapshot``, per category that moved."""
+        return {k: v - snapshot.get(k, 0) for k, v in self.bytes.items()
+                if v != snapshot.get(k, 0)}
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """The adds inside are dropped; yields the dict that receives what
+        they added (:meth:`since`) when the block ends: how a captured
+        graph's bytes are tallied once and added at each replay."""
+        before = self.snapshot()
+        diff = {}
+        try:
+            yield diff
+        finally:
+            diff.update(self.since(before))
+            self.restore(before)
 
 
 def backend_for(device) -> str:

@@ -17,6 +17,11 @@ The counterpart of ``egg_fluid_simulation_tpu/parallel/sharding.py`` on
 It trades bandwidth (an all-gather of every particle a pass) for no
 rebalancing; the 2D decomposition (:mod:`.spatial`) moves boundary-sized
 bytes instead.
+
+The JAX package jits its ``shard_map`` body into one program a step; on a
+card the step here (:func:`shard_body`) is captured once in a CUDA graph,
+its all-gathers and all-reduces NCCL work inside it, and replayed
+(:mod:`.sharding_graph`).
 """
 
 from __future__ import annotations
@@ -28,12 +33,13 @@ from ..ops import grid as grid_ops
 from ..ops import solver as solver_ops
 from ..ops.kernels import gather_kernel
 from ..ops.solver import SolverOptions
+from ..ops.step_graph import EAGER
 from ..state import PARTICLE_FIELDS, ParticleState, StepStats
 from ..utils.mathx import EPS
 from .mesh import Mesh, make_mesh
 
-__all__ = ["make_mesh", "shard_state", "sharded_step", "unshard_state",
-           "global_stats"]
+__all__ = ["make_mesh", "shard_state", "sharded_step", "shard_body",
+           "unshard_state", "global_stats"]
 
 _BIG = 3.4e38
 
@@ -154,53 +160,81 @@ def _substep_sharded(pos, prev, vel, inv_mass, radius, mass_t, batch_slot,
     return pos, prev, vel, inv_mass, radius
 
 
-def sharded_step(mesh: Mesh, options: SolverOptions):
+def shard_body(mesh: Mesh, options: SolverOptions, state: ParticleState,
+               cfg2: DeviceConfig, step_delta: torch.Tensor,
+               relaxation: torch.Tensor):
+    """One particle-sharded step of this rank's slice: ``(state, stats)``.
+    ``step_delta`` and ``relaxation`` are 0-d float32 tensors on the state's
+    device; the owned range and every shape are fixed by the mesh and the
+    state. It never reads the device, so a CUDA graph can hold it
+    (:mod:`.sharding_graph`)."""
+    dev = state.device
+    sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)
+    n_local = state.pos.shape[1]
+    local_ids = mesh.rank * n_local + torch.arange(
+        n_local, dtype=torch.int32, device=dev)
+    active = local_ids[None, :] < state.count[:, None]
+    last_pos = state.pos
+    follow_radius = torch.sqrt(torch.clamp(state.batch_radius, min=0.0))
+
+    outs, pops = [], []
+    for i in range(2):
+        cfg = population_config(cfg2, i)
+        act = active[i]
+        carry = (state.pos[i], state.prev[i], state.vel[i],
+                 state.inv_mass[i], state.radius[i])
+        for _ in range(options.n_substeps):
+            carry = _substep_sharded(
+                *carry, state.mass_t[i], state.batch_slot[i], act, cfg,
+                state.batch_target, follow_radius[i], sub_dt, relaxation,
+                options, mesh)
+        outs.append(carry)
+        pos, _, vel, _, radius = carry
+        pops.append((pos, last_pos[i], vel, torch.where(act, radius, 0.0),
+                     act, state.batch_slot[i]))
+    stats = global_stats(pops, state.max_batches, mesh)
+    pos, prev, vel, inv_mass, radius = (torch.stack(x) for x in zip(*outs))
+    return state.replace(pos=pos, prev=prev, vel=vel, inv_mass=inv_mass,
+                         radius=radius, last_pos=last_pos), stats
+
+
+def _device_scalar(x, dev) -> torch.Tensor:
+    """``x`` as a 0-d float32 tensor on ``dev``; a Python number is filled
+    in on the device (no copy from the host)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=dev)
+
+
+def sharded_step(mesh: Mesh, options: SolverOptions, graphs=None):
     """The particle-sharded step: ``step(state, cfg2, step_delta,
     relaxation) -> (state, stats)`` on this rank's slice (see
     :func:`shard_state`), with the semantics of the single-device
     :func:`...ops.solver.step` on the gather engine with
     ``budget_mode="off"`` (the ordered 0.05 n^2 cutoff, inert above ~360
-    live particles, would need a prefix scan across ranks)."""
+    live particles, would need a prefix scan across ranks).
+
+    On a CUDA mesh the step replays a CUDA graph of :func:`shard_body`
+    (:class:`.sharding_graph.ShardedGraphs`), as the JAX package jits its
+    ``shard_map`` body; on a CPU mesh it runs eagerly. ``graphs``:
+    ``ops.step_graph.EAGER`` runs eagerly on any device (the route a
+    replay is compared with), a :class:`~.sharding_graph.ShardedGraphs`
+    runs through that one (``capture=False``: its plumbing, eagerly)."""
     if options.budget_mode != "off":
         raise ValueError("sharded_step implements budget_mode='off'; the "
                          "ordered budget is inert at multi-device counts")
+    from .sharding_graph import ShardedGraphs
+    if graphs is None and mesh.device.type == "cuda":
+        graphs = ShardedGraphs(mesh, options)
+    eager = graphs is None or graphs is EAGER
 
     @torch.no_grad()
     def step(state: ParticleState, cfg2: DeviceConfig, step_delta,
              relaxation):
-        dev = state.device
-        step_delta = torch.as_tensor(step_delta, dtype=torch.float32,
-                                     device=dev)
-        sub_dt = torch.clamp(step_delta / options.n_substeps, min=EPS)
-        n_local = state.pos.shape[1]
-        local_ids = mesh.rank * n_local + torch.arange(
-            n_local, dtype=torch.int32, device=dev)
-        active = local_ids[None, :] < state.count[:, None]
-        last_pos = state.pos
-        follow_radius = torch.sqrt(torch.clamp(state.batch_radius, min=0.0))
-
-        outs, pops = [], []
-        for i in range(2):
-            cfg = population_config(cfg2, i)
-            act = active[i]
-            carry = (state.pos[i], state.prev[i], state.vel[i],
-                     state.inv_mass[i], state.radius[i])
-            for _ in range(options.n_substeps):
-                carry = _substep_sharded(
-                    *carry, state.mass_t[i], state.batch_slot[i], act, cfg,
-                    state.batch_target, follow_radius[i], sub_dt, relaxation,
-                    options, mesh)
-            outs.append(carry)
-            pos, _, vel, _, radius = carry
-            pops.append((pos, last_pos[i], vel,
-                         torch.where(act, radius, 0.0), act,
-                         state.batch_slot[i]))
-        stats = global_stats(pops, state.max_batches, mesh)
-        pos, prev, vel, inv_mass, radius = (torch.stack(x)
-                                            for x in zip(*outs))
-        new_state = state.replace(pos=pos, prev=prev, vel=vel,
-                                  inv_mass=inv_mass, radius=radius,
-                                  last_pos=last_pos)
-        return new_state, stats
+        scalars = (_device_scalar(step_delta, state.device),
+                   _device_scalar(relaxation, state.device))
+        if eager:
+            return shard_body(mesh, options, state, cfg2, *scalars)
+        return graphs.run(state, cfg2, *scalars)
 
     return step

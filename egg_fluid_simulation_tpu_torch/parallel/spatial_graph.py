@@ -79,10 +79,10 @@ from ..config import DeviceConfig
 from ..ops import solver as solver_ops
 from ..ops.render_graph import RenderGraph
 from ..ops.resident_graph import LoopGraph, kept
-from ..ops.step_graph import sync_errors
+from ..ops.step_graph import measured, sync_errors
 from ..state import ParticleState, StepStats
 from . import spatial as S
-from .mesh import Mesh
+from .mesh import CAPTURE_ERROR_MODE, Mesh
 
 __all__ = ["SpatialGraph", "SpatialGraphs", "SpatialDrawGraph",
            "spatial_key", "rebin_route", "CAPTURE_ERROR_MODE"]
@@ -91,7 +91,6 @@ KINDS = ("step", "steps")
 # the state fields a step writes (spatial._unpack's)
 STATE_OUT = ("pos", "prev", "vel", "last_pos", "radius", "mass_t",
              "inv_mass", "batch_slot", "color")
-CAPTURE_ERROR_MODE = "thread_local"
 
 
 def rebin_route(mesh: Mesh) -> str:
@@ -104,24 +103,6 @@ def rebin_route(mesh: Mesh) -> str:
 def spatial_key(kind: str, state: ParticleState):
     """What changes the captured work of a handler's step or steps."""
     return (kind, state.capacity, state.max_batches, str(state.device))
-
-
-def _diff(after: dict, before: dict) -> dict:
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v != before.get(k, 0)}
-
-
-@contextlib.contextmanager
-def _uncounted(mesh: Mesh):
-    """The mesh counter's call-site adds inside are dropped; yields the
-    dict that receives their difference when the block ends."""
-    before = mesh.counter.snapshot()
-    diff = {}
-    try:
-        yield diff
-    finally:
-        diff.update(_diff(mesh.counter.snapshot(), before))
-        mesh.counter.restore(before)
 
 
 def _clone_stats(stats: StepStats) -> StepStats:
@@ -190,7 +171,7 @@ class SpatialGraph(LoopGraph):
     def _counted(self, name: str, body) -> None:
         """``body()`` with its collective bytes recorded as ``name``'s tally
         and kept out of the mesh counter."""
-        with _uncounted(self.mesh) as diff:
+        with self.mesh.counter.uncounted() as diff:
             body()
         self.tally[name] = diff
 
@@ -218,9 +199,9 @@ class SpatialGraph(LoopGraph):
         (:meth:`LoopGraph._capture_loop`), each population's rebin branch the
         body of the step's IF node or, on the ``host_flag`` route, a graph
         replayed after the step. Raises if a capture fails."""
-        with _uncounted(self.mesh):
+        with self.mesh.counter.uncounted():
             if self.kind == "step":
-                with self._measured(dev):
+                with measured(self, dev):
                     self._capture_part("step", self._step)
                 return
             if_node = self.route == "if_node"
@@ -233,7 +214,7 @@ class SpatialGraph(LoopGraph):
     def _run(self, name: str, body) -> None:
         """:meth:`LoopGraph._run` with the part's tallied bytes added to the
         mesh counter."""
-        with _uncounted(self.mesh):
+        with self.mesh.counter.uncounted():
             super()._run(name, body)
         self.mesh.counter.add_all(self.tally[name])
 
@@ -268,7 +249,7 @@ class SpatialGraph(LoopGraph):
             S.rebins[i] += 1
             graph = self._graphs.get(f"rebin.{i}")
             if graph is None:
-                with _uncounted(self.mesh):
+                with self.mesh.counter.uncounted():
                     self.loop.pops[i].rebin()
             else:
                 graph.replay()
@@ -303,11 +284,11 @@ class SpatialDrawGraph(RenderGraph):
         frame = S.draw_frame(self.mesh, self._state, self._stats, self._cfg,
                              self._alpha, self._thr, self._smooth,
                              self._origin, **self.static)
-        self.tally = _diff(self.mesh.counter.snapshot(), before)
+        self.tally = self.mesh.counter.since(before)
         return (frame,)
 
     def _capture(self, dev):
-        with _uncounted(self.mesh):
+        with self.mesh.counter.uncounted():
             return super()._capture(dev)
 
     def replay(self) -> None:

@@ -1,16 +1,20 @@
 """Profiling and state audits.
 
 ``StepTimer`` (rolling phase timings) and ``trace`` (a ``torch.profiler``
-trace), then the collision-budget drop rate and the NaN guard: host-side
-numpy over a handler's current state, as in
-``egg_fluid_simulation_tpu/utils/profiling.py``.
+trace), what ran on the card (``kernel_launches``: a trace's launches of
+named kernels; ``graph_node_types``: a captured CUDA graph's nodes), then
+the collision-budget drop rate and the NaN guard: host-side numpy over a
+handler's current state, as in ``egg_fluid_simulation_tpu/utils/profiling.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
+import re
 import statistics
+import subprocess
 import time
 from typing import Dict, List, Union
 
@@ -19,7 +23,9 @@ import torch
 
 from . import log
 
-__all__ = ["StepTimer", "trace", "validate_state", "collision_drop_stats"]
+__all__ = ["StepTimer", "trace", "kernel_launches", "graph_node_types",
+           "nvidia_smi",
+           "validate_state", "collision_drop_stats"]
 
 
 class StepTimer:
@@ -107,6 +113,60 @@ def trace(dir_path: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(dir_path, "trace.json"))
+
+
+def kernel_launches(prof, symbols: Dict[str, str]) -> Dict[str, int]:
+    """Launches of each kernel ``name`` of ``symbols`` (name -> symbol)
+    among a ``torch.profiler`` trace's CUDA kernel events, matched by symbol
+    as a word (the library's kernels sit in an anonymous namespace): what
+    ran on the card, the kernels of replayed CUDA graphs included."""
+    by_symbol = {v: k for k, v in symbols.items()}
+    pattern = re.compile(r"(?<![\w])(" + "|".join(by_symbol) + r")(?![\w])")
+    counts = dict.fromkeys(symbols, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = pattern.search(e.name)
+            if m:
+                counts[by_symbol[m.group(1)]] += 1
+    return counts
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` reports them (the first
+    card's line)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except FileNotFoundError:
+        return "nvidia-smi not found"
+    if out.returncode != 0 or not out.stdout.strip():
+        return f"nvidia-smi failed: {out.stderr.strip()}"
+    return out.stdout.strip().splitlines()[0]
+
+
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 4: "child_graph",
+              13: "conditional"}
+
+
+def graph_node_types(raw: int) -> Dict[str, int]:
+    """The top-level nodes of the CUDA graph ``raw`` (a ``cudaGraph_t``, as
+    ``CUDAGraph.raw_cuda_graph()`` gives it) by type, counted with libcuda's
+    ``cuGraphGetNodes``."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    num = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(num)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * num.value)()
+    cu.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(num))
+    out = dict.fromkeys(NODE_TYPES.values(), 0)
+    out["other"] = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        out[NODE_TYPES.get(kind.value, "other")] += 1
+    return out
 
 
 def collision_drop_stats(handler) -> dict:

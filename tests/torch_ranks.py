@@ -273,6 +273,53 @@ def sharding_program(inputs, res):
     res["dryrun_passed"] = np.asarray(1)
 
 
+def sharding_graph_program(inputs, res):
+    """The sharded step's graph plumbing run eagerly on its static buffers
+    (``ShardedGraphs(capture=False)``), the eager ``sharded_step``
+    (``step_graph.EAGER``) and the default route of a CPU mesh, each
+    ``n_steps`` chained steps from the sharded state: every step's state,
+    stats and collective bytes per category. On the graph route the state
+    the first step handed out is compared after the last (not overwritten
+    by later replays), and the first step is run again with Python-number
+    scalars."""
+    from egg_fluid_simulation_tpu_torch.interop import state_from_numpy
+    from egg_fluid_simulation_tpu_torch.ops.solver import SolverOptions
+    from egg_fluid_simulation_tpu_torch.ops.step_graph import EAGER
+    from egg_fluid_simulation_tpu_torch.parallel import sharding
+    from egg_fluid_simulation_tpu_torch.parallel.accounting import \
+        measured_collective_bytes
+    from egg_fluid_simulation_tpu_torch.parallel.sharding_graph import \
+        ShardedGraphs
+    _, _, cfg2 = _configs(inputs)
+    mesh = sharding.make_mesh("cpu")
+    opts = SolverOptions(**json.loads(str(inputs["options"])))
+    state = state_from_numpy({k[6:]: v for k, v in inputs.items()
+                              if k.startswith("state_")})
+    st0 = sharding.shard_state(state, mesh)
+    dt, relax = torch.tensor(1 / 60), torch.tensor(1.0)
+    graphs = ShardedGraphs(mesh, opts, capture=False)
+    routes = {"eager": sharding.sharded_step(mesh, opts, graphs=EAGER),
+              "graphs": sharding.sharded_step(mesh, opts, graphs=graphs),
+              "default": sharding.sharded_step(mesh, opts)}
+    for route, step in routes.items():
+        st = st0
+        for k in range(int(inputs["n_steps"])):
+            (st, stats), counted = measured_collective_bytes(
+                mesh, step, st, cfg2, dt, relax)
+            res[f"{route}_{k}_bytes"] = np.asarray(json.dumps(
+                counted, sort_keys=True))
+            _save_state(res, f"{route}_{k}", st, mesh)
+            _save_stats(res, f"{route}_{k}", stats)
+            if route == "graphs" and k == 0:
+                first = st
+        if route == "graphs":
+            _save_state(res, "graphs_first_after", first, mesh)
+    res["graphs_captures"] = np.asarray(graphs.captures)
+    st, stats = routes["graphs"](st0, cfg2, 1 / 60, 1.0)
+    _save_state(res, "graphs_floats", st, mesh)
+    _save_stats(res, "graphs_floats", stats)
+
+
 def handler_program(inputs, res):
     """The SpatialHandler product surface on a db x dx mesh: the flow of
     tests/test_spatial_handler.py, its migration-overflow recovery, a demo
