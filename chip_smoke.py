@@ -2432,22 +2432,30 @@ def bench_phase() -> dict:
 
 def spatial_snapshot(hs):
     """What a spatial handler's step, resident steps or draw reads and
-    writes, to start two runs from."""
+    writes (the inner handler's render budget and audit too), to start two
+    runs from."""
+    inner = hs._inner
     return (hs._sp_state, hs._sp_stats, hs._sp_wide, hs._elapsed,
-            hs._interpolation_alpha, hs._redistribute_count, hs._last_info)
+            hs._interpolation_alpha, hs._redistribute_count, hs._last_info,
+            list(inner._render_k_boost), list(inner._render_peak_density),
+            inner._render_audit)
 
 
 def spatial_restore(hs, snap) -> None:
+    inner = hs._inner
     (hs._sp_state, hs._sp_stats, hs._sp_wide, hs._elapsed,
-     hs._interpolation_alpha, hs._redistribute_count, hs._last_info) = snap
+     hs._interpolation_alpha, hs._redistribute_count, hs._last_info,
+     inner._render_k_boost, inner._render_peak_density,
+     inner._render_audit) = snap
 
 
 def spatial_unequal(a, b) -> tuple:
     """``(fields that differ, batch_pos_sum's relative error, the frames'
-    largest difference)`` of two ``(state, stats, wide_state, info,
-    frame)``: the state's fields a step writes, the wide-gate state and the
-    migration counters bit for bit, the stats too but ``batch_pos_sum``
-    (``index_add_``'s atomics: ``STATS_RTOL``)."""
+    largest difference)`` of two ``(state, stats, wide_state, info, frame,
+    render audit)``: the state's fields a step writes, the wide-gate state,
+    the migration counters and the draw's render-budget audit bit for bit,
+    the stats too but ``batch_pos_sum`` (``index_add_``'s atomics:
+    ``STATS_RTOL``)."""
     import torch
     from egg_fluid_simulation_tpu_torch.parallel.spatial_graph import \
         STATE_OUT
@@ -2459,6 +2467,9 @@ def spatial_unequal(a, b) -> tuple:
         unequal.add("wide_state")
     if not np.array_equal(a[3], b[3]):
         unequal.add("info")
+    if (a[5] is None) != (b[5] is None) or (
+            a[5] is not None and not torch.equal(a[5], b[5])):
+        unequal.add("render_audit")
     more, err = resident_unequal((a[0], a[1], ()), (b[0], b[1], ()))
     unequal |= set(more)
     frame_err = (0.0 if a[4] is None
@@ -2507,14 +2518,14 @@ def check_spatial_graph(hs, viewport) -> dict:
         rebins = (graphs.rebins - before).tolist()
         reads = S.host_reads
         got = (hs.state, hs.stats, hs._sp_wide, hs.last_migration_info,
-               frame)
+               frame, hs._inner._render_audit)
         spatial_restore(hs, snap)
         S.host_reads = 0
         S.rebins[:] = [0, 0]
         with eager_graphs(hs):
             frame = unit()
         want_out = (hs.state, hs.stats, hs._sp_wide, hs.last_migration_info,
-                    frame)
+                    frame, hs._inner._render_audit)
         unequal, stats_err, frame_err = spatial_unequal(got, want_out)
         launches = run["trace"]
         wrong = {k: v for k, v in launches.items() if v != want.get(k, 0)}
@@ -2573,8 +2584,12 @@ def spatial_phase(dev, results) -> dict:
     (:func:`check_spatial_graph`, :func:`graph_vs_eager`). Kernel D on the
     run's own local window and on windows of 2 x 2 and 4 x 2 layouts of the
     same grid, kernel C on a ``SpatialHandler.draw`` payload, each against
-    its plain version. Returns the launches of the replayed resident steps
-    and draw, from their traces."""
+    its plain version. ``SpatialHandler.draw`` is audited: the phase fails
+    unless its frames drop no splat (the boost the first draw took and the
+    drops before it are printed). In transit counts only particles outside
+    a rank's window, so the one-rank scene must never redistribute: the
+    phase fails if the handler's host redistribute runs. Returns the
+    launches of the replayed resident steps and draw, from their traces."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -2589,6 +2604,18 @@ def spatial_phase(dev, results) -> dict:
 
     t_phase = time.perf_counter()
     init_single_rank(dev)
+    # every host redistribute of a spatial state (the handler's recovery
+    # path; not the layout's first establishment), counted until the phase
+    # times the function alone
+    redistributed = []
+    redistribute = S.redistribute
+
+    def counted_redistribute(*args, **kw):
+        if kw.get("from_spatial"):
+            redistributed.append(1)
+        return redistribute(*args, **kw)
+
+    S.redistribute = counted_redistribute
     hs = build_handler(N_SPATIAL, dev, spatial=True)
     hd = build_handler(N_SPATIAL, dev)
     torch.cuda.synchronize()
@@ -2700,10 +2727,32 @@ def spatial_phase(dev, results) -> dict:
     finally:
         S._sweep_local = sweep_local
     viewport = (0, 0, 1800, 1800)
-    first_call("draw", lambda: hs.draw(viewport=viewport))
+    # the first draw's audits as read (before and after a boost)
+    audits_read = []
+    read_audits = R._read_audits
+
+    def kept_audits(t):
+        audits_read.append(read_audits(t))
+        return audits_read[-1]
+
+    R._read_audits = kept_audits
+    try:
+        first_call("draw", lambda: hs.draw(viewport=viewport))
+    finally:
+        R._read_audits = read_audits
+    first_audit = hs._inner.render_audit
     log("spatial_graph.first_call", seconds=first_s,
         capture_s={g.kind: round(g.capture_seconds, 3)
                    for g in hs._spatial_graphs()._graphs.values()})
+    log("spatial_1x1.draw_audit",
+        dropped_before_boost=audits_read[0][:, 0].tolist(),
+        peak_bin_occupancy=audits_read[0][:, 1].tolist(),
+        boost=hs._inner._render_k_boost,
+        peak_density=hs._inner._render_peak_density,
+        renders=len(audits_read), dropped=first_audit[:, 0].tolist())
+    if first_audit[:, 0].sum() != 0:
+        raise AssertionError("spatial_1x1: the audited draw dropped splats "
+                             f"after its boost ({first_audit.tolist()})")
 
     # ---- replayed against eager from one state, both branches ----
     launches = check_spatial_graph(hs, viewport)
@@ -2716,19 +2765,19 @@ def spatial_phase(dev, results) -> dict:
         line="spatial_graph")
     per_unit("spatial_1x1.run_steps", timed, SPATIAL_CHAIN, "step",
              line="spatial_graph")
-    graph_vs_eager(hs, "spatial_1x1.step_once", hs.step_once, GRAPH_UNITS,
-                   GRAPH_BLOCKS, expect={"sweep_planes": per},
-                   line="spatial_graph")
-    graph_vs_eager(hs, "spatial_1x1.draw",
-                   lambda: hs.draw(viewport=viewport), DRAW_UNITS,
-                   GRAPH_BLOCKS, expect={"splat": 2}, line="spatial_graph")
+    step_once = graph_vs_eager(
+        hs, "spatial_1x1.step_once", hs.step_once, GRAPH_UNITS, GRAPH_BLOCKS,
+        expect={"sweep_planes": per}, line="spatial_graph")
+    draw = graph_vs_eager(
+        hs, "spatial_1x1.draw", lambda: hs.draw(viewport=viewport),
+        DRAW_UNITS, GRAPH_BLOCKS, expect={"splat": 2}, line="spatial_graph")
 
     # ---- per-step time of resident steps, in turns: the spatial
     # handler's run_steps, the bare replayed resident steps under it
-    # (without the handler's read of the migration counters and its
-    # redistribute) and the dense handler's run_steps; the host
-    # redistribute alone (host-clock ms a call, its result dropped); then
-    # one traced block of each handler ----
+    # (without the handler's read of the migration counters) and the dense
+    # handler's run_steps; the host redistribute alone (host-clock ms a
+    # call, its result dropped), which the handler no longer runs here;
+    # then one traced block of each handler ----
     S.host_reads = 0
     graphs = hs._spatial_graphs()
     dt, relax = hs._inner._step_scalars(1 / 60)
@@ -2752,6 +2801,11 @@ def spatial_phase(dev, results) -> dict:
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end) / SPATIAL_CHAIN)
     reads = S.host_reads / (2 * SPATIAL_BLOCKS * SPATIAL_CHAIN)
+    S.redistribute = redistribute
+    if redistributed or hs._redistribute_count:
+        raise AssertionError(f"spatial_1x1: the handler ran the host "
+                             f"redistribute {len(redistributed)} times on "
+                             f"one rank")
     redistribute_ms = []
     for _ in range(SPATIAL_BLOCKS):
         torch.cuda.synchronize()
@@ -2770,24 +2824,32 @@ def spatial_phase(dev, results) -> dict:
         dense_step_ms_65k=round(p50["dense"], 4),
         spatial_1x1_vs_dense=round(p50["spatial"] / p50["dense"], 4),
         spatial_multi_step_ms=round(p50["spatial_multi_step"], 4),
+        step_once_replay_wall_ms=round(step_once["replay"]["wall_p50_ms"],
+                                       4),
+        draw_replay_wall_ms=round(draw["replay"]["wall_p50_ms"], 4),
         redistribute_ms=round(float(np.median(redistribute_ms)), 4),
         blocks_ms={n: [round(x, 4) for x in v] for n, v in times.items()},
         redistribute_blocks_ms=[round(x, 4) for x in redistribute_ms],
         chain=SPATIAL_CHAIN, settle_steps=SPATIAL_SETTLE,
         rebin_host_reads_per_step=reads,
-        redistributes=hs._redistribute_count, card=nvidia_smi())
+        redistributes=len(redistributed), card=nvidia_smi())
     log("spatial_1x1.trace",
         spatial={k: round(v, 4) for k, v in sp_trace.items()
                  if k not in ("by_kernel", "top")},
         dense={k: round(v, 4) for k, v in dn_trace.items()
                if k not in ("by_kernel", "top")},
         spatial_launches=sp_trace["by_kernel"])
+    audit = hs._inner.render_audit
     log("spatial_1x1.draw", frame=tuple(frame.shape),
         frame_finite=bool(torch.isfinite(frame).all()),
-        alpha_max=round(float(frame[..., 3].max()), 4))
+        alpha_max=round(float(frame[..., 3].max()), 4),
+        render_audit=audit.tolist())
     if not (bool(torch.isfinite(frame).all())
             and float(frame[..., 3].max()) > 0.5):
         raise AssertionError("spatial_1x1: frame is not finite or empty")
+    if audit[:, 0].sum() != 0:
+        raise AssertionError(f"spatial_1x1: the draw dropped splats "
+                             f"({audit.tolist()})")
     if reads != 0 or sp_trace["by_kernel"]["sweep_planes"] \
             != per * SPATIAL_CHAIN:
         raise AssertionError(f"spatial_1x1: {reads} host reads of the rebin "
@@ -2871,8 +2933,8 @@ def spatial_phase(dev, results) -> dict:
             if use_rgb:
                 err = max(err, float((got[1] - want[1]).abs().max()))
             cerrs[f"{name}{'.rgb' if use_rgb else ''}"] = err
-            # the spatial draw has no render-budget audit (nor has JAX's):
-            # the splats past a bin's budget are dropped, and counted here
+            # the draw's options carry the boost its audit took: nothing
+            # past a bin's budget
             dropped[name] = int(audit[0])
             if not (err <= SPLAT_TOL and float(want[0].max()) > 0.0):
                 raise AssertionError(f"spatial_1x1: splat disagrees with its "
@@ -2899,6 +2961,9 @@ def spatial_phase(dev, results) -> dict:
         ms=round(rc["ms"], 4), plain_ms=round(rc["plain_ms"], 4),
         bound_ms=round(rc["bound_ms"], 4), bound_by=rc["bound_by"],
         seconds=round(time.perf_counter() - t_phase, 2))
+    if any(dropped.values()):
+        raise AssertionError(f"spatial_1x1: the draw's payload drops splats "
+                             f"past the boosted budget ({dropped})")
     del hs, hd
     dist.destroy_process_group()
     return {"sweep_planes": launches["run_steps.rebin"]["sweep_planes"],

@@ -17,7 +17,9 @@ Run on the card: ``python -m egg_fluid_simulation_tpu_torch.demo --frames
 :class:`~.parallel.spatial_handler.SpatialHandler` over a ``DB x DX`` mesh
 of ranks: ``1x1`` alone, a larger mesh under ``torchrun --nproc-per-node
 DB*DX`` (one rank a card with ``--device cuda``; gloo ranks on the CPU with
-``--device cpu``); only rank 0 writes frames and prints.
+``--device cpu``); only rank 0 writes frames and prints. ``--spatial``
+refuses ``--particle-color`` (the spatial draw has no per-particle
+colour).
 """
 
 from __future__ import annotations
@@ -76,8 +78,10 @@ class DemoState:
                                              **handler_kwargs)
         # the experimental toggle is a pre-spawn attribute poke in the
         # reference too (test.lua:26) — it must precede add() so spawn
-        # colors materialize as per-particle arrays
-        self.handler._use_particle_color = bool(use_particle_color)
+        # colors materialize as per-particle arrays; a spatial handler's
+        # flag is its inner handler's, and its draw refuses it
+        target = self.handler._inner if spatial is not None else self.handler
+        target._use_particle_color = bool(use_particle_color)
         # the reference demo shrinks particles before spawning (test.lua:56-66)
         self.handler.set_yolk_config({"min_radius": 0.5, "max_radius": 1.0})
         self.handler.set_white_config({"min_radius": 1.5, "max_radius": 2.0})
@@ -242,6 +246,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     spatial, lead = None, True
     if args.spatial:
+        if args.particle_color:
+            raise SystemExit("--particle-color is not supported with "
+                             "--spatial: the spatial draw has no "
+                             "per-particle colour")
         db, dx = (int(v) for v in args.spatial.lower().split("x"))
         spatial = (db, dx)
         if db * dx > 1:

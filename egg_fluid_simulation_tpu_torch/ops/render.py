@@ -47,9 +47,10 @@ from .grid import count_pairs
 from .kernels import splat_kernel
 
 __all__ = ["RenderOptions", "CANVAS_BUCKETS", "splat_population",
-           "outline_pass", "lighting_pass", "render_population", "draw",
-           "frame_options", "auto_render_options", "pick_canvas_bucket",
-           "outline_thickness", "host_reads"]
+           "outline_pass", "lighting_pass", "render_population",
+           "post_population", "draw", "boost_until_clean", "frame_options",
+           "auto_render_options", "pick_canvas_bucket", "outline_thickness",
+           "host_reads"]
 
 # Positions and canvases must never pass through reduced precision.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -502,6 +503,34 @@ def render_population(alpha, rgb, cfg, thresholding_threshold,
     return torch.cat([out_rgb, out_a[..., None]], dim=-1)
 
 
+def post_population(alpha, rgb, cfg, threshold, smoothness,
+                    use_lighting: bool, opts: RenderOptions,
+                    outline_thickness: Optional[float] = None):
+    """The straight RGBA canvas (``opts.canvas_size`` square) of one
+    population from its splat at the effective resolution: outline and
+    lighting at the resolution ``opts.post_mode`` names (the effective one,
+    upsampled after; the canvas's; twice the canvas's, box-filtered)."""
+    s = opts.canvas_size
+    if opts.post_mode == "coarse":
+        rgba = render_population(alpha, rgb, cfg, threshold, smoothness,
+                                 use_lighting, opts,
+                                 px_scale=float(opts.downsample),
+                                 outline_thickness=outline_thickness)
+        return _resize_linear_up(rgba, s) if opts.downsample > 1 else rgba
+    scale = 1 if opts.post_mode == "full" else 2
+    e = s * scale
+    alpha_hi = alpha if alpha.shape[0] == e else _resize_linear_up(alpha, e)
+    rgb_hi = None
+    if rgb is not None and rgb.dim() == 3:
+        rgb_hi = rgb if rgb.shape[0] == e else _resize_linear_up(rgb, e)
+    rgba = render_population(alpha_hi, rgb_hi, cfg, threshold, smoothness,
+                             use_lighting, opts, px_scale=1.0 / scale,
+                             outline_thickness=outline_thickness)
+    if scale > 1:
+        rgba = rgba.reshape(s, scale, s, scale, 4).mean(dim=(1, 3))
+    return rgba
+
+
 # ------------------------------------------------------------ orchestration --
 
 @torch.no_grad()
@@ -527,36 +556,16 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
         cap = state.capacity if pop_caps is None else min(pop_caps[i],
                                                           state.capacity)
         cfg = population_config(cfg2, i)
-        thick = None if thickness is None else thickness[i]
         alpha, rgb, audit = splat_population(
             state.pos[i, :cap], state.last_pos[i, :cap], state.vel[i, :cap],
             state.radius[i, :cap], state.color[i, :cap], active[i, :cap],
             centers[i], interpolation_alpha,
             cfg.texture_scale, cfg.motion_blur, opts, upsample=False)
-        s = opts.canvas_size
-        if opts.post_mode == "coarse":
-            rgba = render_population(alpha, rgb, cfg, threshold, smoothness,
-                                     use_lighting, opts,
-                                     px_scale=float(opts.downsample),
-                                     outline_thickness=thick)
-            if opts.downsample > 1:
-                rgba = _resize_linear_up(rgba, s)
-        else:
-            scale = 1 if opts.post_mode == "full" else 2
-            e = s * scale
-            alpha_hi = (alpha if alpha.shape[0] == e
-                        else _resize_linear_up(alpha, e))
-            rgb_hi = None
-            if rgb is not None and rgb.dim() == 3:
-                rgb_hi = rgb if rgb.shape[0] == e else _resize_linear_up(rgb, e)
-            rgba = render_population(alpha_hi, rgb_hi, cfg, threshold,
-                                     smoothness, use_lighting, opts,
-                                     px_scale=1.0 / scale,
-                                     outline_thickness=thick)
-            if scale > 1:
-                rgba = rgba.reshape(s, scale, s, scale, 4).mean(dim=(1, 3))
+        rgba = post_population(alpha, rgb, cfg, threshold, smoothness,
+                               use_lighting, opts,
+                               None if thickness is None else thickness[i])
         if opts.downsample > 1:
-            alpha = _resize_linear_up(alpha, s)
+            alpha = _resize_linear_up(alpha, opts.canvas_size)
         return rgba, alpha, audit
 
     screen_rgb = torch.zeros((vh, vw, 3), dtype=torch.float32, device=dev)
@@ -618,12 +627,13 @@ def _paste_src_over(dst_rgb, dst_a, src_rgba, x0, y0):
     return out_rgb, out_a
 
 
-def frame_options(handler) -> Tuple[RenderOptions, RenderOptions]:
+def frame_options(handler, stats=None) -> Tuple[RenderOptions, RenderOptions]:
     """Per-population RenderOptions for the handler's CURRENT state (canvas
-    buckets from the latest step stats, reference :1944-1954). The stats
-    come to the host in one read (``host_reads``)."""
+    buckets from the latest step stats, reference :1944-1954; ``stats`` in
+    place of the handler's, as a spatial handler passes its mesh-wide ones).
+    The stats come to the host in one read (``host_reads``)."""
     global host_reads
-    stats = handler.stats
+    stats = handler.stats if stats is None else stats
     counts = handler.get_n_particles()
     host = torch.cat([stats.aabb_min.reshape(-1), stats.aabb_max.reshape(-1),
                       stats.max_velocity.reshape(-1)]).cpu().numpy()
@@ -682,6 +692,51 @@ def _read_audits(audits_t) -> np.ndarray:
     return audits_t.cpu().numpy()
 
 
+def boost_until_clean(handler, opts2, audits_t, render, stats=None):
+    """The render-budget audit of a frame drawn at ``opts2`` (``audits_t``,
+    (pop, [drops, peak bin occupancy]) on the device), read once a fresh
+    frame (``host_reads``): the handler's peak-density hint is raised (never
+    lowered) to the measured peak; while a population dropped splats, its
+    budget boost is sized from the measured peak, a warning logged, and
+    ``render(opts2)`` (which draws the frame again and returns its audit)
+    runs at the handler's new options (:func:`frame_options` with
+    ``stats``), 3 attempts at most. The boost and the hint persist on the
+    handler. Returns the audit of the last frame drawn."""
+    audits = _read_audits(audits_t)
+    dens = list(handler._render_peak_density)
+    for i in range(2):
+        o = opts2[i]
+        m = int(audits[i, 1])
+        if m > 0:
+            d = m / float(o.bin_h * o.bin_w * o.downsample ** 2)
+            if dens[i] is None or d > dens[i]:   # only RAISE the hint
+                dens[i] = d
+    handler._render_peak_density = dens
+    # auto-bump: size the per-bin budget of any overflowing population
+    # from the MEASURED max bin occupancy and re-render until the frame
+    # drops nothing
+    for attempt in range(3):
+        if attempt:
+            audits = _read_audits(audits_t)
+        if audits[:, 0].sum() == 0:
+            break
+        from ..utils import log
+        boosts = list(handler._render_k_boost)
+        for i in range(2):
+            if audits[i, 0] > 0:
+                need = min(256, max(8, -(-int(audits[i, 1] * 1.2) // 8) * 8))
+                boosts[i] *= max(1.0, need / opts2[i].tile_capacity)
+        handler._render_k_boost = boosts
+        log.warning("render budget overflow: dropped ", int(audits[0, 0]),
+                    " white / ", int(audits[1, 0]), " yolk particles "
+                    "past tile_capacity (peak bin occupancy ",
+                    (int(audits[0, 1]), int(audits[1, 1])),
+                    "); re-rendering with budget boost ", tuple(boosts))
+        opts2 = frame_options(handler, stats)
+        audits_t = render(opts2)
+    return audits_t
+
+
 def draw(handler, viewport=None, background=None, check_overflow=True):
     """Render the handler's current state to an (H, W, 4) straight-alpha image.
 
@@ -698,45 +753,19 @@ def draw(handler, viewport=None, background=None, check_overflow=True):
     from .render_graph import render_handler_frame   # it imports this module
     if viewport is None:
         viewport = (0.0, 0.0, 800, 600)
+    drawn = {}
+
+    def render(opts2):
+        drawn["frame"], handler._canvases, audits_t = render_handler_frame(
+            handler, opts2, viewport)
+        return audits_t
+
     opts2 = frame_options(handler)
-    frame, canvases, audits_t = render_handler_frame(handler, opts2, viewport)
-    handler._canvases = canvases
+    audits_t = render(opts2)
     if check_overflow:
-        audits = _read_audits(audits_t)                  # (pop, [drops, max])
-        dens = list(handler._render_peak_density)
-        for i in range(2):
-            o = opts2[i]
-            m = int(audits[i, 1])
-            if m > 0:
-                d = m / float(o.bin_h * o.bin_w * o.downsample ** 2)
-                if dens[i] is None or d > dens[i]:   # only RAISE the hint
-                    dens[i] = d
-        handler._render_peak_density = dens
-        # auto-bump: size the per-bin budget of any overflowing population
-        # from the MEASURED max bin occupancy and re-render until the frame
-        # drops nothing; the boost persists on the handler
-        for attempt in range(3):
-            if attempt:
-                audits = _read_audits(audits_t)
-            if audits[:, 0].sum() == 0:
-                break
-            from ..utils import log
-            boosts = list(handler._render_k_boost)
-            for i in range(2):
-                if audits[i, 0] > 0:
-                    need = min(256, max(8, -(-int(audits[i, 1] * 1.2) // 8) * 8))
-                    boosts[i] *= max(1.0, need / opts2[i].tile_capacity)
-            handler._render_k_boost = boosts
-            log.warning("render budget overflow: dropped ", int(audits[0, 0]),
-                        " white / ", int(audits[1, 0]), " yolk particles "
-                        "past tile_capacity (peak bin occupancy ",
-                        (int(audits[0, 1]), int(audits[1, 1])),
-                        "); re-rendering with budget boost ", tuple(boosts))
-            opts2 = frame_options(handler)
-            frame, canvases, audits_t = render_handler_frame(handler, opts2,
-                                                             viewport)
-            handler._canvases = canvases
+        audits_t = boost_until_clean(handler, opts2, audits_t, render)
     handler._render_audit = audits_t
+    frame = drawn["frame"]
     if background is not None:
         # a float operand, not a copy of the colour to the device
         bg = [float(v) for v in background]

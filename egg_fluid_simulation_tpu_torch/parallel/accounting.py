@@ -8,7 +8,9 @@ under the category its call site names. For a spatial step the categories
 are those of ``SpatialLayout.collective_bytes_per_step`` (the analytic
 model): ``full_halo_exchange``, ``xy_refresh_per_pass``, ``migration``;
 besides them ``reductions`` (the gate's and the statistics' all-reduces,
-outside the model), ``render`` (the draw's log-space sum) and ``gather``
+outside the model), ``render`` (the draw's log-space sums and its
+audit's sum and max: the dropped splats and the peak bin occupancy of each
+population, two int32 each) and ``gather``
 (a whole state gathered for the host layout or the handler's sync). The 1D
 sharded step counts its per-pass gather under ``all_gather`` (6 floats a
 particle a pass) and its statistics' sum and max under ``reductions``.

@@ -317,10 +317,13 @@ def check(n_ranks: int, device: str) -> None:
                   for cfg in (h2._white_config, h2._yolk_config))
     draw = S.spatial_draw(sp_mesh, lay, opts2, (0.0, 0.0, 256, 256), 0.3,
                           0.01, True)
-    frame = draw(sp_state2, sp_stats2, h2._device_cfg2(), 1.0).cpu().numpy()
+    frame, audits = draw(sp_state2, sp_stats2, h2._device_cfg2(), 1.0)
+    frame = frame.cpu().numpy()
     if not (frame.shape == (256, 256, 4) and np.isfinite(frame).all()
             and frame[..., 3].max() > 0.05):
         raise AssertionError("sharded render is empty or not finite")
+    if int(audits[:, 0].sum()) != 0:
+        raise AssertionError(f"sharded render dropped splats: {audits}")
     if lead:
         print(f"dryrun: ({db}x{dx})-mesh sharded render OK (frame alpha max "
               f"{frame[..., 3].max():.3f})", flush=True)

@@ -226,9 +226,14 @@ def _bin_local(pos, inv_mass, radius, batch_slot, active, cell_size,
     of the position bits with buckets from the GLOBAL grid (so winner sets
     match the single-card engine), ``segment_extent`` ranks, slots with the
     halo offsets baked in, ``FIELD_OCC`` the cell's true occupancy. Returns
-    ``(planes, aux, slot, in_grid)``: ``slot`` addresses the padded
+    ``(planes, aux, slot, in_grid, transit)``: ``slot`` addresses the padded
     ``(rows, width)`` window, ``rows * width`` for a particle out of the
-    window (in transit) or over the cell budget; the halos are zero.
+    window or over the cell budget; the halos are zero. ``transit`` marks
+    the active particles whose torus cell lies outside the window: the ones
+    in transit. A particle over its cell's budget is in the window, so not
+    in transit, though it integrates without collision all the same (the
+    JAX package counts both kinds as in transit: its count is this one plus
+    the over-budget particles).
     """
     n = pos.shape[0]
     dev = pos.device
@@ -276,7 +281,7 @@ def _bin_local(pos, inv_mass, radius, batch_slot, active, cell_size,
                              0.0).reshape(pack.shape[1], rows, width)
     planes = all_planes[:dense_ops.N_FIELDS]
     aux = all_planes[dense_ops.N_FIELDS:] if aux_cols is not None else None
-    return planes, aux, slot, slot < rows * width
+    return planes, aux, slot, slot < rows * width, active & ~in_win
 
 
 # ----------------------------------------------------------- plane sweep --
@@ -557,16 +562,16 @@ def _fallback_steps(pos, vel, env, active, sub_dt, n_sub: int):
 
 def _bin_and_exchange(pos, vel, batch_slot, active, env, lay, mesh):
     """Bin the local particles with the plane step's ride-along fields and
-    fill every halo: ``(planes, aux, slot)``."""
+    fill every halo: ``(planes, aux, slot, transit)`` (:func:`_bin_local`)."""
     band, block = mesh.coords
     aux_cols = torch.stack([pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1],
                             env["tx"], env["ty"], env["td"]], dim=1)
-    planes, aux, slot, _ = _bin_local(pos, env["inv_mass"], env["radius"],
-                                      batch_slot, active, env["cell_size"],
-                                      band, block, lay, aux_cols)
+    planes, aux, slot, _, transit = _bin_local(
+        pos, env["inv_mass"], env["radius"], batch_slot, active,
+        env["cell_size"], band, block, lay, aux_cols)
     _exchange_halos(planes, lay, mesh, "full_halo_exchange")
     _exchange_halos(aux, lay, mesh, "full_halo_exchange")
-    return planes, aux, slot
+    return planes, aux, slot, transit
 
 
 def _stats(finals, max_batches: int, mesh: Mesh) -> StepStats:
@@ -595,8 +600,9 @@ def spatial_step(mesh: Mesh, lay: SpatialLayout, options: SolverOptions):
     (see :func:`redistribute`); the semantics of the single-card dense
     engine with ``budget_mode='off'`` and ``dense_rebin='step'``. ``info``
     is a (2, 2) int64 tensor of (migration-dropped, in-transit) counts per
-    population, summed over the mesh. The step reads nothing from the
-    device."""
+    population, summed over the mesh; in transit: active at the step's
+    start, in a torus cell outside the rank's window (:func:`_bin_local`).
+    The step reads nothing from the device."""
     lay.check()
     if options.budget_mode != "off":
         raise ValueError("spatial_step implements budget_mode='off' (the "
@@ -621,7 +627,7 @@ def spatial_step(mesh: Mesh, lay: SpatialLayout, options: SolverOptions):
             env = _pop_env(cfg, state.mass_t[i], active, state.batch_slot[i],
                            state.batch_target, follow_radius[i], sub_dt,
                            options, lay)
-            planes, aux, slot = _bin_and_exchange(
+            planes, aux, slot, transit = _bin_and_exchange(
                 pos, vel, state.batch_slot[i], active, env, lay, mesh)
             n_live = torch.clamp(mesh.psum(torch.sum(active).to(
                 torch.float32)), min=1.0)
@@ -636,7 +642,7 @@ def spatial_step(mesh: Mesh, lay: SpatialLayout, options: SolverOptions):
             new_prev = torch.where(sel, prev_pl,
                                    torch.where(keep, fb_prev, state.prev[i]))
             new_vel = torch.where(sel, v_pl, torch.where(keep, fb_v, vel))
-            n_transit = torch.sum((~in_grid) & active)
+            n_transit = torch.sum(transit)
 
             fields = _fields(new_pos, new_prev, new_vel, pos, env["radius"],
                              state.mass_t[i], env["inv_mass"],
@@ -673,8 +679,9 @@ def _rebin_if(pred, pop_index: int, fn, cond=None) -> None:
 class _SpatialPop:
     """One population's carry across resident steps (JAX
     ``spatial_multi_step``'s per-population carry): the local plane window,
-    the particle arrays, the drift reference, the migration drop count and
-    the wide-gate state, in buffers that :meth:`step` and :meth:`rebin`
+    the particle arrays, the drift reference, the in-transit mask of the last
+    binning, the migration drop count and the wide-gate state, in buffers
+    that :meth:`step` and :meth:`rebin`
     update in place, so a captured step replays on fixed addresses.
     Construction is the *enter*: bin this rank's particles and fill every
     halo."""
@@ -687,7 +694,7 @@ class _SpatialPop:
         st = loop.state
         self.loop, self.i = loop, i
         active = st.batch_slot[i] >= 0
-        env, self.planes, self.aux, self.slot = loop.bin(
+        env, self.planes, self.aux, self.slot, self.transit = loop.bin(
             i, st.pos[i], st.vel[i], st.mass_t[i], st.batch_slot[i], active)
         # the particle-independent pieces, stable across migrations
         self.static_env = {k: env[k] for k in
@@ -760,13 +767,13 @@ class _SpatialPop:
             self.static_env["cell_size"], lp.lay, lp.mesh)
         pos, vel, mass_t = fields[:, 0:2], fields[:, 4:6], fields[:, 9]
         batch_slot = torch.where(act3, fields[:, 11].to(torch.int32), -1)
-        env, planes, aux, slot = lp.bin(self.i, pos, vel, mass_t, batch_slot,
-                                        act3)
-        _copy_into((self.planes, self.aux, self.slot, self.ref_pos, self.pos,
-                    self.prev, self.vel, self.last, self.mass_t,
-                    self.batch_slot, self.color, self.inv_mass, self.radius,
-                    self.tx, self.ty, self.td),
-                   (planes, aux, slot, pos, pos, fields[:, 2:4], vel,
+        env, planes, aux, slot, transit = lp.bin(self.i, pos, vel, mass_t,
+                                                 batch_slot, act3)
+        _copy_into((self.planes, self.aux, self.slot, self.transit,
+                    self.ref_pos, self.pos, self.prev, self.vel, self.last,
+                    self.mass_t, self.batch_slot, self.color, self.inv_mass,
+                    self.radius, self.tx, self.ty, self.td),
+                   (planes, aux, slot, transit, pos, pos, fields[:, 2:4], vel,
                     fields[:, 6:8], mass_t, batch_slot, fields[:, 12:16],
                     env["inv_mass"], env["radius"], env["tx"], env["ty"],
                     env["td"]))
@@ -814,13 +821,13 @@ class SpatialSteps:
         self.pops = [_SpatialPop(self, i, wide_state[i]) for i in range(2)]
 
     def bin(self, i, pos, vel, mass_t, batch_slot, active):
-        """Population ``i``'s environment, binned window and slots."""
+        """Population ``i``'s environment, binned window, slots and
+        in-transit mask."""
         env = _pop_env(self.cfgs[i], mass_t, active, batch_slot,
                        self.state.batch_target, self.follow_radius[i],
                        self.sub_dt, self.options, self.lay)
-        planes, aux, slot = _bin_and_exchange(pos, vel, batch_slot, active,
-                                              env, self.lay, self.mesh)
-        return env, planes, aux, slot
+        return (env, *_bin_and_exchange(pos, vel, batch_slot, active, env,
+                                        self.lay, self.mesh))
 
     def step(self, cond=None) -> None:
         for p in self.pops:
@@ -830,16 +837,19 @@ class SpatialSteps:
         """``(fields, stats, info, wide_state)``: the state fields the steps
         wrote (``_new_state``'s form, fresh tensors), the step statistics,
         the (2, 2) (migration-dropped, in-transit) counts summed over the
-        mesh, and the carried wide-gate state."""
-        lay = self.lay
+        mesh, and the carried wide-gate state. In transit: the slots active
+        after the final migration whose particle the last binning found
+        outside the window (the JAX package counts every slot that binning
+        left unplaced: these, the over-budget particles' and the empty
+        ones')."""
         outs, finals, info = [], [], []
         for p in self.pops:
             fields, act, dropped = _migrate(
-                p.fields(), p.batch_slot >= 0, p.static_env["cell_size"], lay,
-                self.mesh)
+                p.fields(), p.batch_slot >= 0, p.static_env["cell_size"],
+                self.lay, self.mesh)
             outs.append(_unpack(fields, act))
             finals.append((fields, act))
-            n_transit = torch.sum(act & (p.slot >= lay.rows * lay.width))
+            n_transit = torch.sum(act & p.transit)
             info.append(torch.stack([p.dropped + dropped, n_transit]))
         stats = _stats(finals, self.state.max_batches, self.mesh)
         info = self.mesh.psum(torch.stack(info))
@@ -971,7 +981,11 @@ def draw_frame(mesh: Mesh, state: ParticleState, stats: StepStats,
     ``thickness`` each population's outline thickness as a host float
     (without it the outline pass reads ``cfg2``'s from the device). With
     ``thickness`` it reads nothing from the device, so a graph can capture
-    it. Returns the (vh, vw, 4) frame."""
+    it. Returns ``(frame (vh, vw, 4), audits (2, 2))``: each population's
+    render-budget audit as ``render._render_frame`` gives it, [splats
+    dropped past the per-bin budget, peak bin occupancy], the drops summed
+    over the mesh and the peak its maximum, so every rank holds the same
+    audit (and takes the same boost)."""
     dev = state.device
     f32 = dict(dtype=torch.float32, device=dev)
     alpha_t = interpolation_alpha
@@ -979,29 +993,31 @@ def draw_frame(mesh: Mesh, state: ParticleState, stats: StepStats,
                + (stats.centroid - stats.last_centroid) * alpha_t)
     screen_rgb = torch.zeros((vh, vw, 3), **f32)
     screen_a = torch.zeros((vh, vw), **f32)
+    audits = []
     for i in (0, 1):  # white first, then yolk (:2163-2171)
         opts = opts2[i]
         cfg = population_config(cfg2, i)
         active = state.batch_slot[i] >= 0
-        alpha_local, _, _ = render_ops.splat_population(
+        alpha_local, _, audit = render_ops.splat_population(
             state.pos[i], state.last_pos[i], state.vel[i],
             state.radius[i], state.color[i], active, centers[i], alpha_t,
             cfg.texture_scale, cfg.motion_blur, opts, upsample=False)
+        audits.append(audit)
         # 1 - prod_rank(1 - a_rank), through one log-space sum
         log1m = torch.log(torch.clamp(1.0 - alpha_local, min=1e-30))
         alpha = 1.0 - torch.exp(mesh.psum(log1m, "render"))
-        rgba = render_ops.render_population(
+        rgba = render_ops.post_population(
             alpha, None, cfg, threshold, smoothness, use_lighting, opts,
-            px_scale=float(opts.downsample),
-            outline_thickness=None if thickness is None else thickness[i])
-        if opts.downsample > 1:
-            rgba = render_ops._resize_linear_up(rgba, opts.canvas_size)
+            None if thickness is None else thickness[i])
         # pasted at the RAW centroid like the reference (:2132-2133);
         # only the splat centres on the interpolated one
         corner = stats.centroid[i] - 0.5 * opts.canvas_size - viewport_origin
         screen_rgb, screen_a = render_ops._paste_src_over_frac(
             screen_rgb, screen_a, rgba, corner)
-    return torch.cat([screen_rgb, screen_a[..., None]], dim=-1)
+    audits = torch.stack(audits)
+    audits = torch.stack([mesh.psum(audits[:, 0], "render"),
+                          mesh.pmax(audits[:, 1], "render")], dim=1)
+    return torch.cat([screen_rgb, screen_a[..., None]], dim=-1), audits
 
 
 def check_draw_options(opts2) -> None:
@@ -1019,12 +1035,15 @@ def spatial_draw(mesh: Mesh, lay: SpatialLayout, opts2, viewport,
     into the whole canvas (``render.splat_population``: kernel C on a card)
     and the canvases combine with one log-space sum over the mesh, at the
     coarse resolution (the blend does not commute with the resampling).
-    Outline, lighting and the paste then run on every rank alike, so every
+    Outline and lighting (at the resolution of each population's
+    ``post_mode``) and the paste then run on every rank alike, so every
     rank returns the same frame. ``opts2``: (white, yolk) RenderOptions;
-    per-particle colour is not supported here (as in JAX). ``thickness``:
-    see :func:`draw_frame`.
+    per-particle colour is refused (``ValueError``), as the JAX package's
+    ``spatial_draw`` refuses it. ``thickness``: see :func:`draw_frame`.
 
-    Returns ``draw(state, stats, cfg2, interpolation_alpha) -> (H, W, 4)``.
+    Returns ``draw(state, stats, cfg2, interpolation_alpha) -> (frame (H,
+    W, 4), audits (2, 2))``, the audit combined over the mesh (the JAX
+    package's draw returns the frame alone and drops the audit).
     """
     check_draw_options(opts2)
     x, y, vw, vh = viewport

@@ -17,7 +17,10 @@ write buffers made once, each part captured once and replayed (the model of
   final migration, the stats) of
   :class:`.spatial.SpatialSteps`; ``run_steps(n)`` replays enter, ``n``
   steps and exit;
-- the draw: :func:`.spatial.draw_frame` (:class:`SpatialDrawGraph`).
+- the draw: :func:`.spatial.draw_frame` (:class:`SpatialDrawGraph`), its
+  outputs the frame and the render-budget audit, combined over the mesh in
+  the graph (the handler reads the audit once a frame, as ``render.draw``
+  does, and re-renders with a boosted budget when splats dropped).
 
 Each population's rebin branch (``_SpatialPop.rebin``: migrate, bin, the
 full halo exchange, all written into the loop's buffers) is captured first
@@ -265,10 +268,12 @@ class SpatialGraph(LoopGraph):
 
 
 class SpatialDrawGraph(RenderGraph):
-    """One sharded frame (:func:`.spatial.draw_frame`), captured (or run
-    eagerly) on static buffers as :class:`~..ops.render_graph.RenderGraph`
-    captures ``_render_frame``; a replay adds the render's collective bytes,
-    tallied at each eager render, to the mesh counter."""
+    """One sharded frame and its audit (:func:`.spatial.draw_frame`),
+    captured (or run eagerly) on static buffers as
+    :class:`~..ops.render_graph.RenderGraph` captures ``_render_frame``; a
+    replay adds the render's collective bytes (the frame's log-space sums
+    and the audit's sum and max), tallied at each eager render, to the mesh
+    counter."""
 
     STATE_READ = ("pos", "last_pos", "vel", "radius", "color", "batch_slot")
     CAPTURE_ERROR_MODE = CAPTURE_ERROR_MODE
@@ -281,11 +286,11 @@ class SpatialDrawGraph(RenderGraph):
 
     def _body(self):
         before = self.mesh.counter.snapshot()
-        frame = S.draw_frame(self.mesh, self._state, self._stats, self._cfg,
-                             self._alpha, self._thr, self._smooth,
-                             self._origin, **self.static)
+        out = S.draw_frame(self.mesh, self._state, self._stats, self._cfg,
+                           self._alpha, self._thr, self._smooth,
+                           self._origin, **self.static)
         self.tally = self.mesh.counter.since(before)
-        return (frame,)
+        return out
 
     def _capture(self, dev):
         with self.mesh.counter.uncounted():
@@ -297,7 +302,9 @@ class SpatialDrawGraph(RenderGraph):
             self.mesh.counter.add_all(self.tally)
 
     def result(self, clone: bool = True):
-        return self._out[0].clone() if clone else self._out[0]
+        """``(frame, audits)`` of the last replay, cloned unless ``clone``
+        is false."""
+        return tuple(t.clone() for t in self._out) if clone else self._out
 
 
 class SpatialGraphs:
@@ -378,9 +385,9 @@ class SpatialGraphs:
     def draw(self, state: ParticleState, stats: StepStats, cfg2: DeviceConfig,
              scalars, *, opts2, vw: int, vh: int, use_lighting: bool,
              thickness, clone: bool = True):
-        """:func:`.spatial.draw_frame` of ``state``: the (vh, vw, 4) frame;
-        ``scalars`` is ``(alpha, threshold, smoothness, (x, y))`` as
-        :meth:`RenderGraph.load` takes them."""
+        """:func:`.spatial.draw_frame` of ``state``: ``(frame (vh, vw, 4),
+        audits (2, 2))``; ``scalars`` is ``(alpha, threshold, smoothness,
+        (x, y))`` as :meth:`RenderGraph.load` takes them."""
         S.check_draw_options(opts2)
         static = dict(opts2=tuple(opts2), vw=int(vw), vh=int(vh),
                       use_lighting=bool(use_lighting),
@@ -392,9 +399,9 @@ class SpatialGraphs:
             capture=self.capture), self.MAX_GRAPHS)
         if made:
             self.captures += 1
-            frame, = g.first                 # the build rendered it
+            out = g.first                    # the build rendered it
             g.first = None
-            return frame
+            return out
         g.load(state, stats, cfg2, scalars)
         g.replay()
         return g.result(clone)

@@ -21,7 +21,14 @@ Every rank runs the same calls (SPMD): the host bookkeeping is replicated.
 - **Automatic migration recovery.** Every update reads the step's migration
   counters on the host (one read a call, the rebins of the call with them);
   dropped particles or an in-transit backlog above 5% of the live ones
-  trigger a warning and a full ``redistribute``.
+  trigger a warning and a full ``redistribute``. In transit means outside
+  the rank's window: a particle over its cell's budget is not counted (the
+  JAX package counts it, and so redistributes a packed scene at every call
+  on one rank, where a redistribute changes nothing).
+- **Audited draws.** ``draw`` renders with the inner handler's render
+  settings and runs ``SimulationHandler.draw``'s render-budget audit and
+  boost on the audit combined over the mesh (the JAX package's spatial
+  draw ignores the settings and drops splats past the budget unannounced).
 - **Resident fast-forward.** ``run_steps`` (and an ``update`` of more than
   one step) uses the resident steps of :func:`~.spatial.spatial_multi_step`.
 - **Graph replays on a card.** ``update``, ``step_once``, ``run_steps`` and
@@ -308,8 +315,11 @@ class SpatialHandler:
           gone from the device state; lay the survivors out again;
         - an in-transit backlog above 5% of the live particles: the one-hop
           ring (``migrate_cap`` a direction) cannot keep up, e.g. with a
-          teleported clump; in-transit particles integrate without
-          collision, so the host redistribute places everyone at once."""
+          teleported clump; in-transit particles (outside their rank's
+          window) integrate without collision, so the host redistribute
+          places everyone at once. Particles over their cell's budget also
+          integrate without collision, but no redistribute can place them,
+          so they are not counted."""
         flat = info.reshape(-1)
         if taken is not None:
             flat = torch.cat([flat, taken.to(flat.dtype)])
@@ -376,34 +386,51 @@ class SpatialHandler:
         sum over the mesh combines them; returns the (H, W, 4) frame, the
         same on every rank. ``background`` is an optional (r, g, b, a)
         composited under everything, as ``SimulationHandler.draw`` does. On
-        a card the frame is a replay of the key's draw graph; the stats are
-        read once (:meth:`_frame_options`)."""
+        a card the frame is a replay of the key's draw graph.
+
+        The inner handler's render settings apply as in
+        ``SimulationHandler.draw`` (:meth:`_frame_options`), and so does its
+        render-budget audit (``render.boost_until_clean``): the audit,
+        combined over the mesh, is read once a frame; splats dropped past a
+        bin's budget raise the inner handler's boost and the frame is drawn
+        again (a new draw key), the boost and the audit
+        (``_render_audit``) kept on the inner handler. Per-particle colour
+        is refused (``ValueError``). The stats are read once a frame."""
         if viewport is None:
             viewport = (0.0, 0.0, 800, 600)
         self._ensure_spatial()
-        opts2 = self._frame_options()
+        x, y, w, h = viewport
         thickness = render_ops.outline_thickness(self._inner)
         cfg2 = self._inner._device_cfg2()
+        inner = self._inner
         graphs = self._spatial_graphs()
-        if graphs is None:
-            key = (opts2, tuple(viewport), thickness)
-            if key not in self._draw_cache:
-                self._draw_cache[key] = S.spatial_draw(
-                    self._mesh, self._layout, opts2, viewport,
-                    self._inner._thresholding_threshold,
-                    self._inner._thresholding_smoothness,
-                    self._inner._use_lighting, thickness=thickness)
-            frame = self._draw_cache[key](
-                self._sp_state, self.stats, cfg2, self._interpolation_alpha)
-        else:
-            x, y, w, h = viewport
-            frame = graphs.draw(
-                self._sp_state, self.stats, cfg2,
-                (self._interpolation_alpha,
-                 self._inner._thresholding_threshold,
-                 self._inner._thresholding_smoothness, (x, y)),
-                opts2=opts2, vw=w, vh=h,
-                use_lighting=self._inner._use_lighting, thickness=thickness)
+        drawn = {}
+
+        def render(opts2):
+            if graphs is None:
+                key = (opts2, tuple(viewport), thickness)
+                if key not in self._draw_cache:
+                    self._draw_cache[key] = S.spatial_draw(
+                        self._mesh, self._layout, opts2, viewport,
+                        inner._thresholding_threshold,
+                        inner._thresholding_smoothness, inner._use_lighting,
+                        thickness=thickness)
+                drawn["frame"], audits = self._draw_cache[key](
+                    self._sp_state, self.stats, cfg2,
+                    self._interpolation_alpha)
+            else:
+                drawn["frame"], audits = graphs.draw(
+                    self._sp_state, self.stats, cfg2,
+                    (self._interpolation_alpha, inner._thresholding_threshold,
+                     inner._thresholding_smoothness, (x, y)),
+                    opts2=opts2, vw=w, vh=h, use_lighting=inner._use_lighting,
+                    thickness=thickness)
+            return audits
+
+        opts2 = self._frame_options()
+        inner._render_audit = render_ops.boost_until_clean(
+            inner, opts2, render(opts2), render, stats=self.stats)
+        frame = drawn["frame"]
         if background is not None:
             bg = torch.tensor(background, dtype=torch.float32,
                               device=frame.device)
@@ -414,33 +441,12 @@ class SpatialHandler:
         return frame
 
     def _frame_options(self):
-        """(white, yolk) RenderOptions of the current state: canvas buckets
-        from the step statistics, the per-bin budget from the density. The
-        stats come to the host in one read (``render.host_reads``)."""
-        stats = self.stats
-        counts = self.get_n_particles()
-        host = torch.cat([stats.aabb_min.reshape(-1),
-                          stats.aabb_max.reshape(-1),
-                          stats.max_velocity.reshape(-1)]).cpu().numpy()
-        render_ops.host_reads += 1
-        aabb_min, aabb_max = host[0:4].reshape(2, 2), host[4:8].reshape(2, 2)
-        max_vel = host[8:10]
-        opts = []
-        for i, cfg in ((0, self._inner._white_config),
-                       (1, self._inner._yolk_config)):
-            if self._inner._canvas_size is not None:
-                bucket = int(self._inner._canvas_size)
-            else:
-                bucket = render_ops.pick_canvas_bucket(
-                    aabb_min[i], aabb_max[i],
-                    cfg["max_radius"] * cfg["texture_scale"],
-                    float(max_vel[i]), cfg["motion_blur"], None)
-            area = float(max(aabb_max[i][0] - aabb_min[i][0], 1.0)
-                         * max(aabb_max[i][1] - aabb_min[i][1], 1.0))
-            density = counts[i] / area if area > 1.0 else None
-            opts.append(render_ops.auto_render_options(cfg, bucket,
-                                                       density=density))
-        return tuple(opts)
+        """(white, yolk) RenderOptions of the current state:
+        ``render.frame_options`` of the inner handler (its canvas size,
+        particle colour, budget boost, peak density hint and post mode) on
+        the mesh-wide step statistics. The stats come to the host in one
+        read (``render.host_reads``)."""
+        return render_ops.frame_options(self._inner, stats=self.stats)
 
     # ----------------------------------------------------------- queries --
 

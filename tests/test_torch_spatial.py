@@ -10,7 +10,8 @@ K = 4, two spread batches: no cell over K, so no pair is dropped).
   layouts; the host layout at 4 x 2 in the test process), the ownership
   invariant, and after three steps the per-rank live counts of JAX's.
 - ``_bin_local`` (slots, planes, aux planes, in-window flags) and one
-  ``_exchange_halos`` of planes and aux: bit for bit.
+  ``_exchange_halos`` of planes and aux: bit for bit; the in-transit mask
+  against its numpy definition.
 - ``_sweep_local``'s plain version (kernel D's) on the very windows JAX's
   ``_bin_local`` + ``_exchange_halos`` build (positions drifted up to 0.4
   cell after binning, so the fresh-cell mask has work), 1 x 1, 2 x 2 and
@@ -19,7 +20,9 @@ K = 4, two spread batches: no cell over K, so no pair is dropped).
   ``_sweep_pallas``: rtol 1e-4, atol 1e-5.
 - ``spatial_step`` on 2 x 2 against JAX's on the same mesh, three steps:
   positions and previous positions 1e-3 px, velocities 0.2 px/s, the
-  layout (live slots) and the migration counts equal; against the port's
+  layout (live slots) and the migration-dropped counts equal; the
+  in-transit counts held to their definitions (:func:`_hold_info`);
+  against the port's
   own single-device dense step: the point-set tolerances of
   ``tests/test_spatial.py`` (1e-3 px, centroid rtol 1e-4 / atol 1e-3,
   batch sums rtol 1e-4 / atol 1e-2, batch counts equal).
@@ -60,6 +63,8 @@ POS_TOL, VEL_TOL = 1e-3, 0.2
 RTOL, ATOL = 1e-4, 1e-5
 FIELDS = ("pos", "prev", "vel", "last_pos", "radius", "mass_t", "inv_mass",
           "batch_slot", "color")
+CELLS = [torch_ranks.cell_size_f32(c) for c in (default_white_config(),
+                                                default_yolk_config())]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -107,6 +112,24 @@ def _inputs(h, db, dx, migrate_cap=64):
 
 def _np(x):
     return np.asarray(jax.device_get(x))
+
+
+def _hold_info(got, want, pos, batch_slot, db, dx, after_slot=None):
+    """The port's (dropped, in transit) counts ``got`` against the JAX
+    package's ``want`` of the same call, whose (last) binning took ``pos``
+    and ``batch_slot`` (whole spatial-layout arrays). The dropped columns
+    are equal. In transit the port counts the active particles outside
+    their rank's window; the JAX package counts every slot its binning
+    left unplaced that is active at the end: those, the particles past rank
+    K of their cell, and, after a resident call's final migration, the
+    arrivals in slots the binning found empty. Both columns are held to
+    the numpy counts of those sets (``torch_ranks.layout_counts``),
+    exactly; ``after_slot``: the batch slots after the call."""
+    counts = torch_ranks.layout_counts(pos, batch_slot, CELLS, G, K, db, dx,
+                                       after_slot=after_slot)
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    np.testing.assert_array_equal(got[:, 1], counts[:, 0])
+    np.testing.assert_array_equal(want[:, 1], counts.sum(axis=1))
 
 
 def _jax_pop_env(st, cfg2, i, lay):
@@ -191,12 +214,13 @@ def run22(tmp_path_factory):
     pos[0, j, 1] += lay.gb * _cell_sizes(h)[0]
     st_t = st0.replace(pos=jnp.asarray(pos), prev=jnp.asarray(pos).copy(),
                        vel=st0.vel * 0.0)
+    teleport_in = (np.array(st_t.pos), np.array(st_t.batch_slot))
     st_t, _, info_t = step(st_t, cfg2, jnp.float32(1 / 60), jnp.float32(1.0))
     last = JS.redistribute(
         st0.replace(**{f: jnp.asarray(steps[-1][0][f]) for f in FIELDS}),
         _cell_sizes(h), lay, mesh, from_spatial=True)
     return dict(h=h, lay=lay, mesh=mesh, st0=st0, steps=steps,
-                teleport=(j, host_view(st_t), _np(info_t)),
+                teleport=(j, host_view(st_t), _np(info_t), teleport_in),
                 redist_spatial=host_view(last), bins=_jax_bin(st0, cfg2, lay),
                 port=ranks.result())
 
@@ -268,6 +292,27 @@ def test_bin_local_bit_identical(run22):
         np.testing.assert_array_equal(port[f"bin_in_grid_{i}"] != 0, in_grid)
         # FIELD_OCC carries the true cell occupancy (counts, not 0/1)
         assert planes[:, 7].max() >= 1.0
+
+
+def test_bin_local_transit_mask(run22):
+    """``_bin_local``'s in-transit mask is the numpy mask of the active
+    particles outside the rank's window, and JAX's unplaced slots (not
+    ``in_grid``) are exactly those, the particles past rank K of their cell
+    and the empty slots (``torch_ranks.window_masks``)."""
+    port = run22["port"]
+    pos, slot = port["redist_pos"], port["redist_batch_slot"]
+    c_loc = pos.shape[1] // 4
+    for i in range(2):
+        in_grid = run22["bins"][i][3]
+        for r in range(4):
+            sl = slice(r * c_loc, (r + 1) * c_loc)
+            active = slot[i][sl] >= 0
+            transit, over = torch_ranks.window_masks(
+                pos[i][sl], active, CELLS[i], G, K, 2, 2, r)
+            np.testing.assert_array_equal(port[f"bin_transit_{i}"][r] != 0,
+                                          transit)
+            np.testing.assert_array_equal(~in_grid[r],
+                                          transit | over | ~active)
 
 
 def test_exchange_halos_bit_identical(run22):
@@ -348,7 +393,9 @@ def test_spatial_step_2x2_matches_jax(run22):
                        ("last_pos", POS_TOL), ("vel", VEL_TOL)):
             np.testing.assert_allclose(got[f][live], want[f][live], rtol=0,
                                        atol=tol, err_msg=f"step {s} {f}")
-        np.testing.assert_array_equal(port[f"step{s}_info"], info)
+        before = "redist" if s == 0 else f"step{s - 1}"
+        _hold_info(port[f"step{s}_info"], info, port[f"{before}_pos"],
+                   port[f"{before}_batch_slot"], 2, 2)
         np.testing.assert_allclose(port[f"step{s}_centroid"],
                                    _np(stats.centroid), rtol=1e-4, atol=1e-3)
         np.testing.assert_allclose(port[f"step{s}_batch_count"],
@@ -393,10 +440,11 @@ def test_spatial_step_2x2_matches_port_single_device(run22):
 
 def test_migration_one_hop_and_no_particle_lost(run22):
     port, lay = run22["port"], run22["lay"]
-    j, want, info_j = run22["teleport"]
+    j, want, info_j, (pos_in, slot_in) = run22["teleport"]
     assert int(port["teleport_j"]) == j
     got = _step_state(port, "teleport")
-    np.testing.assert_array_equal(port["teleport_info"], info_j)
+    _hold_info(port["teleport_info"], info_j, pos_in, slot_in, 2, 2)
+    assert port["teleport_info"][:, 1].sum() == 1   # the teleported one
     assert port["teleport_info"][:, 0].sum() == 0          # no drops
     np.testing.assert_array_equal(got["batch_slot"], want["batch_slot"])
     live = want["batch_slot"] >= 0

@@ -22,9 +22,14 @@ mesh on four).
 - Against the JAX package's ``spatial_multi_step`` (calls ``a`` and ``b``
   from the same states) at the whole-step tolerances of
   ``tests/test_torch_spatial_resident.py``: positions 1e-3 px, velocities
-  0.2 px/s, the layout and the migration counts equal, the wide-gate state
-  equal; the 2 x 2 frame against JAX's ``spatial_draw`` of the same state:
-  rtol 1e-3, atol 2e-4.
+  0.2 px/s, the layout and the migration-dropped counts equal, the
+  in-transit counts held to their definitions over each rank's last
+  binning (``test_torch_spatial._hold_info``), the wide-gate state equal;
+  the 2 x 2 frame against JAX's ``spatial_draw`` of the same state: rtol
+  1e-3, atol 2e-4.
+- The draw's audit (dropped splats summed over the mesh, the peak bin
+  occupancy its maximum) bit for bit between the routes; its all-reduces
+  are counted under ``render`` beside the frame's log-space sums.
 - ``_place_migrants`` (its scatter now through a dump row) against the JAX
   package's, bit for bit, on receive buffers that overflow the free slots
   and on ones that fit.
@@ -45,7 +50,8 @@ from egg_fluid_simulation_tpu.state import StepStats as JStats
 from egg_fluid_simulation_tpu.state import host_view
 from egg_fluid_simulation_tpu_torch.parallel import spatial as TS
 from test_torch_spatial import (FIELDS, G, J_OPTIONS, K, _cell_sizes,
-                                _inputs, _jax_handler, _np, _step_state)
+                                _hold_info, _inputs, _jax_handler, _np,
+                                _step_state)
 from test_torch_spatial_resident import STATS, _assert_steps_match
 
 MESHES = ("1x1", "2x2")
@@ -196,10 +202,30 @@ def test_graphs_match_jax(runs, mesh):
         want, stats, info, wide = runs["jax"][mesh, call]
         got = _step_state(port, f"graphs_{call}")
         _assert_steps_match(got, {f: want[f] for f in FIELDS})
-        np.testing.assert_array_equal(port[f"graphs_{call}_info"], info)
+        _hold_info(port[f"graphs_{call}_info"], info,
+                   port[f"graphs_{call}_bin_pos"],
+                   port[f"graphs_{call}_bin_batch_slot"], *_shape(mesh),
+                   after_slot=port[f"graphs_{call}_batch_slot"])
         np.testing.assert_allclose(port[f"graphs_{call}_centroid"],
                                    _np(stats.centroid), rtol=1e-4, atol=1e-3)
         np.testing.assert_array_equal(port[f"graphs_{call}_wide"], wide)
+
+
+def test_draw_bytes_count_the_audit(runs):
+    """The draw's collective bytes a rank: each population's log-space sum
+    of its effective canvas (float32) and the audit's sum and max of two
+    int32 a population; nothing on one rank."""
+    import egg_fluid_simulation_tpu_torch as T
+    from egg_fluid_simulation_tpu_torch.ops import render as trender
+    opts2 = [trender.auto_render_options(c, 128)
+             for c in (T.default_white_config(), T.default_yolk_config())]
+    canvases = sum(o.eff_size ** 2 * 4 for o in opts2)
+    got = json.loads(str(runs["port"]["2x2"]["graphs_draw_bytes"]))
+    assert got == {"render": canvases + 2 * 2 * 4}
+    assert json.loads(str(runs["port"]["1x1"]["graphs_draw_bytes"])) == {}
+    for mesh in MESHES:
+        audit = runs["port"][mesh]["graphs_frame_audit"]
+        assert audit.shape == (2, 2) and audit[:, 1].min() > 0
 
 
 def test_graph_draw_matches_jax(runs):

@@ -5,9 +5,11 @@ set as in ``tests/test_torch_spatial.py``).
 - ``spatial_step`` on a 1 x 1 mesh (a one-rank gloo group in the test
   process: every halo a copy, no collective) against JAX's 1 x 1 step,
   three steps: positions and previous positions 1e-3 px, velocities 0.2
-  px/s, the layout and the migration counts equal.
+  px/s, the layout and the migration-dropped counts equal, the in-transit
+  counts held to their definitions (``test_torch_spatial._hold_info``).
 - ``spatial_multi_step`` (5 resident steps, one call) on 2 x 2 against
-  JAX's: the whole-step tolerances above, the layout and the counts equal;
+  JAX's: the whole-step tolerances above, the layout equal, the counts as
+  above (the in-transit ones over each rank's last binning);
   against the port's own loop of five ``spatial_step``: the envelope of
   ``tests/test_spatial.py::test_spatial_multi_step_matches_stepwise``
   (centroids within 1 px, mean spread within 8%, centroid statistics rtol
@@ -40,8 +42,8 @@ from egg_fluid_simulation_tpu_torch.ops import solver as tsolver
 from egg_fluid_simulation_tpu_torch.ops.solver import SolverOptions
 from egg_fluid_simulation_tpu_torch.parallel import spatial as TS
 from test_torch_spatial import (FIELDS, G, J_OPTIONS, K, OPTS, POS_TOL,
-                                VEL_TOL, _cell_sizes, _inputs, _jax_handler,
-                                _jax_steps, _np, _step_state)
+                                VEL_TOL, _cell_sizes, _hold_info, _inputs,
+                                _jax_handler, _jax_steps, _np, _step_state)
 
 STATS = ("aabb_min", "aabb_max", "centroid", "last_centroid", "max_radius",
          "max_velocity", "batch_pos_sum", "batch_count")
@@ -131,11 +133,13 @@ def test_spatial_step_1x1_matches_jax():
     mesh.counter.reset()
     cfg2 = _port_cfg2(h)
     for want, stats, info in steps:
+        before = st
         st, got_stats, got_info = step(st, cfg2, torch.tensor(1 / 60),
                                        torch.tensor(1.0))
         got = {f: getattr(st, f).numpy() for f in FIELDS}
         _assert_steps_match(got, want)
-        np.testing.assert_array_equal(got_info.numpy(), info)
+        _hold_info(got_info.numpy(), info, before.pos.numpy(),
+                   before.batch_slot.numpy(), 1, 1)
         np.testing.assert_allclose(got_stats.centroid.numpy(),
                                    _np(stats.centroid), rtol=1e-4, atol=1e-3)
     assert mesh.counter.snapshot() == {}      # no collective on 1 x 1
@@ -145,7 +149,9 @@ def test_spatial_multi_step_matches_jax(resident):
     port = resident["port"]
     want, stats, info, ws = resident["multi"]
     _assert_steps_match(_step_state(port, "multi"), want)
-    np.testing.assert_array_equal(port["multi_info"], info)
+    _hold_info(port["multi_info"], info, port["multi_bin_pos"],
+               port["multi_bin_batch_slot"], 2, 2,
+               after_slot=port["multi_batch_slot"])
     np.testing.assert_allclose(port["multi_centroid"], _np(stats.centroid),
                                rtol=1e-4, atol=1e-3)
     np.testing.assert_array_equal(

@@ -69,6 +69,77 @@ def _program_main(program: str, inp: str, out: str) -> None:
         np.savez(out, **res)
 
 
+# ------------------------------------------------------ window counts --
+
+def cell_size_f32(config) -> np.float32:
+    """A population's dense cell size as the step forms it in float32:
+    ``max(max_radius * max(overlap, cohesion distance), 1)``."""
+    f = max(np.float32(config["collision_overlap_factor"]),
+            np.float32(config["cohesion_interaction_distance_factor"]))
+    return max(np.float32(config["max_radius"]) * f, np.float32(1.0))
+
+
+def _wrap_i32(x):
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def window_masks(pos, active, cell, grid_dim: int, k: int, db: int, dx: int,
+                 rank: int):
+    """``(transit, over)`` masks of one rank's particles as its binning
+    sees them, in numpy: ``transit`` the active particles whose torus cell
+    ``floor(pos / cell) mod G`` lies outside the rank's window; ``over``
+    the particles in the window past rank ``k`` of their cell, ranked by
+    the rotating winner hash of the position bits (ties by particle
+    index), as ``dense.bin_to_planes`` ranks them."""
+    pos = np.asarray(pos, np.float32)
+    gb, gx = grid_dim // db, grid_dim // dx
+    band, block = divmod(rank, dx)
+    c = np.floor(pos / np.float32(cell))
+    c = np.clip(np.where(np.isfinite(c), c, 0.0), -1e9, 1e9)
+    cxy = np.mod(c.astype(np.int32).astype(np.int64), grid_dim)
+    ly, lx = cxy[:, 1] - band * gb, cxy[:, 0] - block * gx
+    in_win = (ly >= 0) & (ly < gb) & (lx >= 0) & (lx < gx) & active
+    hb = 1 << min(12, int(np.floor(np.log2((2**31 - 1)
+                                           / (grid_dim * grid_dim + 1)))))
+    bits = np.ascontiguousarray(pos).view(np.int32).astype(np.int64)
+    h = _wrap_i32(_wrap_i32(bits[:, 0] * -1640531535)
+                  + _wrap_i32(bits[:, 1] * -2048144789))
+    h = (h ^ (h >> 15)) & (hb - 1)
+    local = np.where(in_win, ly * gx + lx, gb * gx)
+    order = np.lexsort((np.arange(pos.shape[0]), h, local))
+    run_start = np.r_[True, local[order][1:] != local[order][:-1]]
+    first = np.maximum.accumulate(np.where(run_start,
+                                           np.arange(order.size), 0))
+    rank_in_cell = np.empty(order.size, np.int64)
+    rank_in_cell[order] = np.arange(order.size) - first
+    return active & ~in_win, in_win & (rank_in_cell >= k)
+
+
+def layout_counts(pos, batch_slot, cells, grid_dim: int, k: int, db: int,
+                  dx: int, after_slot=None):
+    """Per population ``(transit, over, arrived)`` counts of a whole
+    spatial-layout state (``(2, C, ...)`` arrays, rank ``r`` holding slice
+    ``r`` of ``C / (db * dx)``) binned as its ranks bin it: the masks of
+    :func:`window_masks` summed over the ranks, each counted over the slots
+    active in ``after_slot`` (the batch slots after the call's final
+    migration; the binned state's own by default); ``arrived`` counts the
+    slots active there that the binning found empty."""
+    n_ranks = db * dx
+    c_loc = pos.shape[1] // n_ranks
+    after_slot = batch_slot if after_slot is None else after_slot
+    out = np.zeros((2, 3), np.int64)
+    for i in range(2):
+        for r in range(n_ranks):
+            sl = slice(r * c_loc, (r + 1) * c_loc)
+            active = batch_slot[i][sl] >= 0
+            after = after_slot[i][sl] >= 0
+            transit, over = window_masks(pos[i][sl], active, cells[i],
+                                         grid_dim, k, db, dx, r)
+            out[i] += [np.sum(after & transit), np.sum(after & over),
+                       np.sum(after & ~active)]
+    return out
+
+
 # ------------------------------------------------------------- helpers --
 
 def _configs(inputs):
@@ -118,6 +189,35 @@ def _gathered(mesh, t):
     return mesh.all_gather(t[None].contiguous(), "test").numpy()
 
 
+class LastBinning:
+    """While active, keeps the inputs of each population's last resident
+    binning on this rank (a wrapper of ``SpatialSteps.bin``): what the
+    in-transit count of the call's exit is taken over."""
+
+    def __enter__(self):
+        from egg_fluid_simulation_tpu_torch.parallel import spatial as S
+        self.S, self.orig, self.last = S, S.SpatialSteps.bin, {}
+        orig, last = self.orig, self.last
+
+        def bin(loop, i, pos, vel, mass_t, batch_slot, active):
+            last[i] = (pos.clone(), batch_slot.clone())
+            return orig(loop, i, pos, vel, mass_t, batch_slot, active)
+
+        S.SpatialSteps.bin = bin
+        return self
+
+    def __exit__(self, *exc):
+        self.S.SpatialSteps.bin = self.orig
+
+    def save(self, res, prefix, mesh):
+        """The last binning's positions and batch slots of both
+        populations, the whole layout (``(2, C, ...)``, rank order)."""
+        for name, k in (("pos", 0), ("batch_slot", 1)):
+            res[f"{prefix}_bin_{name}"] = np.stack([
+                mesh.all_gather(self.last[i][k].contiguous(), "test").numpy()
+                for i in range(2)])
+
+
 # ------------------------------------------------------------ programs --
 
 def spatial_program(inputs, res):
@@ -149,13 +249,14 @@ def spatial_program(inputs, res):
         aux_cols = torch.stack([st0.pos[i][:, 0], st0.pos[i][:, 1],
                                 st0.vel[i][:, 0], st0.vel[i][:, 1],
                                 env["tx"], env["ty"], env["td"]], dim=1)
-        planes, aux, slot, in_grid = S._bin_local(
+        planes, aux, slot, in_grid, transit = S._bin_local(
             st0.pos[i], env["inv_mass"], env["radius"], st0.batch_slot[i],
             active, env["cell_size"], band, block, lay, aux_cols)
         res[f"bin_planes_{i}"] = _gathered(mesh, planes)
         res[f"bin_aux_{i}"] = _gathered(mesh, aux)
         res[f"bin_slot_{i}"] = _gathered(mesh, slot)
         res[f"bin_in_grid_{i}"] = _gathered(mesh, in_grid.to(torch.int32))
+        res[f"bin_transit_{i}"] = _gathered(mesh, transit.to(torch.int32))
         S._exchange_halos(planes, lay, mesh, "full_halo_exchange")
         S._exchange_halos(aux, lay, mesh, "full_halo_exchange")
         res[f"xch_planes_{i}"] = _gathered(mesh, planes)
@@ -203,8 +304,10 @@ def resident_program(inputs, res):
     st0 = S.redistribute(state, cells, lay, mesh)
     multi = S.spatial_multi_step(mesh, lay, opts)
     S.host_reads = 0
-    st_m, stats_m, info_m, ws = multi(st0, cfg2, dt, relax, 5)
+    with LastBinning() as binning:
+        st_m, stats_m, info_m, ws = multi(st0, cfg2, dt, relax, 5)
     res["multi_host_reads"] = np.asarray(S.host_reads)
+    binning.save(res, "multi", mesh)
     _save_state(res, "multi", st_m, mesh)
     _save_stats(res, "multi", stats_m, info_m)
     res["multi_wide"] = np.asarray([[int(v) for v in w] for w in ws])
@@ -231,8 +334,9 @@ def resident_program(inputs, res):
     opts2 = tuple(R.auto_render_options(c, 256) for c in (white, yolk))
     draw = S.spatial_draw(mesh, lay, opts2, (0.0, 0.0, 256, 256), 0.3, 0.01,
                           True)
-    res["frame"] = draw(S.redistribute(drawn, cells, lay, mesh), stats, cfg2,
-                        1.0).numpy()
+    frame, audit = draw(S.redistribute(drawn, cells, lay, mesh), stats, cfg2,
+                        1.0)
+    res["frame"], res["frame_audit"] = frame.numpy(), audit.numpy()
 
 
 def sharding_program(inputs, res):
@@ -320,6 +424,15 @@ def sharding_graph_program(inputs, res):
     _save_stats(res, "graphs_floats", stats)
 
 
+# a packed clump whose cells hold more than K = 4 particles, and a small
+# batch away from it that spreads the mean density the automatic render
+# budget is sized from, so the clump's render bins overflow it: the
+# arguments of each add
+CLUMP = ((128.0, 128.0, 12.0, 4.0, None, None, 300, 40),
+         (40.0, 40.0, 8.0, 6.0, None, None, 10, 3))
+CLUMP_VIEW = (64.0, 64.0, 128, 128)
+
+
 def handler_program(inputs, res):
     """The SpatialHandler product surface on a db x dx mesh: the flow of
     tests/test_spatial_handler.py, its migration-overflow recovery, a demo
@@ -381,6 +494,22 @@ def handler_program(inputs, res):
     res["over_redistributed"] = np.asarray(ho._redistribute_count)
     res["over_cells"] = np.asarray(ho._cell_sizes(), np.float32)
     _save_state(res, "over", ho._sp_state, ho.mesh)
+
+    # ---- a packed clump across the four windows: the audited draw (every
+    # rank the same boost, nothing dropped), then one step from the
+    # redistributed state (the in-transit count) ----
+    hc = spatial()
+    for args in CLUMP:
+        hc.add(*args)
+    res["clump_frame"] = hc.draw(viewport=CLUMP_VIEW).numpy()
+    res["clump_boosts"] = _gathered(hc.mesh, torch.tensor(
+        hc._inner._render_k_boost, dtype=torch.float64))
+    res["clump_render_audit"] = hc._inner._render_audit.numpy()
+    res["clump_cells"] = np.asarray([cell_size_f32(c) for c in (white, yolk)])
+    _save_state(res, "clump_in", hc._sp_state, hc.mesh)
+    hc.update(1 / 60)
+    res["clump_info"] = np.asarray(hc.last_migration_info)
+    res["clump_redistributed"] = np.asarray(hc._redistribute_count)
 
     # ---- the demo session on the mesh ----
     d = demo.DemoState(capacity=1024, spatial=(db, dx), device="cpu")
@@ -454,34 +583,42 @@ def spatial_graph_program(inputs, res):
         _save_stats(res, f"{route}_step", stats1, info1)
         st, ws = st0, None
         for call in ("a", "b"):
-            if graphs is None:
-                st, stats, info, ws = counted(call, lambda: multi(
-                    st, cfg2, dts[call], relax, n_steps[call],
-                    wide_state=ws))
-                taken = np.asarray(S.rebins)
-            else:
-                st, stats, info, ws, taken = counted(call, lambda: graphs.steps(
-                    st, cfg2, dts[call], relax, n_steps[call], ws))
-                taken = taken.numpy()
-                graphs.count_branches(taken)
+            with LastBinning() as binning:
+                if graphs is None:
+                    st, stats, info, ws = counted(call, lambda: multi(
+                        st, cfg2, dts[call], relax, n_steps[call],
+                        wide_state=ws))
+                    taken = np.asarray(S.rebins)
+                else:
+                    st, stats, info, ws, taken = counted(
+                        call, lambda: graphs.steps(st, cfg2, dts[call], relax,
+                                                   n_steps[call], ws))
+                    taken = taken.numpy()
+                    graphs.count_branches(taken)
             res[f"{route}_{call}_rebins"] = taken
             res[f"{route}_{call}_bytes"] = np.asarray(json.dumps(
                 mesh.counter.snapshot(), sort_keys=True))
+            binning.save(res, f"{route}_{call}", mesh)
             _save_state(res, f"{route}_{call}", st, mesh)
             _save_stats(res, f"{route}_{call}", stats, info)
             res[f"{route}_{call}_wide"] = np.asarray(
                 [[int(v) for v in w] for w in ws])
-        if graphs is None:
-            frame = S.spatial_draw(mesh, lay, opts2, (0.0, 0.0, 128, 96), 0.3,
-                                   0.01, True, thickness=thickness)(
-                st, stats, cfg2, 0.5)
-        else:
-            for _ in range(2):          # the build's render, then a replay
-                frame = graphs.draw(st, stats, cfg2, (0.5, 0.3, 0.01,
-                                                      (0.0, 0.0)),
-                                    opts2=opts2, vw=128, vh=96,
-                                    use_lighting=True, thickness=thickness)
+        # the build's render, then a replay; the eager route once
+        for _ in range(1 if graphs is None else 2):
+            mesh.counter.reset()
+            if graphs is None:
+                frame, audit = S.spatial_draw(
+                    mesh, lay, opts2, (0.0, 0.0, 128, 96), 0.3, 0.01, True,
+                    thickness=thickness)(st, stats, cfg2, 0.5)
+            else:
+                frame, audit = graphs.draw(
+                    st, stats, cfg2, (0.5, 0.3, 0.01, (0.0, 0.0)),
+                    opts2=opts2, vw=128, vh=96, use_lighting=True,
+                    thickness=thickness)
+            res[f"{route}_draw_bytes"] = np.asarray(json.dumps(
+                mesh.counter.snapshot(), sort_keys=True))
         res[f"{route}_frame"] = frame.numpy()
+        res[f"{route}_frame_audit"] = audit.numpy()
 
     # ---- the handler, eagerly and through the graphs' parts ----
     for route in ("eager", "graphs"):
@@ -498,5 +635,6 @@ def spatial_graph_program(inputs, res):
                                                background=(0.1, 0.1, 0.1,
                                                            1.0)).numpy()
         res[f"handler_{route}_info"] = np.asarray(h.last_migration_info)
+        res[f"handler_{route}_render_audit"] = h._inner._render_audit.numpy()
         _save_state(res, f"handler_{route}", h.state, h.mesh)
         _save_stats(res, f"handler_{route}", h.stats)
