@@ -134,6 +134,24 @@ Then it drives the paths through the public API:
   C on a ``SpatialHandler.draw`` payload, alpha and rgb. D's and C's
   launches in the replayed resident steps and draw are their own entries
   of the kernel line (``.spatial_1x1``);
+- ``scenarios``: the five baseline configs of ``BASELINE.json``
+  (``egg_fluid_simulation_tpu_torch/scenarios.py``: configs 1, 2, 3, the
+  three parameter extremes of 4, and 5, at the sizes, steps, targets and
+  ``Path`` drive of ``tests/test_baseline_scenarios.py``) through
+  ``update`` on the card (the step graph replayed: kernel H) and, for
+  config 5, ``draw`` (the render graph replayed: kernel C). Each step is
+  step-locked to the port on the CPU: the card runs free, and each of its
+  steps is stepped again on the CPU from the card's snapshot (state,
+  stats, episode state, accumulator) in ``SCENARIO_WORKERS`` processes;
+  the host-decided fields bit for bit, pos / prev within ``REF_TOL`` px,
+  vel within ``VEL_TOL``, or a rounding flip that
+  ``utils/lockstep.explain`` names (the step replayed pass by pass on both
+  devices, kernel H's front against the plain front: the particle whose
+  cell differs, within 4 float32 steps of the border); config 5's frames
+  against the CPU's draw of the card's state within 1e-4, the same
+  boosts, 0 splats dropped, H and C counted in its trace. One line a
+  config (steps, worst errors, flips, replayed ``update`` wall ms,
+  ``validate_state``, drops), then the phase's seconds;
 - ``bench``: ``python bench_torch.py --quick`` (the port's bench,
   ``egg_fluid_simulation_tpu_torch/bench.py``, its 1M stages at 65,536
   particles) in a subprocess under ``BENCH_TIMEOUT_S``; it fails on a
@@ -169,6 +187,7 @@ line before the last is the card's name and power limit; the last line is
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -3192,6 +3211,226 @@ def sharded_phase(dev, results) -> dict:
             "gather_sweep.sharded": launches["gather_sweep"]}
 
 
+# ---------------------------------------------------------- scenarios --
+
+SCENARIO_WORKERS = 6        # CPU processes that step the scenarios' twins
+#                             (of the card machine's 8 cores; the main
+#                             process drives the card meanwhile)
+SCENARIO_FRAME_TOL = 1e-4   # per channel, a frame drawn from one state
+
+_scenario_twins = {}        # a worker's CPU handlers, one a scenario
+
+
+def _scenario_take(h, snap) -> None:
+    """A handler takes a snapshot (:func:`scenario_snapshot`): state,
+    stats, wide-gate episode state, accumulator and render budget; its own
+    pending targets are dropped (the snapshot holds the flushed ones)."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.interop import state_from_numpy
+    from egg_fluid_simulation_tpu_torch.state import StepStats
+    h._state = state_from_numpy(snap["state"])
+    h._stats = StepStats(**{k: torch.from_numpy(v)
+                            for k, v in snap["stats"].items()})
+    h._wide_state = tuple(tuple(torch.from_numpy(x) for x in w)
+                          for w in snap["wide"])
+    h._elapsed, h._interpolation_alpha = snap["elapsed"], snap["alpha"]
+    h._render_k_boost = list(snap["boost"])
+    h._render_peak_density = list(snap["peak"])
+    h._targets_dirty = False
+    h._frames = None
+
+
+def scenario_snapshot(h) -> dict:
+    """Everything a handler's next update reads, on the host."""
+    from egg_fluid_simulation_tpu_torch.interop import state_to_numpy
+    return dict(state=state_to_numpy(h.state),
+                stats={k: v.cpu().numpy() for k, v in vars(h.stats).items()},
+                wide=[[x.cpu().numpy() for x in w] for w in h._wide_or_init()],
+                elapsed=h._elapsed, alpha=h.interpolation_alpha,
+                boost=list(h._render_k_boost),
+                peak=list(h._render_peak_density))
+
+
+def scenario_cpu_step(task) -> dict:
+    """One step of scenario ``name`` on the CPU from the card's snapshot
+    ``before`` (a worker process: one handler a scenario, one thread);
+    with a frame (config 5), the CPU's draw from the card's pre-draw
+    snapshot ``after``, against the card's frame."""
+    import torch
+    import egg_fluid_simulation_tpu_torch as T
+    from egg_fluid_simulation_tpu_torch import scenarios
+    from egg_fluid_simulation_tpu_torch.interop import state_to_numpy
+    name, before, after, frame = task
+    if name not in _scenario_twins:
+        torch.set_num_threads(1)
+        # the card's build printed the spawn warnings already
+        with contextlib.redirect_stderr(io.StringIO()):
+            _scenario_twins[name] = scenarios.build(
+                scenarios.SCENARIOS[name], T, device="cpu")[0]
+    h = _scenario_twins[name]
+    _scenario_take(h, before)
+    t0 = time.perf_counter()
+    h.update(1 / 60)
+    out = dict(view=state_to_numpy(h.state), alpha=h.interpolation_alpha,
+               elapsed=h._elapsed, cpu_step_s=time.perf_counter() - t0)
+    if frame is not None:
+        _scenario_take(h, after)
+        f = h.draw(viewport=scenarios.SCENARIOS[name].viewport).numpy()
+        out.update(frame_err=float(np.abs(f - frame).max()),
+                   boost=list(h._render_k_boost),
+                   dropped=int(h.render_audit[:, 0].sum()))
+    return out
+
+
+def scenario_card_run(name, dev, pool) -> dict:
+    """Scenario ``name`` through ``update`` (and ``draw``) on ``dev``: a
+    snapshot before each update and after it, each update's wall time;
+    the CPU twin of each step submitted to ``pool``."""
+    import torch
+    import egg_fluid_simulation_tpu_torch as T
+    from egg_fluid_simulation_tpu_torch import scenarios
+    sc = scenarios.SCENARIOS[name]
+    h, ids = scenarios.build(sc, T, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    befores, afters, walls, futures, frames = [], [], [], [], []
+    for i in range(max(sc.steps, sc.frames)):
+        if sc.drive is not None:
+            sc.drive(h, ids, i)
+        h._flush_targets()
+        before = scenario_snapshot(h)
+        sync()
+        t0 = time.perf_counter()
+        h.update(1 / 60)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        after = scenario_snapshot(h)
+        frame = None
+        if sc.frames:
+            frame = h.draw(viewport=sc.viewport).cpu().numpy()
+            frames.append(dict(boost=list(h._render_k_boost),
+                               dropped=int(h.render_audit[:, 0].sum())))
+        befores.append(before)
+        afters.append(after)
+        futures.append(pool.submit(scenario_cpu_step,
+                                   (name, before, after if sc.frames else None,
+                                    frame)))
+    return dict(h=h, befores=befores, afters=afters, walls=walls,
+                futures=futures, frames=frames)
+
+
+def scenario_check(name, run, dev) -> dict:
+    """Hold each card step of ``run`` to its CPU twin: the host-decided
+    fields bit for bit, pos / prev / last_pos within ``REF_TOL`` px and vel
+    within ``VEL_TOL``, or a rounding flip ``lockstep.explain`` names
+    (kernel H's front against the plain front); frames within
+    ``SCENARIO_FRAME_TOL``, the same boosts, nothing dropped."""
+    from egg_fluid_simulation_tpu_torch.utils import lockstep
+    from egg_fluid_simulation_tpu_torch.utils.profiling import validate_state
+    h = run["h"]
+    worst = dict(pos=0.0, vel=0.0, frame=0.0)
+    flips, cpu_steps = [], []
+    for i, fut in enumerate(run["futures"]):
+        cpu = fut.result()
+        cpu_steps.append(cpu["cpu_step_s"])
+        card = run["afters"][i]
+        a, b = cpu["view"], card["state"]
+        for f in lockstep.HOST_FIELDS:
+            if not np.array_equal(a[f], b[f]):
+                raise AssertionError(f"scenarios.{name}: step {i}: {f} "
+                                     f"differs between card and CPU")
+        if (cpu["alpha"], cpu["elapsed"]) != (card["alpha"], card["elapsed"]):
+            raise AssertionError(f"scenarios.{name}: step {i}: accumulator")
+        err = lockstep.live_errors(a, b)
+        pos = max(err["pos"], err["prev"], err["last_pos"])
+        if pos <= REF_TOL and err["vel"] <= VEL_TOL:
+            worst["pos"] = max(worst["pos"], pos)
+            worst["vel"] = max(worst["vel"], err["vel"])
+        else:
+            opts, cfg2 = h._options, h._device_cfg2()
+            flip = lockstep.explain(lockstep.PortSide(cfg2, opts, "cpu"),
+                                    lockstep.PortSide(cfg2, opts, dev),
+                                    run["befores"][i]["state"], 1 / 60)
+            flips.append(dict(step=i, pop=("white", "yolk")[flip.pop],
+                              substep=flip.substep, collision_pass=flip.pass_index,
+                              decision=flip.decision,
+                              particles=flip.particles, ulps=flip.ulps,
+                              part_px=flip.part_px, moved=len(flip.moved)))
+        if "frame_err" in cpu:
+            card_frame = run["frames"][i]
+            worst["frame"] = max(worst["frame"], cpu["frame_err"])
+            if not (cpu["frame_err"] <= SCENARIO_FRAME_TOL
+                    and cpu["boost"] == card_frame["boost"]
+                    and card_frame["dropped"] == 0 == cpu["dropped"]):
+                raise AssertionError(
+                    f"scenarios.{name}: frame {i}: card vs CPU frame "
+                    f"{cpu['frame_err']} (tol {SCENARIO_FRAME_TOL}), boosts "
+                    f"{card_frame['boost']} / {cpu['boost']}, dropped "
+                    f"{card_frame['dropped']} / {cpu['dropped']}")
+    walls = run["walls"]
+    out = dict(steps=len(walls), particles=h.get_n_particles(),
+               engine=h._options.engine, budget=h._options.budget_mode,
+               worst_pos_px=worst["pos"], worst_vel_px_s=worst["vel"],
+               flips=flips, first_update_s=round(walls[0], 4),
+               update_wall_ms_p50=round(1e3 * float(np.median(walls[1:])), 4),
+               update_wall_ms_max=round(1e3 * max(walls[1:]), 4),
+               cpu_twin_step_s=round(float(np.median(cpu_steps)), 4),
+               validate_state=validate_state(h))
+    if run["frames"]:
+        out.update(frame_max_abs_err=worst["frame"],
+                   render_dropped=[f["dropped"] for f in run["frames"]],
+                   boosts=run["frames"][-1]["boost"])
+    return out
+
+
+def scenarios_phase(dev) -> dict:
+    """``scenarios``: the five baseline configs (``egg_fluid_simulation_
+    tpu_torch/scenarios.py``, the sizes and steps of ``tests/test_baseline_
+    scenarios.py``) through ``update`` and ``draw`` on the card, each
+    update step-locked to the port on the CPU (the card runs free; each of
+    its steps is replayed on the CPU from the card's snapshot, in
+    ``SCENARIO_WORKERS`` processes, while the card goes on). One line a
+    config; config 5's launches of H and C counted from a trace. Any
+    departure the flip rule does not explain raises."""
+    import concurrent.futures
+    import multiprocessing
+    from egg_fluid_simulation_tpu_torch import scenarios
+    t0 = time.perf_counter()
+    names = list(scenarios.SCENARIOS)
+    ctx = multiprocessing.get_context("spawn")
+    lines = {}
+    with concurrent.futures.ProcessPoolExecutor(SCENARIO_WORKERS,
+                                                mp_context=ctx) as pool:
+        runs = {}
+        for name in names:
+            if name == "5" and dev.type == "cuda":
+                with launches_run() as traced:
+                    runs[name] = scenario_card_run(name, dev, pool)
+                runs[name]["launches"] = {
+                    k: traced["trace"][k] for k in ("gather_front",
+                                                    "gather_count",
+                                                    "gather_sweep", "splat")}
+            else:
+                runs[name] = scenario_card_run(name, dev, pool)
+        card_s = time.perf_counter() - t0
+        for name in names:
+            lines[name] = scenario_check(name, runs[name], dev)
+            if "launches" in runs[name]:
+                lines[name]["launches"] = runs[name]["launches"]
+            log(f"scenarios.{name}", **lines[name])
+    for name, line in lines.items():
+        if not line["validate_state"]:
+            raise AssertionError(f"scenarios.{name}: non-finite state")
+        if any(n == 0 for n in line.get("launches", {}).values()):
+            raise AssertionError(f"scenarios.{name}: a kernel of the path "
+                                 f"never ran: {line['launches']}")
+    out = dict(configs=len(lines), seconds=round(time.perf_counter() - t0, 2),
+               card_seconds=round(card_s, 2),
+               flips=sum(len(line["flips"]) for line in lines.values()),
+               workers=SCENARIO_WORKERS)
+    log("scenarios", **out)
+    return out
+
+
 def main() -> int:
     import torch
     card = nvidia_smi()
@@ -3591,6 +3830,7 @@ def main() -> int:
     sharded_launches = sharded_phase(dev, results)
     spatial_launches = spatial_phase(dev, results)
     torch.cuda.empty_cache()
+    scenarios_phase(dev)
     bench_phase()
 
     launches.update(count_planes=plane_launches_run["count_planes"],

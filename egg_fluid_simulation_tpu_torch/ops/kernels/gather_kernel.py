@@ -128,11 +128,27 @@ def gather_front_plain(pos, inv_mass, radius, batch_slot, active, cell_size,
     return record, bucket
 
 
+def _live_end(active: torch.Tensor) -> int:
+    """One past the last live row of ``active`` (0 when none). A pass
+    leaves the rows after it as they are and counts no pair there, so the
+    plain versions stop at it: a handler's live particles are a prefix of
+    its population cap, which can be many times their number."""
+    live = torch.nonzero(active)
+    return int(live[-1]) + 1 if live.numel() else 0
+
+
 def gather_count_plain(record, grid: grid_ops.CellGrid):
     """Plain PyTorch :func:`gather_count`."""
-    rgrid = grid._replace(cell_xy=record_cells(record))
-    return count_from_candidates(rgrid,
-                                 *candidates(rgrid, record_active(record)))
+    active = record_active(record)
+    m = _live_end(active)
+    counts = record.new_zeros(record.shape[0])
+    if m:
+        cells = record_cells(record)
+        cand, valid = candidates(grid._replace(cell_xy=cells[:m]),
+                                 active[:m])
+        counts[:m] = count_from_candidates(grid._replace(cell_xy=cells),
+                                           cand, valid)
+    return counts
 
 
 def gather_sweep_plain(record, grid: grid_ops.CellGrid, cum, max_pairs,
@@ -152,10 +168,14 @@ def gather_sweep_plain(record, grid: grid_ops.CellGrid, cum, max_pairs,
         return record.new_empty((0, 2))
     rec_i = record.view(torch.int32)
     cells = record_cells(record)
+    # owned rows past the last live one move by nothing: swept no further
+    live = _live_end(rec_i[off:off + cnt, 7] != 0)
+    if live == 0:
+        return record[off:off + cnt, 0:2] + 0.0
     cand, valid = candidates(
-        grid_ops.CellGrid(table=grid.table, cell_xy=cells[off:off + cnt],
+        grid_ops.CellGrid(table=grid.table, cell_xy=cells[off:off + live],
                           table_size=grid.table_size),
-        rec_i[off:off + cnt, 7] != 0, off)
+        rec_i[off:off + live, 7] != 0, off)
     ordered = cum is not None
 
     def sweep(lo, hi):
@@ -212,7 +232,9 @@ def gather_sweep_plain(record, grid: grid_ops.CellGrid, cum, max_pairs,
                             torch.sum(-(dy * inv_dist) * scale, dim=1)], dim=1)
 
     c = max(1, min(pair_chunk, cnt))
-    total = torch.cat([sweep(lo, min(lo + c, cnt)) for lo in range(0, cnt, c)])
+    total = record.new_zeros((cnt, 2))
+    for lo in range(0, live, c):
+        total[lo:min(lo + c, live)] = sweep(lo, min(lo + c, live))
     active = rec_i[off:off + cnt, 7] != 0
     return record[off:off + cnt, 0:2] + torch.where(
         active[:, None], relaxation * total, 0.0)

@@ -313,6 +313,36 @@ def test_gather_sweep_plain_matches_jax(scene, budget, cohesion, table):
     assert torch.equal(whole, got)
 
 
+@pytest.mark.parametrize("live", ["holes", "none"])
+def test_plain_pass_stops_at_the_last_live_row(live):
+    """The plain count and sweep stop at the last live row; with live rows
+    scattered among dead ones (and none after row 400), or none live, both
+    equal the whole-population computations bit for bit: the count JAX's,
+    the sweep the field-by-field pass, which sweeps every row."""
+    d = _scene("packed")
+    rng = np.random.default_rng(5)
+    d["act"] = ((rng.random(N) < 0.6) & (np.arange(N) < 400)
+                if live == "holes" else np.zeros(N, bool))
+    ct, act, record, grid = _port_grid(d, TABLES["table256_k16"])
+    new_pairs = GK.gather_count_plain(record, grid)
+    np.testing.assert_array_equal(new_pairs.numpy(),
+                                  _jax_new_pairs(d, TABLES["table256_k16"]))
+    cum = torch.cumsum(new_pairs, 0) - new_pairs
+    fields = (torch.from_numpy(d["pos"]), torch.from_numpy(d["inv"]),
+              torch.from_numpy(d["rad"]), torch.from_numpy(d["batch"]), act)
+    scal = (torch.tensor(COMPLIANCE[0]), torch.tensor(COMPLIANCE[1]),
+            ct.collision_overlap_factor,
+            ct.cohesion_interaction_distance_factor,
+            torch.tensor(COMPLIANCE[2]))
+    for budget in (cum, None):
+        max_pairs = tsolver._max_pairs(act) if budget is not None else None
+        got = GK.gather_sweep_plain(record, grid, budget, max_pairs, *scal,
+                                    spacing=True)
+        assert torch.equal(_fields_sweep(*fields, grid, budget, max_pairs,
+                                         *scal, spacing=True), got)
+    assert (float(new_pairs.sum()) > 0) == (live == "holes")
+
+
 # (offset, count) of the 509-particle record (240 live): the first half,
 # the middle (the live ones' end inside), through the last row, and an
 # empty range
