@@ -152,6 +152,27 @@ Then it drives the paths through the public API:
   boosts, 0 splats dropped, H and C counted in its trace. One line a
   config (steps, worst errors, flips, replayed ``update`` wall ms,
   ``validate_state``, drops), then the phase's seconds;
+- ``dense_twins``: the main path, the dense engine's replayed ``update``
+  and resident loop, step-locked to the port on the CPU at the bench's
+  scenes (``scenarios.BENCH_SCENES``): ``DENSE_65K_STEPS`` updates of the
+  65k spawn (the CPU twins in ``DENSE_WORKERS`` processes) and a draw at
+  the bench's canvas viewport from one state on both sides, one replayed
+  update of the 1M scene settled 120 steps (the CPU on every core), and
+  ``DENSE_RESIDENT_STEPS`` replayed resident steps of the settled 65k
+  scene, each from the card's carry. A step that parts past ``REF_TOL`` /
+  ``VEL_TOL`` (or whose episode state differs) passes only where the dense
+  rule of ``utils/lockstep.explain_dense`` explains it, from each side's
+  step run again by its own code with its recorders (the CPU's bit for bit
+  to the CPU's update, the card's eagerly within the pass tolerance of the
+  replayed graph's output): each parting substep, rerun on the card from
+  the CPU's input with its window, agrees at every slot within the pass
+  tolerance plus twice that slot's own 1-ulp envelope (rounding a packed
+  scene amplifies), and a window or rebin chosen on one side only comes
+  from slots within a few float32 steps of the threshold. One line a
+  scene (worst errors, substeps named rounding, flips, rebins, replayed
+  wall, CPU seconds a step), one on where card and CPU part on one input
+  (``arithmetic``: kernel B against its plain version, the plain version
+  on card and CPU, ``torch.rsqrt``), then the phase's seconds;
 - ``bench``: ``python bench_torch.py --quick`` (the port's bench,
   ``egg_fluid_simulation_tpu_torch/bench.py``, its 1M stages at 65,536
   particles) in a subprocess under ``BENCH_TIMEOUT_S``; it fails on a
@@ -3431,6 +3452,403 @@ def scenarios_phase(dev) -> dict:
     return out
 
 
+# -------------------------------------------------------- dense twins --
+
+DENSE_WORKERS = 6           # CPU processes that step the 65k twins (of
+#                             the card machine's 8 cores)
+DENSE_65K_STEPS = 8         # updates of bench_65k's spawn transient held
+DENSE_1M_UPDATES = 2        # settled updates of headline_1m: the first
+#                             captures the step, the rest are replayed
+DENSE_RESIDENT_STEPS = 4    # resident steps of the settled 65k scene held
+DENSE_FRAME_TOL = 1e-4      # per channel, a frame drawn from one state
+
+_dense_cpu = {}             # a worker's CPU handlers, one a scene
+
+
+def _dense_cpu_handler(name):
+    """The CPU twin of bench scene ``name`` (built unsettled: every step
+    takes the card's snapshot)."""
+    if name not in _dense_cpu:
+        from egg_fluid_simulation_tpu_torch import scenarios
+        sc = scenarios.BENCH_SCENES[name]
+        with contextlib.redirect_stderr(io.StringIO()):
+            _dense_cpu[name] = build_handler(sc.n_white, "cpu",
+                                             wide_default=sc.wide_default)
+    return _dense_cpu[name]
+
+
+def dense_cpu_frame(task) -> dict:
+    """The CPU port's draw of bench scene ``name`` at ``viewport`` from the
+    card's snapshot ``after``, against the card's frame: the largest
+    difference a channel, the boosts, the splats dropped."""
+    import torch
+    name, after, viewport, card_frame = task
+    torch.set_num_threads(1)
+    h = _dense_cpu_handler(name)
+    _scenario_take(h, after)
+    t0 = time.perf_counter()
+    f = h.draw(viewport=viewport).numpy()
+    return dict(frame_err=float(np.abs(f - card_frame).max()),
+                boost=list(h._render_k_boost),
+                dropped=int(h.render_audit[:, 0].sum()),
+                cpu_draw_s=time.perf_counter() - t0)
+
+
+def dense_cpu_step(task) -> dict:
+    """One update of bench scene ``name`` on the CPU port from the card's
+    snapshot ``before`` (``threads`` torch threads), held against the
+    card's ``after``: the host-decided fields bit for bit, the largest
+    live pos / prev / last_pos and vel differences, the episode states;
+    where they part past ``REF_TOL`` / ``VEL_TOL`` or the episode states
+    differ, the step replayed substep by substep (``lockstep.
+    replay_dense``) for the card side's explanation."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.interop import state_to_numpy
+    from egg_fluid_simulation_tpu_torch.utils import lockstep
+    name, before, after, threads = task
+    torch.set_num_threads(threads)
+    h = _dense_cpu_handler(name)
+    _scenario_take(h, before)
+    t0 = time.perf_counter()
+    h.update(1 / 60)
+    cpu_s = time.perf_counter() - t0
+    a, b = state_to_numpy(h.state), after["state"]
+    host = [f for f in lockstep.HOST_FIELDS if not np.array_equal(a[f], b[f])]
+    err = lockstep.live_errors(a, b)
+    wide = lockstep.wide_host(h._wide_state)
+    parted = (max(err["pos"], err["prev"], err["last_pos"]) > REF_TOL
+              or err["vel"] > VEL_TOL or wide != lockstep.wide_host(
+                  after["wide"]))
+    out = dict(host_unequal=host, err=err, wide=wide, parted=parted,
+               cpu_step_s=cpu_s, accumulator=(h.interpolation_alpha,
+                                              h._elapsed))
+    if parted:
+        t0 = time.perf_counter()
+        replay = lockstep.replay_dense(
+            lockstep.DensePortSide(h._device_cfg2(), h._options, "cpu"),
+            before["state"], lockstep.wide_host(before["wide"]))
+        for r in replay:
+            r.start = None      # the second side's layout is the card's
+        out.update(replay=replay, after=a,
+                   replay_s=time.perf_counter() - t0)
+    return out
+
+
+def dense_hold(name, h, befores, afters, cpu, dev) -> dict:
+    """Hold each card update of ``h`` to its CPU twin (``cpu``: the
+    :func:`dense_cpu_step` results): the host fields and accumulator
+    equal, and within ``REF_TOL`` / ``VEL_TOL`` with equal episode states,
+    or explained by ``lockstep.explain_dense`` (the CPU's replay the first
+    side, the card's the second: its substeps on the CPU's inputs and its
+    1-ulp envelopes run on the card), each replay held first to the step
+    that ran on its side: the CPU's bit for bit to the CPU's update, the
+    card's (the step's own code, eagerly) to the replayed graph's output
+    within the pass tolerance. Returns the worst errors and the findings;
+    raises on a departure."""
+    from egg_fluid_simulation_tpu_torch.utils import lockstep
+    card = lockstep.DensePortSide(h._device_cfg2(), h._options, dev)
+    sub_dt = (1 / 60) / h._options.n_substeps
+    worst, found, replay_s = dict(pos=0.0, vel=0.0), [], []
+    reproduced = 0.0
+    for i, out in enumerate(cpu):
+        if out["host_unequal"]:
+            raise AssertionError(f"dense_twins.{name}: step {i}: "
+                                 f"{out['host_unequal']} differ")
+        if out["accumulator"] != (afters[i]["alpha"], afters[i]["elapsed"]):
+            raise AssertionError(f"dense_twins.{name}: step {i}: accumulator")
+        err = out["err"]
+        worst["pos"] = max(worst["pos"], err["pos"], err["prev"],
+                           err["last_pos"])
+        worst["vel"] = max(worst["vel"], err["vel"])
+        if not out["parted"]:
+            continue
+        replay_s.append(out["replay_s"])
+        wide_in = lockstep.wide_host(befores[i]["wide"])
+        mine = lockstep.replay_dense(card, befores[i]["state"], wide_in)
+        ran = afters[i]["state"]
+        tol = lockstep.step_tol(lockstep.pass_tol(ran["pos"]), sub_dt)
+        reproduced = max(reproduced, lockstep.reproduces(
+            mine, ran, afters[i]["wide"], tol))
+        found += [(i, f) for f in lockstep.explain_dense(
+            None, card, befores[i]["state"], wide_in,
+            ((out["after"], out["wide"], None),
+             (ran, afters[i]["wide"], tol)),
+            replays=(out["replay"], mine))]
+    return dict(worst_pos_px=worst["pos"], worst_vel_px_s=worst["vel"],
+                parted_steps=len(replay_s), card_replay_vs_graph_px=reproduced,
+                **finding_counts(found),
+                cpu_replay_s=round(float(np.median(replay_s)), 3)
+                if replay_s else None)
+
+
+def finding_counts(found) -> dict:
+    """What the dense rule named in ``(step, finding)`` pairs: the
+    substeps it explained as rounding amplified by the scene
+    (``lockstep.Amplified``: their count, the most the sides part on one
+    input, the largest 1-ulp envelope and the most a slot's error past the
+    pass tolerance is of its own envelope), and each threshold flip."""
+    from egg_fluid_simulation_tpu_torch.utils import lockstep
+    amp = [f for _, f in found if isinstance(f, lockstep.Amplified)]
+    flips = [dict(step=i, pop=("white", "yolk")[f.pop], decision=f.decision,
+                  substep=f.substep, slots=len(f.particles), ulps=f.ulps,
+                  counts=f.counts) for i, f in found
+             if isinstance(f, lockstep.DenseFlip)]
+    return dict(amplified_substeps=len(amp),
+                worst_same_input_px=max((f.err_px for f in amp), default=0.0),
+                worst_envelope_px=max((f.envelope_px for f in amp),
+                                      default=0.0),
+                worst_envelope_ratio=max((f.ratio for f in amp),
+                                         default=0.0),
+                flips=flips)
+
+
+def dense_arithmetic(before, h, dev) -> dict:
+    """Where the card and the CPU part on one input: kernel B and its plain
+    version on the card, and the plain version on the card and on the CPU,
+    one integrating window-3 pass of white from ``before``'s binning (the
+    spawn's first step), slot positions; and ``torch.rsqrt`` (the pair
+    term's inverse distance) on the card and on the CPU over 2^20 float32
+    values from 1e-3 to 1e3: the share that differ and the most float32
+    steps apart."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
+    from egg_fluid_simulation_tpu_torch.utils import lockstep
+    side = lockstep.DensePortSide(h._device_cfg2(), h._options, dev)
+    (P, grid), _ = side.bin(0, before)
+    aux = torch.stack([P.damp, P.follow_c, P.relaxation.to(dev),
+                       torch.zeros((), device=dev)])
+    args = (grid[0], grid[2], P.params_packed, aux, P.k)
+    kw = dict(cohesion=True, window=3, fresh_mask=True, prev=grid[1],
+              follow=grid[3], integrate=True)
+    kernel = SK.substep_pass(*args, **kw)[0]
+    plain = SK.substep_pass_plain(*args, **kw)[0]
+    host = [t.cpu() if isinstance(t, torch.Tensor) else t for t in args]
+    kw_host = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()}
+    cpu = SK.substep_pass_plain(*host, **kw_host)[0]
+    occ = (grid[2][3] > 0).cpu()
+    x = torch.logspace(-3, 3, 1 << 20, dtype=torch.float32)
+    steps = lockstep.float_steps(torch.rsqrt(x).numpy(),
+                                 torch.rsqrt(x.to(dev)).cpu().numpy())
+    return dict(
+        kernel_vs_plain_card_px=float((kernel - plain).abs().max()),
+        plain_card_vs_cpu_px=float((plain.cpu() - cpu).abs()[:, occ].max()),
+        slots_differ_card_vs_cpu=int(((plain.cpu() != cpu)[:, occ]).any(0)
+                                     .sum()), slots=int(occ.sum()),
+        rsqrt_differ_share=float((steps > 0).mean()),
+        rsqrt_max_float_steps=int(steps.max()))
+
+
+def dense_card_steps(name, h, n, submit, threads, sync) -> dict:
+    """``n`` updates of ``h`` on the card, a snapshot before and after
+    each; ``submit`` takes each CPU twin's task (:func:`dense_cpu_step`)
+    as the card goes on."""
+    befores, afters, walls, futures = [], [], [], []
+    for _ in range(n):
+        h._flush_targets()
+        befores.append(scenario_snapshot(h))
+        sync()
+        t0 = time.perf_counter()
+        h.update(1 / 60)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        afters.append(scenario_snapshot(h))
+        futures.append(submit((name, befores[-1], afters[-1], threads)))
+    return dict(befores=befores, afters=afters, walls=walls, futures=futures)
+
+
+def dense_resident(dev, steps: int) -> dict:
+    """The settled 65k scene's resident loop on the card through its
+    captured parts (``ResidentGraphs``: enter, then ``steps`` replayed
+    advances), the carry of each step (``lockstep.resident_carry``) and
+    its rebins from the device counter; each step stepped again from the
+    card's carry by the loop's own code, eagerly on the card (held to the
+    graph's carry within the pass tolerance, rebins equal) and on the CPU
+    (``solver.ResidentSteps``), the two held by
+    ``lockstep.hold_resident_step``."""
+    import torch
+    from egg_fluid_simulation_tpu_torch import scenarios
+    from egg_fluid_simulation_tpu_torch.interop import (state_from_numpy,
+                                                        state_to_numpy)
+    from egg_fluid_simulation_tpu_torch.ops import solver as S
+    from egg_fluid_simulation_tpu_torch.utils import lockstep
+    sc = scenarios.BENCH_SCENES["bench_65k"]
+    h = scenarios.build_bench(sc, dev)
+    h.run_steps(BENCH.SETTLE)
+    cfg2 = h._device_cfg2()
+    dt, relax = h._step_scalars(1 / 60)
+    wide = h._wide_or_init()
+    rgs = h._resident_graphs()
+    g = rgs._graph("steps", h.state, cfg2, dt, relax, h._options, wide)
+    g.enter()
+    torch.cuda.synchronize()
+    carries, taken, walls = [lockstep.resident_carry(g.loop)], [], []
+    for _ in range(steps):
+        start = rgs.rebins.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.advance()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        taken.append((rgs.rebins - start).tolist())
+        carries.append(lockstep.resident_carry(g.loop))
+    state = state_to_numpy(h.state)
+    cpu = torch.device("cpu")
+    cfg2_cpu = type(cfg2)(**{f: getattr(cfg2, f).cpu() for f in vars(cfg2)})
+    wide_cpu = [[t.cpu() for t in w] for w in wide]
+    cpu_rs = S.ResidentSteps(state_from_numpy(state), cfg2_cpu, dt.cpu(),
+                             relax.cpu(), h._options, wide_cpu)
+    card_rs = S.ResidentSteps(h.state, cfg2, dt, relax, h._options, wide)
+    sides = [lockstep.DensePortSide(c, h._options, d)
+             for c, d in ((cfg2_cpu, cpu), (cfg2, dev))]
+    found, errs, cpu_s, reproduced = [], [], [], 0.0
+    sub_dt = (1 / 60) / h._options.n_substeps
+    for i in range(steps):
+        t0 = time.perf_counter()
+        tol = lockstep.step_tol(lockstep.pass_tol(carries[i + 1][0]["xy"]),
+                                sub_dt)
+        f, _, err, rep = lockstep.hold_resident_step(
+            sides[0], cpu_rs, sides[1], card_rs, carries[i], carries[i + 1],
+            taken[i], i, tol)
+        cpu_s.append(time.perf_counter() - t0)
+        found += [(i, x) for x in f]
+        errs += err
+        reproduced = max(reproduced, rep)
+    return dict(source=sc.source + ", settled", steps=steps,
+                settle_steps=BENCH.SETTLE,
+                particles=h.get_n_particles(),
+                rebins_card=[sum(t[p] for t in taken) for p in range(2)],
+                rebins_by_step=taken,
+                worst_pos_px=max((e["pos"] for e in errs), default=0.0),
+                worst_vel_px_s=max((e["vel"] for e in errs), default=0.0),
+                card_replay_vs_graph_px=reproduced,
+                **finding_counts(found),
+                replayed_advance_ms_p50=round(
+                    1e3 * float(np.median(walls)), 4),
+                captures=rgs.captures,
+                cpu_s_per_step=round(float(np.median(cpu_s)), 3))
+
+
+def dense_twins_phase(dev) -> dict:
+    """``dense_twins``: the main path, the dense engine's replayed
+    ``update``, step-locked to the port on the CPU at the bench's scenes
+    (``scenarios.BENCH_SCENES``). The card runs free; each update's
+    snapshot (state, stats, episode state) is stepped again on the CPU and
+    held by the dense rule (``lockstep.explain_dense``):
+
+    - ``bench_65k``: ``DENSE_65K_STEPS`` updates of the spawn transient
+      (the CPU twins in ``DENSE_WORKERS`` processes while the card goes
+      on), then one ``draw`` at the bench's canvas viewport from the last
+      state on both sides (``DENSE_FRAME_TOL``, nothing dropped, the same
+      boosts); kernels A, B and C counted from the trace of the card's run;
+    - ``headline_1m``: settled ``bench.SETTLE`` steps, then
+      ``DENSE_1M_UPDATES`` updates (the first captures, the rest replay),
+      each stepped on the CPU with every core;
+    - ``resident_65k``: the settled 65k scene's resident loop
+      (:func:`dense_resident`).
+
+    One line a scene and a summary; any departure raises."""
+    import concurrent.futures
+    import multiprocessing
+    import torch
+    from egg_fluid_simulation_tpu_torch import scenarios
+    from egg_fluid_simulation_tpu_torch.utils import lockstep
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    ctx = multiprocessing.get_context("spawn")
+    lines = {}
+    with concurrent.futures.ProcessPoolExecutor(DENSE_WORKERS,
+                                                mp_context=ctx) as pool:
+        sc = scenarios.BENCH_SCENES["bench_65k"]
+        h = scenarios.build_bench(sc, dev)
+        with launches_run() as traced:
+            run = dense_card_steps(sc.name, h, DENSE_65K_STEPS,
+                                   lambda t: pool.submit(dense_cpu_step, t),
+                                   1, sync)
+            viewport = BENCH._canvas_viewport(h)
+            frame = h.draw(viewport=viewport)
+            sync()
+        card_frame = dict(boost=list(h._render_k_boost),
+                          dropped=int(h.render_audit[:, 0].sum()))
+        arith = dense_arithmetic(run["befores"][0]["state"], h, dev)
+        frame_fut = pool.submit(dense_cpu_frame, (
+            sc.name, run["afters"][-1], viewport, frame.cpu().numpy()))
+        launches = {k: traced["trace"][k]
+                    for k in ("place_planes", "substep_pass", "splat")}
+        card_65k_s = time.perf_counter() - t_phase
+
+        # headline_1m: settled on the card meanwhile
+        t0 = time.perf_counter()
+        sc1 = scenarios.BENCH_SCENES["headline_1m"]
+        h1 = scenarios.build_bench(sc1, dev)
+        h1.update(1 / 60)               # captures the step
+        captures = h1._step_graphs.captures
+        # the 1M CPU twins run here once the workers are done, every core
+        b1 = dense_card_steps(sc1.name, h1, DENSE_1M_UPDATES - 1,
+                              lambda t: t, os.cpu_count(), sync)
+        if h1._step_graphs.captures != captures:
+            raise AssertionError("dense_twins.headline_1m: the update was "
+                                 "not replayed")
+        card_1m_s = time.perf_counter() - t0
+
+        # the resident loop of the settled 65k scene (card, then CPU)
+        t0 = time.perf_counter()
+        resident = dense_resident(dev, DENSE_RESIDENT_STEPS)
+        resident["seconds"] = round(time.perf_counter() - t0, 2)
+
+        t0 = time.perf_counter()
+        cpu = [f.result() for f in run["futures"]]
+        fr = frame_fut.result()
+        wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held = dense_hold(sc.name, h, run["befores"], run["afters"], cpu, dev)
+    lines[sc.name] = dict(
+        source=sc.source, steps=DENSE_65K_STEPS,
+        particles=h.get_n_particles(),
+        wide_state=[list(w) for w in lockstep.wide_host(h._wide_state)],
+        **held, update_wall_ms=[round(1e3 * w, 3) for w in run["walls"]],
+        cpu_step_s=[round(c["cpu_step_s"], 3) for c in cpu],
+        frame_max_abs_err=fr["frame_err"], frame_viewport=viewport,
+        boosts=(card_frame["boost"], fr["boost"]),
+        render_dropped=(card_frame["dropped"], fr["dropped"]),
+        cpu_draw_s=round(fr["cpu_draw_s"], 3), launches=launches,
+        card_seconds=round(card_65k_s, 2), wait_seconds=round(wait_s, 2),
+        hold_seconds=round(time.perf_counter() - t0, 2))
+    log("dense_twins.bench_65k", **lines[sc.name])
+    if not (fr["frame_err"] <= DENSE_FRAME_TOL
+            and card_frame["boost"] == fr["boost"]
+            and card_frame["dropped"] == 0 == fr["dropped"]):
+        raise AssertionError(f"dense_twins.bench_65k: frame {fr} against "
+                             f"the card's {card_frame}")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"dense_twins.bench_65k: a kernel of the path "
+                             f"never ran: {launches}")
+
+    t0 = time.perf_counter()
+    cpu1 = [dense_cpu_step(task) for task in b1["futures"]]
+    held = dense_hold(sc1.name, h1, b1["befores"], b1["afters"], cpu1, dev)
+    lines[sc1.name] = dict(
+        source=sc1.source, updates=DENSE_1M_UPDATES, held=len(cpu1),
+        settle_steps=sc1.settle, particles=h1.get_n_particles(), **held,
+        update_wall_ms=[round(1e3 * w, 3) for w in b1["walls"]],
+        cpu_step_s=[round(c["cpu_step_s"], 3) for c in cpu1],
+        cpu_threads=os.cpu_count(), card_seconds=round(card_1m_s, 2),
+        hold_seconds=round(time.perf_counter() - t0, 2))
+    log("dense_twins.headline_1m", **lines[sc1.name])
+    log("dense_twins.resident_65k", **resident)
+    lines["resident_65k"] = resident
+    lines["arithmetic"] = arith
+    log("dense_twins.arithmetic", **arith)
+    out = dict(scenes=list(lines),
+               flips=sum(len(v.get("flips", ())) for v in lines.values()),
+               amplified_substeps=sum(v.get("amplified_substeps", 0)
+                                      for v in lines.values()),
+               seconds=round(time.perf_counter() - t_phase, 2),
+               workers=DENSE_WORKERS, card=nvidia_smi())
+    log("dense_twins", **out)
+    return out
+
+
 def main() -> int:
     import torch
     card = nvidia_smi()
@@ -3831,6 +4249,8 @@ def main() -> int:
     spatial_launches = spatial_phase(dev, results)
     torch.cuda.empty_cache()
     scenarios_phase(dev)
+    torch.cuda.empty_cache()
+    dense_twins_phase(dev)
     bench_phase()
 
     launches.update(count_planes=plane_launches_run["count_planes"],

@@ -93,9 +93,11 @@ def _follow_prologue(xi, yi, W, OC, TX, TY, TD, follow_c):
 def substep_pass_plain(xy, stat, params, aux, k: int, *, cohesion: bool,
                        window: int = 1, fresh_mask: bool = False,
                        prev=None, follow=None, integrate: bool = False):
-    """Plain PyTorch pass: the whole grid, one (d, dy) partner offset at a
-    time, in the order of the TPU kernel's ``_pair_terms`` (d outer, dy
-    inner), so the sums round as the kernel's do."""
+    """Plain PyTorch pass, one (d, dy) partner offset at a time, in the
+    order of the TPU kernel's ``_pair_terms`` (d outer, dy inner), so the
+    sums round as the kernel's do. The pair sums are taken at the occupied
+    slots only (:func:`_occupied_sums`); an empty slot's terms are exact
+    zeros, so the result is bit for bit that of the whole grid."""
     _, g, lanes = xy.shape
     X, Y = xy[0], xy[1]
     W, R, BA, OC = stat[0], stat[1], stat[2], stat[3]
@@ -113,71 +115,98 @@ def substep_pass_plain(xy, stat, params, aux, k: int, *, cohesion: bool,
     fields = [xf, yf, W, R, OC]
     if cohesion:
         fields.append(BA)
+    fm = None
     if fresh_mask:
         fm = torch.where(fresh_mod > 0, fresh_mod,
                          torch.tensor(float(g), device=xy.device))
-        sfx = torch.remainder(torch.floor(xf / cell_size), fm)
-        sfy = torch.remainder(torch.floor(yf / cell_size), fm)
-        fields += [sfx, sfy]
-
-        def torus_adj(a, b):
-            half = 0.5 * fm
-            dd = torch.remainder(a - b + half, fm) - half
-            return torch.abs(dd) <= 1.0
-
-    s_lane = torch.arange(lanes, device=xy.device) % k
-    tx = torch.zeros_like(xf)
-    ty = torch.zeros_like(yf)
-    w = window
-    d_hi = (w + 1) * k
-    for d in range(-(d_hi - 1), d_hi):
-        cell_diff = -torch.div(s_lane - d, k, rounding_mode="floor")
-        mask = (torch.abs(cell_diff) <= w)[None, :]
-        rolled = [torch.roll(f, d, dims=1) if d else f for f in fields]
-        for dy in range(-w, w + 1):
-            if dy == 0 and d == 0:
-                continue
-            o = [torch.roll(f, -dy, dims=0) if dy else f for f in rolled]
-            ox, oy, ow, orr, oocc = o[:5]
-            valid = (OC > 0.0) & (oocc > 0.0) & mask
-            if fresh_mask:
-                valid = valid & torus_adj(sfx, o[-2]) & torus_adj(sfy, o[-1])
-            ddx = ox - xf
-            ddy = oy - yf
-            dist2 = ddx * ddx + ddy * ddy
-            deg = dist2 <= EPS * EPS
-            inv_d1 = torch.where(deg, 1.0,
-                                 torch.rsqrt(torch.clamp(dist2, min=EPS * EPS)))
-            nd = torch.where(deg, 0.0, 1.0)
-            w_sum = W + ow
-            ok = valid & (w_sum >= EPS)
-            sum_r = R + orr
-            min_d = overlap_f * sum_r
-            hit_l = ok & (dist2 <= min_d * min_d)
-            f_l = torch.where(hit_l, min_d * inv_d1 - nd, 0.0)
-            dl = torch.clamp(w_sum + collision_c, min=1.0)
-            if cohesion:
-                ob = o[5]
-                coh_d = cohesion_f * sum_r
-                hit_c = ok & (BA == ob) & (dist2 <= coh_d * coh_d)
-                f_c = torch.where(hit_c, coh_d * inv_d1 - nd, 0.0)
-                dc = torch.clamp(w_sum + cohesion_c, min=1.0)
-                num = f_c * dl + f_l * dc
-                den = dc * dl
-            else:
-                num = f_l
-                den = dl
-            s_eff = (num / den) * (W * oocc)
-            sgn = 1.0 if (dy > 0 or (dy == 0 and d > 0)) else -1.0
-            ux = torch.where(deg, sgn * D.TIE_X, ddx)
-            uy = torch.where(deg, sgn * D.TIE_Y, ddy)
-            tx = tx - ux * s_eff
-            ty = ty - uy * s_eff
-
+        fields += [torch.remainder(torch.floor(xf / cell_size), fm),
+                   torch.remainder(torch.floor(yf / cell_size), fm)]
+    consts = (collision_c, cohesion_c, overlap_f, cohesion_f, fm)
+    tx, ty = _occupied_sums(fields, k, window, cohesion, consts)
     out = torch.stack([xf + relax * tx, yf + relax * ty])
     if integrate:
         return out, torch.stack([X, Y])
     return out
+
+
+def _offsets(k: int, w: int):
+    """The kernel's partner offsets in its order: lane offset ``d`` outer,
+    row offset ``dy`` inner, the slot itself left out."""
+    d_hi = (w + 1) * k
+    return [(d, dy) for d in range(-(d_hi - 1), d_hi)
+            for dy in range(-w, w + 1) if dy or d]
+
+
+def _pair_term(f, o, lane_ok, d: int, dy: int, cohesion: bool, consts):
+    """One partner's correction of each self slot, ``(ux * s, uy * s)``:
+    self fields ``f`` and partner fields ``o`` in ``substep_pass_plain``'s
+    order, ``lane_ok`` the slots whose partner cell lies in the window."""
+    collision_c, cohesion_c, overlap_f, cohesion_f, fm = consts
+    xf, yf, W, R, OC = f[:5]
+    ox, oy, ow, orr, oocc = o[:5]
+    valid = (OC > 0.0) & (oocc > 0.0) & lane_ok
+    if fm is not None:
+        half = 0.5 * fm
+        for a, b in ((f[-2], o[-2]), (f[-1], o[-1])):
+            dd = torch.remainder(a - b + half, fm) - half
+            valid = valid & (torch.abs(dd) <= 1.0)
+    ddx = ox - xf
+    ddy = oy - yf
+    dist2 = ddx * ddx + ddy * ddy
+    deg = dist2 <= EPS * EPS
+    inv_d1 = torch.where(deg, 1.0,
+                         torch.rsqrt(torch.clamp(dist2, min=EPS * EPS)))
+    nd = torch.where(deg, 0.0, 1.0)
+    w_sum = W + ow
+    ok = valid & (w_sum >= EPS)
+    sum_r = R + orr
+    min_d = overlap_f * sum_r
+    hit_l = ok & (dist2 <= min_d * min_d)
+    f_l = torch.where(hit_l, min_d * inv_d1 - nd, 0.0)
+    dl = torch.clamp(w_sum + collision_c, min=1.0)
+    if cohesion:
+        coh_d = cohesion_f * sum_r
+        hit_c = ok & (f[5] == o[5]) & (dist2 <= coh_d * coh_d)
+        f_c = torch.where(hit_c, coh_d * inv_d1 - nd, 0.0)
+        dc = torch.clamp(w_sum + cohesion_c, min=1.0)
+        num = f_c * dl + f_l * dc
+        den = dc * dl
+    else:
+        num = f_l
+        den = dl
+    s_eff = (num / den) * (W * oocc)
+    sgn = 1.0 if (dy > 0 or (dy == 0 and d > 0)) else -1.0
+    ux = torch.where(deg, sgn * D.TIE_X, ddx)
+    uy = torch.where(deg, sgn * D.TIE_Y, ddy)
+    return ux * s_eff, uy * s_eff
+
+
+def _lane_ok(lane, k: int, d: int, w: int):
+    return torch.abs(-torch.div(lane % k - d, k, rounding_mode="floor")) <= w
+
+
+def _occupied_sums(fields, k: int, w: int, cohesion: bool, consts):
+    """The (G, L) pair sums, taken at the occupied slots only (the partner
+    of slot (r, l) at offset (d, dy) is slot ((r + dy) mod G, (l - d) mod
+    L), gathered); every other slot's sums are zero, as the whole grid
+    gives them."""
+    g, lanes = fields[0].shape
+    flat = torch.stack(fields).reshape(len(fields), -1)
+    idx = torch.nonzero(fields[4].reshape(-1) > 0.0).squeeze(1)
+    row, lane = idx // lanes, idx % lanes
+    f = list(flat[:, idx])
+    tx = torch.zeros_like(f[0])
+    ty = torch.zeros_like(f[1])
+    for d, dy in _offsets(k, w):
+        partner = ((row + dy) % g) * lanes + (lane - d) % lanes
+        ax, ay = _pair_term(f, list(flat[:, partner]),
+                            _lane_ok(lane, k, d, w), d, dy, cohesion, consts)
+        tx = tx - ax
+        ty = ty - ay
+    out = torch.zeros((2, g * lanes), dtype=flat.dtype, device=flat.device)
+    out[0, idx] = tx
+    out[1, idx] = ty
+    return out[0].reshape(g, lanes), out[1].reshape(g, lanes)
 
 
 def substep_pass(xy, stat, params, aux, k: int, *, cohesion: bool,

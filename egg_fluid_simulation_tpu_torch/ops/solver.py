@@ -43,6 +43,7 @@ one device-to-host read per population per resident step, counted in
 
 from __future__ import annotations
 
+import functools
 import inspect
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
@@ -289,14 +290,11 @@ def _comp_extract(xy, prev, stat, slot, g: int, lanes: int, sub_dt):
     return p, pr, (p - pr) / sub_dt, in_grid
 
 
-def _drift_over(disp, occ, thresh2):
-    """Drift metric of the binned layout (JAX ``_comp_drift_over`` and, on
-    the real rows of the planes, ``_plane_drift_over``): the count of
-    occupied slots whose displacement ``disp`` (2, G, L) RELATIVE to the
-    population-mean displacement exceeds ``thresh2`` (uniform translation
-    keeps every pair window valid; only differential motion invalidates
-    it), and the (2,) mean displacement. ``occ`` > 0 marks occupied
-    slots."""
+def drift_rel2(disp, occ):
+    """Per slot, the squared displacement ``disp`` (2, G, L) RELATIVE to
+    the population-mean displacement (uniform translation keeps every pair
+    window valid; only differential motion invalidates it), 0 on empty
+    slots, and the (2,) mean over the occupied slots (``occ`` > 0)."""
     occ01 = torch.clamp(occ, max=1.0)
     n_occ = torch.clamp(torch.sum(occ01), min=1.0)
     dxp = disp[0] * occ01
@@ -304,7 +302,28 @@ def _drift_over(disp, occ, thresh2):
     mx = torch.sum(dxp) / n_occ
     my = torch.sum(dyp) / n_occ
     rel2 = (dxp - mx * occ01) ** 2 + (dyp - my * occ01) ** 2
-    return torch.sum(rel2 > thresh2), torch.stack([mx, my])
+    return rel2, torch.stack([mx, my])
+
+
+def _drift_over(disp, occ, thresh2):
+    """Drift metric of the binned layout (JAX ``_comp_drift_over`` and, on
+    the real rows of the planes, ``_plane_drift_over``): the count of
+    occupied slots whose relative squared displacement (:func:`drift_rel2`)
+    exceeds ``thresh2``, and the (2,) mean displacement."""
+    rel2, mean = drift_rel2(disp, occ)
+    return torch.sum(rel2 > thresh2), mean
+
+
+def wide_thresh2(options: SolverOptions, cell_size):
+    """The violence gate's threshold on a slot's squared relative
+    displacement in a substep: ``(wide_threshold_cells * cell)^2``."""
+    return (options.wide_threshold_cells * cell_size) ** 2
+
+
+def drift_thresh2(cell_size):
+    """The resident loop's rebin threshold on a slot's squared relative
+    drift since bin time: a quarter cell, squared."""
+    return (0.25 * cell_size) ** 2
 
 
 def wide_state_init(options: SolverOptions, device="cpu"):
@@ -317,9 +336,13 @@ def wide_state_init(options: SolverOptions, device="cpu"):
             torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _no_record(event: str, s: int, **values) -> None:
+    pass
+
+
 def _gated_substeps(run, positions, occ, pred_disp, fb, fallback_substep,
                     act, cell_size, options: SolverOptions, n_sub: int,
-                    wide=None):
+                    wide=None, record=None):
     """``n_sub`` substeps under the violence gate of the wide sweep.
 
     A substep whose relative motion tripped the drift metric runs the NEXT
@@ -335,32 +358,52 @@ def _gated_substeps(run, positions, occ, pred_disp, fb, fallback_substep,
     ``positions()`` gives the (2, G, L) positions of the real slots, ``occ``
     their occupancy, ``pred_disp()`` the velocity-predicted displacement of
     the first substep. ``fb`` = (pos, prev, vel) of the particle-layout
-    fallback, advanced once per substep. Returns ``(fb, wide_state)``."""
+    fallback, advanced once per substep. Returns ``(fb, wide_state)``.
+
+    ``record(event, s, **values)``, if given, sees the gate at work (the
+    step replayed substep by substep, ``utils/lockstep.py``): ``"gate"``
+    for each evaluation that decides substep ``s`` (the velocity-predicted
+    one for ``s == 0``, the movement during substep ``s - 1`` after it),
+    with the per-slot ``rel2``, the displacement ``disp``, the ``mean``,
+    the count ``n_over`` and the ``trip``; ``"substep"`` before substep
+    ``s`` runs, with its window ``wide``; ``"ran"`` after it."""
+    note = record or _no_record
     fb_p, fb_prev, fb_v = fb
     if wide is None:
         wide = wide_state_init(options, occ.device)
     if options.wide_budget_substeps == 0:
         for s in range(n_sub):
+            note("substep", s, wide=False)
             run(False, s == 0)
             fb_p, fb_prev, fb_v = fallback_substep(fb_p, fb_v)
+            note("ran", s)
         return (fb_p, fb_prev, fb_v), wide
 
-    thresh2 = (options.wide_threshold_cells * cell_size) ** 2
+    thresh2 = wide_thresh2(options, cell_size)
     wide_tol = options.wide_tolerance
     n_live = torch.clamp(torch.sum(act), min=1)
-    pred_trip = _drift_over(pred_disp(), occ, thresh2)[0] > wide_tol * n_live
+
+    def over(s, disp):
+        rel2, mean = drift_rel2(disp, occ)
+        n_over = torch.sum(rel2 > thresh2)
+        trip = n_over > wide_tol * n_live
+        note("gate", s, rel2=rel2, disp=disp, mean=mean, n_over=n_over,
+             trip=trip)
+        return trip
+
     trip, budget, calm = wide
-    trip = trip | pred_trip
+    trip = trip | over(0, pred_disp())
     move_ref = positions().clone()
     for s in range(n_sub):
         wide_now = trip & (budget > 0)
+        note("substep", s, wide=wide_now)
         run(wide_now, s == 0)
         budget = torch.where(wide_now, budget - 1, budget)
         fb_p, fb_prev, fb_v = fallback_substep(fb_p, fb_v)
+        note("ran", s)
         xy = positions()
-        n_over = _drift_over(xy - move_ref, occ, thresh2)[0]
+        trip = over(s + 1, xy - move_ref)
         move_ref = xy.clone()
-        trip = n_over > wide_tol * n_live
         calm = torch.where(trip, 0, calm + 1).to(torch.int32)
         budget = torch.where(calm >= options.wide_rearm_substeps,
                              options.wide_budget_substeps, budget
@@ -546,47 +589,55 @@ class _Population:
         rp = dense_ops.ROW_PAD
         return grid[0][dense_ops.FIELD_OCC, rp:rp + self.g]
 
-    def substeps(self, grid, fb, wide_state):
+    def substep(self, grid, wide, first: bool) -> None:
+        """One substep on ``grid``, in place: ``wide`` a 0-dim bool tensor
+        (the gate's decision, read by kernel B or D itself) or a bool (a
+        static window); ``first`` marks the step's first substep."""
+        opts = self.options
+        if not self.fused:
+            _plane_substep(grid[0], grid[1], self.damp, self.follow_c,
+                           self.params_packed, self.sub_dt, self.relaxation,
+                           opts, self.g, self.k, wide=wide,
+                           first_substep=first)
+            return
+        if self._aux_packed is None:
+            dev = self.damp.device
+            self._aux_packed = torch.stack([
+                self.damp, self.follow_c,
+                torch.as_tensor(self.relaxation, dtype=torch.float32,
+                                device=dev),
+                torch.zeros((), device=dev)])
+        grid[0], grid[1] = _fused_run(
+            grid[0], grid[1], grid[2], grid[3], self.params_packed,
+            self._aux_packed, self.k, opts,
+            cohesion=opts.cohesion_mode == "spacing", wide=wide,
+            first_substep=first)
+
+    def pred_disp(self, grid):
+        """(2, G, L) velocity-predicted displacement of the first substep
+        (fused: ``x - prev == vel * sub_dt``)."""
+        if self.fused:
+            return grid[0] - grid[1]
+        rp = dense_ops.ROW_PAD
+        return grid[1][AUX_VX:AUX_VY + 1, rp:rp + self.g] * self.sub_dt
+
+    def substeps(self, grid, fb, wide_state, record=None):
         """One step's substeps on ``grid`` under the violence gate; the
         fallback ``fb`` = (pos, prev, vel) advances in particle layout.
-        Returns ``(fb, wide_state)``."""
+        Returns ``(fb, wide_state)``; ``record`` as
+        :func:`_gated_substeps` takes it, each event given the layout as
+        ``layout=(self, grid)`` too."""
         opts = self.options
-        if self.fused:
-            if self._aux_packed is None:
-                dev = self.damp.device
-                self._aux_packed = torch.stack([
-                    self.damp, self.follow_c,
-                    torch.as_tensor(self.relaxation, dtype=torch.float32,
-                                    device=dev),
-                    torch.zeros((), device=dev)])
-
-            def run(wide, first):
-                grid[0], grid[1] = _fused_run(
-                    grid[0], grid[1], grid[2], grid[3], self.params_packed,
-                    self._aux_packed, self.k, opts,
-                    cohesion=opts.cohesion_mode == "spacing", wide=wide,
-                    first_substep=first)
-
-            # velocity-predicted displacement: x - prev == vel * sub_dt
-            def pred_disp():
-                return grid[0] - grid[1]
-        else:
-            planes, aux = grid
-            rp = dense_ops.ROW_PAD
-
-            def run(wide, first):
-                _plane_substep(planes, aux, self.damp, self.follow_c,
-                               self.params_packed, self.sub_dt,
-                               self.relaxation, opts, self.g, self.k,
-                               wide=wide, first_substep=first)
-
-            def pred_disp():
-                return aux[AUX_VX:AUX_VY + 1, rp:rp + self.g] * self.sub_dt
-        return _gated_substeps(run, lambda: self.positions(grid),
-                               self.occupancy(grid), pred_disp, fb,
+        if record is not None:
+            record = functools.partial(record, layout=(self, grid))
+        return _gated_substeps(lambda wide, first: self.substep(grid, wide,
+                                                                first),
+                               lambda: self.positions(grid),
+                               self.occupancy(grid),
+                               lambda: self.pred_disp(grid), fb,
                                self.fallback_substep, self.act,
                                self.cell_size, opts, opts.n_substeps,
-                               wide_state)
+                               wide_state, record)
 
     def extract(self, grid, slot):
         """(pos, prev, vel, in_grid) per particle; the velocity is derived,
@@ -717,7 +768,7 @@ class _ResidentPop:
                  pop_index: int, views=None, counter=None):
         self.pop, self.i, self.counter = pop, pop_index, counter
         self.frames = views is not None
-        self.thresh2 = (0.25 * pop.cell_size) ** 2
+        self.thresh2 = drift_thresh2(pop.cell_size)
         self.n_live = torch.clamp(torch.sum(pop.act), min=1)
         self.grid, self.slot = pop.bin(pos, vel)
         if views is None:
@@ -729,10 +780,11 @@ class _ResidentPop:
         self.ref_p = pos.clone()                    # positions at bin time
         self.ref_xy = pop.positions(self.grid).clone()   # and in the layout
 
-    def _substeps(self):
+    def _substeps(self, record=None):
         """One step's substeps on the layout; returns the fallback."""
         work = list(self.grid)
-        fb, ws = self.pop.substeps(work, tuple(self.fb), tuple(self.ws))
+        fb, ws = self.pop.substeps(work, tuple(self.fb), tuple(self.ws),
+                                   record)
         _copy_into(self.grid, work)
         _copy_into(self.ws, ws)
         return fb
@@ -757,23 +809,34 @@ class _ResidentPop:
         _rebin_if(n_over > self.pop.options.rebin_tolerance * self.n_live,
                   self.i, self.rebin, force, cond)
 
-    def step(self, check: bool = True, force=None, cond=None) -> None:
+    def step(self, check: bool = True, force=None, cond=None,
+             record=None) -> None:
         """One resident step of :func:`multi_step`: the drift since bin time
         (the budget-dropped particles, integrated by the fallback, count
         too), the rebin from the merged particle arrays when more than
         ``rebin_tolerance`` of the live particles drifted past a quarter
         cell relative to the mean, then the substeps. ``check=False`` skips
-        the decision (a layout just binned has no drift)."""
-        pop = self.pop
+        the decision (a layout just binned has no drift). ``record`` sees
+        the decision as a ``"rebin"`` event (the per-slot ``rel2``, the
+        ``disp`` since bin time, the ``mean``, per particle the squared
+        drift ``extra`` of the budget-dropped live particles, -1 for every
+        other, the count ``n_over`` and the ``trip``), then the substeps as
+        :func:`_gated_substeps` shows them to it."""
         if check:
-            n_over, mean = _drift_over(pop.positions(self.grid) - self.ref_xy,
-                                       pop.occupancy(self.grid), self.thresh2)
+            pop = self.pop
+            disp = pop.positions(self.grid) - self.ref_xy
+            rel2, mean = drift_rel2(disp, pop.occupancy(self.grid))
             dropped = pop.act & (self.slot >= pop.g * pop.lanes)
             dfb = self.fb[0] - self.ref_p - mean
-            n_over = n_over + torch.sum(
-                dropped & (torch.sum(dfb * dfb, dim=1) > self.thresh2))
-            self._decide(n_over, force, cond)
-        _copy_into(self.fb, self._substeps())
+            extra = torch.where(dropped, torch.sum(dfb * dfb, dim=1), -1.0)
+            n_over = (torch.sum(rel2 > self.thresh2)
+                      + torch.sum(extra > self.thresh2))
+            pred = n_over > pop.options.rebin_tolerance * self.n_live
+            if record is not None:
+                record("rebin", 0, rel2=rel2, disp=disp, mean=mean,
+                       extra=extra, n_over=n_over, trip=pred)
+            _rebin_if(pred, self.i, self.rebin, force, cond)
+        _copy_into(self.fb, self._substeps(record))
 
     def frame(self, force=None, cond=None):
         """One step of :func:`multi_step_frames`: the substeps, the particle
@@ -838,9 +901,13 @@ class ResidentSteps:
         self.pops = _resident_pops(state, cfg2, step_delta, relaxation,
                                    options, wide_state, counter=counter)
 
-    def step(self, check: bool = True, force=None, cond=None) -> None:
+    def step(self, check: bool = True, force=None, cond=None,
+             record=None) -> None:
+        """One resident step of both populations; ``record(i)``, if given,
+        is population ``i``'s recorder (:meth:`_ResidentPop.step`)."""
         for r in self.pops:
-            r.step(check, force, cond)
+            r.step(check, force, cond,
+                   None if record is None else record(r.i))
 
     def exit(self):
         """``(fields, wide_state)``: the state fields the steps wrote
@@ -1230,7 +1297,7 @@ def multi_step_is_loop(options: SolverOptions) -> bool:
 @torch.no_grad()
 def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
                relaxation, options: SolverOptions, n_steps: int,
-               wide_state=None, graphs=None):
+               wide_state=None, graphs=None, record=None):
     """``n_steps`` chained fixed steps (headless fast-forward).
 
     Returns ``(state, stats)``, or ``(state, stats, wide_state_out)`` when
@@ -1245,7 +1312,9 @@ def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
     ``graphs`` (a ``resident_graph.ResidentGraphs``) runs the resident
     route as graph replays, with no read of the device; None runs it
     eagerly, reading the rebin flag on the host. The loop of steps ignores
-    it."""
+    it. ``record(i, pop)``, if given, is the recorder of resident step
+    ``i`` of population ``pop`` on the eager resident route
+    (:meth:`_ResidentPop.step`)."""
     caps = _pop_caps(options, state.capacity)
     thread_wide = wide_state is not None
     ws = (tuple(wide_state) if thread_wide
@@ -1263,7 +1332,9 @@ def multi_step(state: ParticleState, cfg2: DeviceConfig, step_delta,
             loop = ResidentSteps(state, cfg2, step_delta, relaxation,
                                  options, ws)
             for i in range(n_res):
-                loop.step(check=i > 0)      # the first layout was just binned
+                loop.step(check=i > 0,      # the first layout was just binned
+                          record=None if record is None else
+                          functools.partial(record, i))
             new, ws = loop.exit()
             state = state.replace(**new)
     else:

@@ -13,8 +13,24 @@ handlers built from one :class:`Scenario` take the same calls.
 5. 64 small batches on an 8 x 8 grid, 5 frames of ``update`` + ``draw`` at
    a 720 x 720 viewport.
 
-Every scenario runs on the handler's automatic options: the gather engine
-with the ordered budget (capacities below 16384).
+Every baseline scenario runs on the handler's automatic options: the
+gather engine with the ordered budget (capacities below 16384).
+
+The dense scenes (:data:`DENSE_SCENES`, :data:`BENCH_SCENES`) run the main
+path, the dense engine's fused step (kernels A and B):
+
+- ``dense_16k``: the smallest handler whose automatic options take the
+  dense engine, ``SimulationHandler(white, yolk, capacity=16384)`` (G (128,
+  64), K 4, budget off, ``wide_budget_substeps`` 240, one binning a step),
+  with 6 batches of 2000 white + 200 yolk on a 3 x 2 grid 260 px apart:
+  each batch spawns at ~9 times its settled density, so the violence gate
+  trips through the spawn transient;
+- ``bench_65k``: the bench's ``--quick`` scene at 65,536 whites
+  (``bench.build_handler(65_536, wide_default=True)``, the options of
+  ``step_ms_1m_default_opts``), from its spawn;
+- ``headline_1m``: the bench's headline scene, ``bench.build_handler(
+  1_000_000)`` (the wide sweep statically off), settled ``bench.SETTLE`` =
+  120 steps, as ``step_ms_1m`` and ``update_ms_1m`` time it.
 """
 
 from __future__ import annotations
@@ -24,7 +40,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from .path import Path
 
-__all__ = ["Scenario", "SCENARIOS", "build", "config5_centres"]
+__all__ = ["Scenario", "SCENARIOS", "DENSE_SCENES", "BenchScene",
+           "BENCH_SCENES", "build", "build_bench", "config5_centres"]
 
 VIEWPORT_5 = (0.0, 0.0, 720, 720)
 
@@ -119,3 +136,43 @@ def build(sc: Scenario, package, **kw):
         for bid in ids:
             h.set_target_position(bid, *sc.target)
     return h, ids
+
+
+DENSE_SCENES: Dict[str, Scenario] = {
+    "dense_16k": Scenario(
+        "dense_16k", 16384, 256,
+        tuple((200.0 + 260.0 * (i % 3), 200.0 + 260.0 * (i // 3), None, None,
+               None, None, 2000, 200) for i in range(6)),
+        20),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BenchScene:
+    """A scene of this package's bench (``bench.build_handler``): the
+    whites asked for, whether the wide sweep keeps its default budget, the
+    steps it is settled before use and where the bench reads it."""
+    name: str
+    n_white: int
+    wide_default: bool
+    settle: int
+    source: str
+
+
+BENCH_SCENES: Dict[str, BenchScene] = {
+    "bench_65k": BenchScene("bench_65k", 65_536, True, 0,
+                            "bench.py --quick scene at 65,536 whites, the "
+                            "options of step_ms_1m_default_opts"),
+    "headline_1m": BenchScene("headline_1m", 1_000_000, False, 120,
+                              "bench.py step_ms_1m / update_ms_1m scene, "
+                              "settled bench.SETTLE steps"),
+}
+
+
+def build_bench(sc: BenchScene, device):
+    """``sc``'s handler on ``device``, settled through ``run_steps``."""
+    from .bench import build_handler
+    h = build_handler(sc.n_white, device, wide_default=sc.wide_default)
+    if sc.settle:
+        h.run_steps(sc.settle)
+    return h
