@@ -1,0 +1,619 @@
+# Frozen copy of egg_fluid_simulation_tpu_torch/ops/render.py at commit e9e0aedb87f3: the port's plain
+# PyTorch path, kept as the benchmark's reference, trimmed to what the
+# cells run.
+# cut after _paste_src_over: no handler-facing functions.
+"""Render pipeline: the reference's four GLSL passes on tensors.
+
+The counterpart of ``egg_fluid_simulation_tpu/ops/render.py``. Reference
+pipeline: ``simulation_handler.lua:1992-2175`` plus the four shaders.
+
+1. **Splat accumulation** — every particle is a gaussian-alpha quad,
+   screen-blended (``1 - prod(1 - a_i)``), evaluated analytically per pixel:
+   particles are binned by centre into canvas bins, and each evaluation tile
+   multiplies in the candidates of its window of bins (kernel C on CUDA).
+2. **Outline** — 8-direction dilation of the accumulated alpha, then a
+   smoothstep edge.
+3. **Lighting** — thresholded alpha, Sobel normal, Blinn-Phong specular and
+   a smoothstepped lambert shadow.
+4. **Composite** — per population, outline under lighting, canvas placed at
+   ``centroid - canvas/2``, white before yolk, alpha blending.
+
+Canvases are sized per population to the particle AABB plus the reference's
+velocity padding, snapped to a static bucket and clamped at 2560.
+
+Precision: float32 throughout. The only matrix products are the bilinear
+interpolation matrices of :func:`_resize_linear_up`; TF32 is switched off
+below so they run in full float32 (the JAX package left them to XLA, outside
+any kernel, in float32 as well).
+
+The JAX package jits :func:`_render_frame` into one program. Here it is one
+CUDA graph replay on a CUDA handler (``ops/render_graph.py``), so nothing in
+it reads the device or copies from the host: the paste lands at a device
+offset, the bin counts have a fixed size, the outline offsets come from the
+host config, and the frame's scalars are fills. :func:`draw` reads the
+device once for the canvas-bucket stats (:func:`frame_options`) and once for
+the overflow audit; ``host_reads`` counts those reads.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import population_config
+from ..utils.mathx import EPS
+from .grid import count_pairs
+from .kernels import splat_kernel
+
+__all__ = ["RenderOptions", "CANVAS_BUCKETS", "splat_population",
+           "outline_pass", "lighting_pass", "render_population",
+           "post_population", "draw", "boost_until_clean", "frame_options",
+           "auto_render_options", "pick_canvas_bucket", "outline_thickness",
+           "host_reads"]
+
+# Positions and canvases must never pass through reduced precision.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# static canvas sizes; last entry is the reference's hard clamp (:1953-1954)
+CANVAS_BUCKETS = (256, 512, 1024, 2048, 2560)
+
+host_reads = 0      # device-to-host reads of draw: the stats and the audit
+
+
+@dataclass(frozen=True)
+class RenderOptions:
+    """Render configuration of one population for one draw.
+
+    ``downsample`` evaluates the splat at ``canvas_size / downsample`` and
+    bilinearly upsamples. Tile/bin dims and ``max_splat_px`` are in
+    EFFECTIVE (downsampled) pixels. ``post_mode``: ``"coarse"`` runs
+    outline/lighting at the effective resolution, ``"full"`` at canvas
+    resolution, ``"super"`` at 2x canvas resolution with a 2x2 box filter
+    (the analog of the reference's MSAA-4 canvases, :453, :1962).
+    """
+    canvas_size: int = 512
+    tile_h: int = 32
+    tile_w: int = 128
+    bin_h: int = 32
+    bin_w: int = 128
+    max_splat_px: int = 64
+    tile_capacity: int = 64
+    max_outline_steps: int = 8
+    shift_pad: int = 16
+    downsample: int = 1
+    use_particle_color: bool = False
+    post_mode: str = "coarse"
+
+    @property
+    def eff_size(self) -> int:
+        return self.canvas_size // self.downsample
+
+    def __post_init__(self):
+        eff = self.canvas_size // self.downsample
+        if not (self.canvas_size % self.downsample == 0
+                and eff % self.tile_h == 0 and eff % self.tile_w == 0
+                and self.tile_h % self.bin_h == 0
+                and self.tile_w % self.bin_w == 0
+                and self.post_mode in ("coarse", "full", "super")):
+            raise ValueError(f"inconsistent RenderOptions: {self}")
+
+
+def auto_render_options(config: dict, canvas_size: int,
+                        use_particle_color: bool = False,
+                        density: Optional[float] = None,
+                        k_boost: float = 1.0,
+                        post_mode: str = "coarse",
+                        peak_density: Optional[float] = None) -> RenderOptions:
+    """Render parameters from a (host) population config, as the JAX
+    package derives them: splat reach ``max_radius * texture_scale`` capped
+    at 64 px, evaluation resolution from the reach, bins ~ the splat
+    footprint, the per-bin budget from the measured (peak) density, and
+    ``ceil(thickness) + 1`` outline steps."""
+    splat_full = max(4, min(64, int(math.ceil(config["max_radius"]
+                                              * config["texture_scale"]))))
+    ds = 1
+    while ds < 4 and splat_full // (2 * ds) >= 12 and canvas_size % (2 * ds) == 0:
+        ds *= 2
+    splat = max(4, -(-splat_full // ds))                 # effective px
+    eff = canvas_size // ds
+
+    def pow2_clamp(v, lo, hi):
+        p = lo
+        while p * 2 <= min(v, hi):
+            p *= 2
+        return p
+
+    bin_h = pow2_clamp(max(splat // 2, 8), 8, min(32, eff))
+    bin_w = pow2_clamp(max(splat // 2, 8), 8, min(32, eff))
+    tile_h = min(max(bin_h, 8), eff)
+    tile_w = min(2 * bin_w, eff)
+
+    spacing = 2.0 * config["collision_overlap_factor"] * config["min_radius"] / ds
+    d_eff = 1.0 / max(spacing * spacing * 0.72, 1.0)     # hex-ish packing
+    slack = 3.0
+    if density is not None and density > 0.0:
+        d_eff = density * ds * ds
+        slack = 1.75
+    if peak_density is not None and peak_density > 0.0:
+        d_eff = peak_density * (ds * ds)
+        slack = 1.3
+    k = int(math.ceil(bin_h * bin_w * d_eff * slack / 8.0)) * 8
+    k = max(8, min(256, k))
+    if k_boost != 1.0:
+        k = min(256, int(math.ceil(k * k_boost / 8.0)) * 8)
+
+    thickness = float(config["outline_thickness"])
+    steps = int(math.ceil(thickness)) + 1                # outline.glsl:14
+    if steps > 64:          # clamped (the port warns; reach preserved)
+        steps = 64
+    reach = int(math.ceil(thickness)) + 2
+    shift_pad = max(16, 2 * reach if post_mode == "super" else reach)
+
+    return RenderOptions(canvas_size=canvas_size, tile_h=tile_h, tile_w=tile_w,
+                         bin_h=bin_h, bin_w=bin_w, max_splat_px=splat,
+                         tile_capacity=k, max_outline_steps=steps,
+                         shift_pad=shift_pad, downsample=ds,
+                         use_particle_color=use_particle_color,
+                         post_mode=post_mode)
+
+
+def pick_canvas_bucket(aabb_min, aabb_max, max_radius_ts, max_vel,
+                       motion_blur, fixed: Optional[int]) -> int:
+    """Canvas size for one population (reference :1944-1954)."""
+    if fixed is not None:
+        return int(fixed)
+    pad = max_radius_ts * (1.0 + max(1.0, max_vel) * motion_blur)
+    extent = float(max(aabb_max[0] - aabb_min[0], aabb_max[1] - aabb_min[1]))
+    need = extent + 2.0 * pad
+    for b in CANVAS_BUCKETS:
+        if need <= b:
+            return b
+    return CANVAS_BUCKETS[-1]
+
+
+def _smoothstep(e0, e1, x):
+    width = e1 - e0
+    width = (torch.clamp(width, min=EPS) if isinstance(width, torch.Tensor)
+             else max(width, EPS))
+    t = torch.clamp((x - e0) / width, 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+# -------------------------------------------------------------- splat pass --
+
+def _ring_depth(opts: RenderOptions) -> Tuple[int, int]:
+    """Bin-grid ring rows/cols beyond each canvas edge: a splat centre up to
+    ``max_splat_px`` outside the canvas still touches it."""
+    e = opts.max_splat_px
+    return -(-e // opts.bin_h), -(-e // opts.bin_w)
+
+
+def _bin_particles(p_canvas, active, opts: RenderOptions, cols):
+    """Bin each particle once by its centre bin (the grid extends one ring of
+    ``_ring_depth`` bins beyond every canvas edge).
+
+    Returns ``(payload, audit, counts)``: the bin-resident payload
+    ``(n_bins + 1, K, F)`` of the ``cols`` (F per-particle float32 columns;
+    empty slots zero; the last row holds nothing), ``audit`` = int32
+    ``[n_overflow, max_count]`` (canvas-reaching particles dropped past the
+    per-bin budget K, and the peak bin occupancy) and the per-bin counts
+    ``(n_bins + 1,)`` int32."""
+    dev = p_canvas.device
+    s, bh, bw, e = opts.eff_size, opts.bin_h, opts.bin_w, opts.max_splat_px
+    ry, rx = _ring_depth(opts)
+    nby, nbx = s // bh + 2 * ry, s // bw + 2 * rx
+    n_bins = nby * nbx
+
+    n = p_canvas.shape[0]
+    by = torch.floor(p_canvas[:, 1] / bh).to(torch.int32) + ry
+    bx = torch.floor(p_canvas[:, 0] / bw).to(torch.int32) + rx
+    reach_y = (p_canvas[:, 1] > -e) & (p_canvas[:, 1] < s + e)
+    reach_x = (p_canvas[:, 0] > -e) & (p_canvas[:, 0] < s + e)
+    by = torch.clamp(by, 0, nby - 1).to(torch.int64)
+    bx = torch.clamp(bx, 0, nbx - 1).to(torch.int64)
+    ok = active & reach_x & reach_y
+    bucket = torch.where(ok, by * nbx + bx, n_bins)
+
+    order = torch.sort(bucket, stable=True).indices
+    pack_sorted = torch.stack(cols, dim=1)[order]            # (N, F)
+    k = opts.tile_capacity
+    cnt2 = count_pairs(torch.where(ok, by, nby), torch.where(ok, bx, nbx),
+                       nby, nbx)
+    flat_counts = cnt2.reshape(-1)
+    n_sent = n - torch.sum(flat_counts)
+    all_counts = torch.cat([flat_counts, n_sent.reshape(1)])
+    starts = torch.cumsum(all_counts, 0) - all_counts       # (n_bins+1,)
+    overflow = torch.sum(torch.clamp(all_counts[:n_bins] - k, min=0))
+    maxcnt = torch.max(all_counts[:n_bins])
+    ar = torch.arange(k, device=dev)
+    pos_in = starts[:, None] + ar[None, :]
+    valid = ar[None, :] < all_counts[:, None]
+    # row n_bins backs out-of-canvas window positions and must stay empty
+    valid = valid & (torch.arange(n_bins + 1, device=dev) < n_bins)[:, None]
+    capped = torch.clamp(pos_in, max=max(n - 1, 0))
+    payload = torch.where(valid[..., None], pack_sorted[capped], 0.0)
+    audit = torch.stack([overflow, maxcnt]).to(torch.int32)
+    return payload, audit, all_counts.to(torch.int32)
+
+
+def _tile_bins(opts: RenderOptions, device="cpu") -> torch.Tensor:
+    """(n_tiles, n_window_bins) bin ids per evaluation tile: every bin
+    intersecting the tile dilated by the splat reach (ring-extended bin
+    coordinates, so every window position is a real bin)."""
+    s, th, tw = opts.eff_size, opts.tile_h, opts.tile_w
+    bh, bw = opts.bin_h, opts.bin_w
+    nty, ntx = s // th, s // tw
+    ry, rx = _ring_depth(opts)
+    nbx = s // bw + 2 * rx
+    wy = th // bh + 2 * ry
+    wx = tw // bw + 2 * rx
+    tids = torch.arange(nty * ntx, device=device)
+    by0 = (tids // ntx) * (th // bh)
+    bx0 = (tids % ntx) * (tw // bw)
+    dy = torch.arange(wy, device=device).repeat_interleave(wx)
+    dx = torch.arange(wx, device=device).repeat(wy)
+    return (by0[:, None] + dy[None, :]) * nbx + (bx0[:, None] + dx[None, :])
+
+
+def _splat_payload(pos, last_pos, vel, radius, color, active, canvas_center,
+                   interpolation_alpha, texture_scale, motion_blur,
+                   opts: RenderOptions):
+    """Bin-resident candidate payload ``(n_bins+1, K, F)`` + audit + counts.
+
+    Frame interpolation (instanced_draw.glsl:40) and canvas placement:
+    canvas pixel (0,0) sits at canvas_center - S/2 (reference :2090, :2060).
+    All geometry is in EFFECTIVE (downsampled) canvas pixels."""
+    ds = float(opts.downsample)
+    p_world = last_pos + (pos - last_pos) * interpolation_alpha
+    origin = canvas_center - 0.5 * opts.canvas_size
+    p_canvas = (p_world - origin) / ds
+
+    speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
+    inv_speed = 1.0 / torch.clamp(speed, min=EPS)
+    cos_a = torch.where(speed > EPS, vel[:, 0] * inv_speed, 1.0)
+    sin_a = torch.where(speed > EPS, vel[:, 1] * inv_speed, 0.0)
+    base_scale = radius * texture_scale / ds
+    smear = 1.0 + speed * motion_blur                        # instanced_draw.glsl:25
+
+    a_p = torch.where(active, color[:, 3], 0.0)
+    inv_sx = 1.0 / torch.clamp(base_scale * smear, min=EPS)  # stretched axis
+    inv_sy = 1.0 / torch.clamp(base_scale, min=EPS)
+    cols = [p_canvas[:, 0], p_canvas[:, 1], cos_a, sin_a,
+            base_scale, base_scale * smear, inv_sx, inv_sy, a_p]
+    if opts.use_particle_color:
+        cols += [color[:, 0], color[:, 1], color[:, 2]]
+    return _bin_particles(p_canvas, active, opts, cols)
+
+
+def splat_population(pos, last_pos, vel, radius, color, active,
+                     canvas_center, interpolation_alpha,
+                     texture_scale, motion_blur,
+                     opts: RenderOptions, upsample: bool = True):
+    """Accumulated density canvas(es) for one population.
+
+    Returns ``(alpha, rgb_or_None, audit)``: ``alpha`` is the screen-blend
+    accumulated gaussian density; ``rgb`` only with
+    ``opts.use_particle_color``; ``audit`` = [overflow count, peak bin
+    occupancy]."""
+    payload, audit, counts = _splat_payload(
+        pos, last_pos, vel, radius, color, active, canvas_center,
+        interpolation_alpha, texture_scale, motion_blur, opts)
+    alpha, rgb = splat_kernel.splat(payload, counts, opts,
+                                    use_rgb=opts.use_particle_color)
+    if opts.downsample > 1 and upsample:
+        alpha, rgb = upsample_splat(alpha, rgb, opts)
+    return alpha, rgb, audit
+
+
+@functools.lru_cache(maxsize=16)
+def _resize_matrix(s_out: int, s_in: int, device: torch.device) -> torch.Tensor:
+    """(s_out, s_in) row-interpolation matrix of a 'linear' UPSAMPLE
+    (half-pixel centres, edge clamp), made once on ``device`` by device ops
+    (no copy from the host: a render's first, eager call makes it under the
+    sync check, before the render is captured)."""
+    pos = (torch.arange(s_out, dtype=torch.float64, device=device) + 0.5) \
+        * (s_in / s_out) - 0.5
+    lo = torch.floor(pos)
+    w = (pos - lo).to(torch.float32)
+    lo = lo.to(torch.int64)
+    m = torch.zeros((s_out, s_in), dtype=torch.float32, device=device)
+    m.scatter_add_(1, torch.clamp(lo, 0, s_in - 1)[:, None], (1.0 - w)[:, None])
+    m.scatter_add_(1, torch.clamp(lo + 1, 0, s_in - 1)[:, None], w[:, None])
+    return m
+
+
+def _resize_linear_up(img: torch.Tensor, s_out: int) -> torch.Tensor:
+    """Bilinear upsample of a square (S, S[, C]) image via interpolation
+    matrix products (full float32: TF32 is off)."""
+    s_in = img.shape[0]
+    if s_out == s_in:
+        return img
+    if s_out < s_in:
+        raise ValueError("the matrix path is an upsampler")
+    m = _resize_matrix(s_out, s_in, img.device)
+    if img.dim() == 2:
+        return m @ img @ m.T
+    t = torch.einsum("oi,ijc->ojc", m, img)
+    return torch.einsum("pj,ojc->opc", m, t)
+
+
+# ------------------------------------------------------- post-process passes --
+
+def _shift_bilinear(img, dx, dy, pad: int, padded=None):
+    """Sample ``img`` at (x + dx, y + dy) with bilinear weights, zero-padded.
+
+    ``dx``/``dy`` are host float32 offsets (numpy scalars), so the integer
+    part selects slices and the fractional part rounds as float32 does on
+    the device. ``padded`` lets hot loops pre-pad once."""
+    if padded is None:
+        padded = torch.nn.functional.pad(img, (pad, pad, pad, pad))
+    fx, fy = np.floor(dx), np.floor(dy)
+    ax, ay = np.float32(dx - fx), np.float32(dy - fy)
+    iy, ix = int(fy), int(fx)
+    h, w = img.shape
+    hp, wp = padded.shape
+
+    def tap(sy, sx):
+        y0 = min(max(pad + sy, 0), hp - h)   # dynamic_slice clamps its start
+        x0 = min(max(pad + sx, 0), wp - w)
+        return padded[y0:y0 + h, x0:x0 + w]
+
+    one = np.float32(1.0)
+    return (tap(iy, ix) * float(one - ax) * float(one - ay)
+            + tap(iy, ix + 1) * float(ax) * float(one - ay)
+            + tap(iy + 1, ix) * float(one - ax) * float(ay)
+            + tap(iy + 1, ix + 1) * float(ax) * float(ay))
+
+
+_DIAG = float(np.sqrt(2.0) / 2.0)
+_OUTLINE_DIRECTIONS = [(1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0),
+                       (_DIAG, _DIAG), (-_DIAG, _DIAG),
+                       (_DIAG, -_DIAG), (-_DIAG, -_DIAG)]
+
+
+def outline_pass(alpha, outline_thickness, threshold, opts: RenderOptions,
+                 px_scale: float = 1.0):
+    """Morphological 8-direction dilation + smoothstep edge
+    (simulation_handler_outline.glsl). Returns outline coverage in [0, 1].
+
+    The sample offsets depend on the thickness only, formed in float32 on
+    the host: ``outline_thickness`` is a host float (the config's), or a
+    device scalar read to the host here."""
+    f32 = np.float32
+    thick = f32(float(outline_thickness))
+    steps_f = f32(np.ceil(thick)) + f32(1.0)
+    step_size = thick / (steps_f * f32(px_scale))
+    pad = opts.shift_pad
+    padded = torch.nn.functional.pad(alpha, (pad, pad, pad, pad))
+    max_alpha = torch.zeros_like(alpha)
+    for step in range(1, opts.max_outline_steps + 1):
+        if not f32(step) <= steps_f:
+            continue          # masked to 0, which never raises the max
+        d = min(f32(step) * step_size, f32(opts.shift_pad - 1))
+        for dx, dy in _OUTLINE_DIRECTIONS:
+            sampled = _shift_bilinear(alpha, d * f32(dx), d * f32(dy), pad,
+                                      padded=padded)
+            max_alpha = torch.maximum(max_alpha, sampled)
+    max_alpha = torch.clamp(max_alpha, max=1.0)
+
+    outline_threshold = 0.5 * threshold                      # glsl:44
+    coverage = _smoothstep(outline_threshold, outline_threshold + 0.035,
+                           max_alpha)
+    return torch.where(alpha > 0.0, coverage, 0.0)           # glsl:11 discard
+
+
+_SPEC_LIGHT = np.array([1.0, -1.0, 1.0]) / np.linalg.norm([1.0, -1.0, 1.0])
+_VIEW = np.array([0.0, 0.0, 1.0])
+_HALF = (_SPEC_LIGHT + _VIEW) / np.linalg.norm(_SPEC_LIGHT + _VIEW)
+_SHADOW_LIGHT = np.array([-0.5, 0.75, 0.0]) / np.linalg.norm([-0.5, 0.75, 0.0])
+_SPECULAR_FOCUS = 48.0
+
+
+def lighting_pass(alpha, rgb, cfg_color, highlight_strength, shadow_strength,
+                  threshold, smoothness, use_lighting: bool,
+                  use_particle_color: bool, grad_scale: float = 1.0):
+    """Threshold + Sobel-normal Blinn-Phong pass (simulation_handler_lighting.glsl).
+
+    Returns (rgb, a) as the shader outputs them:
+    ``vec4(center.rgb - shadow + specular, center.a)``."""
+    value = _smoothstep(threshold - smoothness, threshold + smoothness, alpha)
+    if use_particle_color:
+        center_rgb = rgb * cfg_color[:3]
+    else:
+        center_rgb = value[..., None] * cfg_color[:3]
+    center_a = value * cfg_color[3]
+
+    # 3x3 Sobel over the *raw* accumulated alpha (glsl:37-46)
+    z = torch.nn.functional.pad(alpha, (1, 1, 1, 1))
+    tl, tm, tr = z[:-2, :-2], z[:-2, 1:-1], z[:-2, 2:]
+    ml, mr = z[1:-1, :-2], z[1:-1, 2:]
+    bl, bm, br = z[2:, :-2], z[2:, 1:-1], z[2:, 2:]
+    gx = (-tl + tr - 2.0 * ml + 2.0 * mr - bl + br) * grad_scale
+    gy = (-tl - 2.0 * tm - tr + bl + 2.0 * bm + br) * grad_scale
+
+    inv_len = torch.rsqrt(gx * gx + gy * gy + 1.0)
+    nx, ny, nz = -gx * inv_len, -gy * inv_len, inv_len
+
+    out_rgb = center_rgb
+    if use_lighting:
+        ndoth = torch.clamp(nx * float(_HALF[0]) + ny * float(_HALF[1])
+                            + nz * float(_HALF[2]), min=0.0)
+        specular = highlight_strength * torch.pow(ndoth, _SPECULAR_FOCUS)
+        specular = torch.where(highlight_strength > 0.0, specular, 0.0)
+
+        ndotl = (nx * float(_SHADOW_LIGHT[0]) + ny * float(_SHADOW_LIGHT[1])
+                 + nz * float(_SHADOW_LIGHT[2]))
+        shadow = _smoothstep(0.0, 1.0, torch.clamp(ndotl * shadow_strength,
+                                                   0.0, 1.0))
+        shadow = torch.where(shadow_strength > 0.0, shadow, 0.0)
+        out_rgb = center_rgb - shadow[..., None] + specular[..., None]
+
+    return out_rgb, center_a
+
+
+def _src_over(dst_rgb, dst_a, src_rgb_premul, src_a):
+    """Standard alpha blending, premultiplied source."""
+    a = torch.clamp(src_a, 0.0, 1.0)
+    out_rgb = src_rgb_premul + dst_rgb * (1.0 - a[..., None])
+    out_a = a + dst_a * (1.0 - a)
+    return out_rgb, out_a
+
+
+def render_population(alpha, rgb, cfg, thresholding_threshold,
+                      thresholding_smoothness, use_lighting: bool,
+                      opts: RenderOptions, px_scale: float = 1.0,
+                      outline_thickness: Optional[float] = None):
+    """Outline + lighting for one population's canvas; returns straight RGBA
+    (outline under lighting, :2139-2159). ``outline_thickness``: the
+    config's as a host float, else ``cfg.outline_thickness`` is read."""
+    out_rgb = torch.zeros(alpha.shape + (3,), dtype=torch.float32,
+                          device=alpha.device)
+    out_a = torch.zeros_like(alpha)
+
+    thickness = (cfg.outline_thickness if outline_thickness is None
+                 else outline_thickness)
+    coverage = outline_pass(alpha, thickness, thresholding_threshold, opts,
+                            px_scale=px_scale)
+    coverage = torch.where(cfg.outline_thickness > 0.0, coverage, 0.0)
+    o_rgb = cfg.outline_color[:3] * (coverage * cfg.outline_color[3])[..., None]
+    o_a = coverage * cfg.outline_color[3]
+    out_rgb, out_a = _src_over(out_rgb, out_a, o_rgb, o_a)
+
+    l_rgb, l_a = lighting_pass(
+        alpha, rgb, cfg.color, cfg.highlight_strength, cfg.shadow_strength,
+        thresholding_threshold, thresholding_smoothness, use_lighting,
+        opts.use_particle_color, grad_scale=1.0 / px_scale)
+    out_rgb, out_a = _src_over(out_rgb, out_a,
+                               l_rgb * torch.clamp(l_a, 0.0, 1.0)[..., None],
+                               l_a)
+    return torch.cat([out_rgb, out_a[..., None]], dim=-1)
+
+
+def post_population(alpha, rgb, cfg, threshold, smoothness,
+                    use_lighting: bool, opts: RenderOptions,
+                    outline_thickness: Optional[float] = None):
+    """The straight RGBA canvas (``opts.canvas_size`` square) of one
+    population from its splat at the effective resolution: outline and
+    lighting at the resolution ``opts.post_mode`` names (the effective one,
+    upsampled after; the canvas's; twice the canvas's, box-filtered)."""
+    s = opts.canvas_size
+    if opts.post_mode == "coarse":
+        rgba = render_population(alpha, rgb, cfg, threshold, smoothness,
+                                 use_lighting, opts,
+                                 px_scale=float(opts.downsample),
+                                 outline_thickness=outline_thickness)
+        return _resize_linear_up(rgba, s) if opts.downsample > 1 else rgba
+    scale = 1 if opts.post_mode == "full" else 2
+    e = s * scale
+    alpha_hi = alpha if alpha.shape[0] == e else _resize_linear_up(alpha, e)
+    rgb_hi = None
+    if rgb is not None and rgb.dim() == 3:
+        rgb_hi = rgb if rgb.shape[0] == e else _resize_linear_up(rgb, e)
+    rgba = render_population(alpha_hi, rgb_hi, cfg, threshold, smoothness,
+                             use_lighting, opts, px_scale=1.0 / scale,
+                             outline_thickness=outline_thickness)
+    if scale > 1:
+        rgba = rgba.reshape(s, scale, s, scale, 4).mean(dim=(1, 3))
+    return rgba
+
+
+# ------------------------------------------------------------ orchestration --
+
+@torch.no_grad()
+def _render_frame(state, stats, cfg2, interpolation_alpha,
+                  threshold, smoothness, viewport_origin,
+                  opts2: Tuple[RenderOptions, RenderOptions],
+                  use_lighting: bool, vw: int, vh: int, pop_caps=None,
+                  thickness: Optional[Tuple[float, float]] = None):
+    """Full-frame render: both populations splatted, shaded, composited.
+
+    ``interpolation_alpha``, ``threshold``, ``smoothness`` are 0-dim float32
+    tensors and ``viewport_origin`` a (2,) float32 tensor on the state's
+    device. ``thickness``: each population's outline thickness as a host
+    float (:func:`outline_thickness`); without it the outline pass reads
+    ``cfg2``'s from the device. Returns ``(frame (vh, vw, 4), canvases,
+    audits (2, 2))``."""
+    dev = state.device
+    active = state.active_mask()
+    centers = (stats.last_centroid
+               + (stats.centroid - stats.last_centroid) * interpolation_alpha)
+
+    def pop_canvas(i, opts):
+        cap = state.capacity if pop_caps is None else min(pop_caps[i],
+                                                          state.capacity)
+        cfg = population_config(cfg2, i)
+        alpha, rgb, audit = splat_population(
+            state.pos[i, :cap], state.last_pos[i, :cap], state.vel[i, :cap],
+            state.radius[i, :cap], state.color[i, :cap], active[i, :cap],
+            centers[i], interpolation_alpha,
+            cfg.texture_scale, cfg.motion_blur, opts, upsample=False)
+        rgba = post_population(alpha, rgb, cfg, threshold, smoothness,
+                               use_lighting, opts,
+                               None if thickness is None else thickness[i])
+        if opts.downsample > 1:
+            alpha = _resize_linear_up(alpha, opts.canvas_size)
+        return rgba, alpha, audit
+
+    screen_rgb = torch.zeros((vh, vw, 3), dtype=torch.float32, device=dev)
+    screen_a = torch.zeros((vh, vw), dtype=torch.float32, device=dev)
+    canvases = []
+    audits = []
+    for i in (0, 1):  # white first, then yolk (:2163-2171)
+        rgba, raw_alpha, audit = pop_canvas(i, opts2[i])
+        canvases.append(raw_alpha)
+        audits.append(audit)
+        # canvas top-left in viewport pixels (reference :2132-2133); the
+        # content is centred on the INTERPOLATED centroid but pasted at the
+        # END-OF-STEP centroid, exactly like the reference
+        corner = stats.centroid[i] - 0.5 * opts2[i].canvas_size - viewport_origin
+        screen_rgb, screen_a = _paste_src_over_frac(screen_rgb, screen_a,
+                                                    rgba, corner)
+
+    frame = torch.cat([screen_rgb, screen_a[..., None]], dim=-1)
+    return frame, tuple(canvases), torch.stack(audits)
+
+
+def _paste_src_over_frac(dst_rgb, dst_a, src_rgba, corner):
+    """Fractional-position paste: bilinear-shift the canvas by the corner's
+    fractional part, then integer-paste at the corner's floor, which stays
+    on the device."""
+    ci = torch.floor(corner)
+    frac = corner - ci                                       # in [0, 1)
+    fx, fy = frac[0], frac[1]
+    p = torch.nn.functional.pad(src_rgba, (0, 0, 1, 1, 1, 1))
+    s00 = p[1:-1, 1:-1]
+    s01 = p[1:-1, :-2]                                       # x-1
+    s10 = p[:-2, 1:-1]                                       # y-1
+    s11 = p[:-2, :-2]
+    shifted = (s00 * (1 - fx) * (1 - fy) + s01 * fx * (1 - fy)
+               + s10 * (1 - fx) * fy + s11 * fx * fy)
+    x0, y0 = ci.to(torch.int64)
+    return _paste_src_over(dst_rgb, dst_a, shifted, x0, y0)
+
+
+def _paste_src_over(dst_rgb, dst_a, src_rgba, x0, y0):
+    """Alpha-blend a canvas onto the screen at integer offset (x0, y0), 0-dim
+    integer tensors on the device, clipped to the viewport: screen pixel
+    (y, x) takes canvas pixel (y - y0, x - x0), zero off the canvas (the
+    JAX package's ``dynamic_slice`` of a padded canvas, without the pad)."""
+    vh, vw = dst_a.shape
+    s = src_rgba.shape[0]
+    dev = src_rgba.device
+    ry = torch.arange(vh, device=dev) - y0
+    rx = torch.arange(vw, device=dev) - x0
+    inside = (((ry >= 0) & (ry < s))[:, None]
+              & ((rx >= 0) & (rx < s))[None, :])
+    placed = src_rgba.index_select(0, torch.clamp(ry, 0, s - 1)) \
+        .index_select(1, torch.clamp(rx, 0, s - 1))
+    placed = torch.where(inside[..., None], placed, 0.0)
+    src_a = torch.clamp(placed[..., 3], 0.0, 1.0)
+    src_rgb = placed[..., :3]
+    out_rgb = src_rgb * src_a[..., None] + dst_rgb * (1.0 - src_a[..., None])
+    out_a = src_a + dst_a * (1.0 - src_a)
+    return out_rgb, out_a
