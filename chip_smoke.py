@@ -3863,10 +3863,9 @@ def main() -> int:
     from egg_fluid_simulation_tpu_torch.utils.profiling import (
         collision_drop_stats, validate_state)
 
-    t0 = time.perf_counter()
     library.load()
-    log("build", seconds=round(time.perf_counter() - t0, 2),
-        nvcc_seconds=library.last_build_seconds,
+    log("build", seconds=round(library.load_seconds, 2),
+        built=bool(library.last_build_log),
         flags=" ".join(library.NVCC_FLAGS),
         ptxas={n: f"{r['registers']} regs, {r['spill_bytes']} B spilled"
                for n, r in sorted(library.kernel_resources().items())})

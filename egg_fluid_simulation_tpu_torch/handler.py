@@ -14,6 +14,12 @@ On a CUDA device the fixed step of ``update``, ``step_once`` and the
 loop routes of ``run_steps`` is captured once in a CUDA graph and replayed
 (``ops/step_graph.py``), and so is the render of ``draw``
 (``ops/render_graph.py``); on the CPU both run eagerly.
+
+``update``, ``draw`` and ``run_steps`` are spans (``egg.update``,
+``egg.draw``, ``egg.run_steps``; ``utils.profiling.span``), and so are the
+targets' upload and the step inside ``update`` (``egg.update.targets``,
+``egg.update.step``); ``graph_census`` and ``resident_rebins`` read the
+graph caches without a read of the device.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from .ops.step_graph import EAGER, StepGraphs
 from .state import ParticleState, StepStats, WHITE, YOLK, zeros_state, zeros_stats
 from .utils import log
 from .utils.mathx import clamp, is_nan, mix
+from .utils.profiling import span
 
 __all__ = ["SimulationHandler"]
 
@@ -471,6 +478,10 @@ class SimulationHandler:
     def update(self, delta, step_delta=None, n_substeps=None, n_collision_steps=None) -> None:
         """Fixed-timestep driver (reference :168-222): accumulate ``delta``,
         run whole steps at ``step_delta``, death-spiral cap, interpolation alpha."""
+        with span("egg.update"):
+            self._update(delta, step_delta, n_substeps, n_collision_steps)
+
+    def _update(self, delta, step_delta, n_substeps, n_collision_steps) -> None:
         if step_delta is None:
             step_delta = 1 / 60
         if n_substeps is None:
@@ -550,17 +561,20 @@ class SimulationHandler:
         there. A no-op for ``n_steps <= 0``."""
         if n_steps <= 0:
             return
-        self._flush_targets()
-        self._check_caps()
-        dt, relax = self._step_scalars(step_delta)
-        if solver_ops.multi_step_is_loop(self._options):
-            self._advance(int(n_steps), self._device_cfg2(), dt, relax)
-        else:
-            self._state, self._stats, self._wide_state = solver_ops.multi_step(
-                self._state, self._device_cfg2(), dt, relax, self._options,
-                int(n_steps), wide_state=self._wide_or_init(),
-                graphs=self._resident_graphs())
-        self._frames = None
+        with span("egg.run_steps"):
+            self._flush_targets()
+            self._check_caps()
+            dt, relax = self._step_scalars(step_delta)
+            if solver_ops.multi_step_is_loop(self._options):
+                self._advance(int(n_steps), self._device_cfg2(), dt, relax)
+            else:
+                self._state, self._stats, self._wide_state = \
+                    solver_ops.multi_step(
+                        self._state, self._device_cfg2(), dt, relax,
+                        self._options, int(n_steps),
+                        wide_state=self._wide_or_init(),
+                        graphs=self._resident_graphs())
+            self._frames = None
 
     def _graphs(self) -> Optional[StepGraphs]:
         """The handler's captured steps, made at the first step on a CUDA
@@ -603,16 +617,19 @@ class SimulationHandler:
         """``n_steps >= 1`` calls of ``solver.step`` from the handler's state,
         the episode state of the wide gate threaded through: on a CUDA device
         one captured step replayed (``ops/step_graph.py``), on the CPU
-        eagerly."""
+        eagerly; the span ``egg.update.step``."""
         wide = self._wide_or_init()
         graphs = self._graphs()
-        if graphs is not None:
-            self._state, self._stats, self._wide_state = graphs.run(
-                self._state, cfg2, dt, relax, self._options, wide, n_steps)
-            return
-        for _ in range(n_steps):
-            self._state, self._stats, wide = solver_ops.step(
-                self._state, cfg2, dt, relax, self._options, wide_state=wide)
+        with span("egg.update.step"):
+            if graphs is not None:
+                self._state, self._stats, self._wide_state = graphs.run(
+                    self._state, cfg2, dt, relax, self._options, wide,
+                    n_steps)
+                return
+            for _ in range(n_steps):
+                self._state, self._stats, wide = solver_ops.step(
+                    self._state, cfg2, dt, relax, self._options,
+                    wide_state=wide)
         self._wide_state = wide
 
     def _wide_or_init(self):
@@ -638,9 +655,10 @@ class SimulationHandler:
 
     def _flush_targets(self) -> None:
         if self._targets_dirty:
-            self._state = self._state.replace(
-                batch_target=torch.from_numpy(self._host_targets.copy()).to(
-                    self._device))
+            with span("egg.update.targets"):
+                self._state = self._state.replace(
+                    batch_target=torch.from_numpy(
+                        self._host_targets.copy()).to(self._device))
             self._targets_dirty = False
 
     # --------------------------------------------------------------- render --
@@ -653,16 +671,18 @@ class SimulationHandler:
         ``check_overflow`` (default ON) audits the per-bin render budget and
         auto-bumps it until the frame drops zero particles."""
         from .ops import render as render_ops
-        key = (tuple(viewport) if viewport is not None else None,
-               tuple(background) if background is not None else None,
-               self._interpolation_alpha, bool(check_overflow))
-        if self._frames is not None and self._frame_key == key:
-            return self._frames
-        frame = render_ops.draw(self, viewport=viewport, background=background,
-                                check_overflow=check_overflow)
-        self._frames = frame
-        self._frame_key = key
-        return frame
+        with span("egg.draw"):
+            key = (tuple(viewport) if viewport is not None else None,
+                   tuple(background) if background is not None else None,
+                   self._interpolation_alpha, bool(check_overflow))
+            if self._frames is not None and self._frame_key == key:
+                return self._frames
+            frame = render_ops.draw(self, viewport=viewport,
+                                    background=background,
+                                    check_overflow=check_overflow)
+            self._frames = frame
+            self._frame_key = key
+            return frame
 
     def seed_render_budget(self) -> None:
         """Measure peak render-bin occupancy host-side and keep it as the
@@ -824,6 +844,29 @@ class SimulationHandler:
     @property
     def interpolation_alpha(self) -> float:
         return self._interpolation_alpha
+
+    @property
+    def graph_census(self) -> Dict[str, Dict[str, int]]:
+        """The CUDA graph caches by name (``step``, ``render``,
+        ``resident``, ``final``: the resident loops' final step): each
+        cache's ``kept`` graphs and the ``captures`` it has built; 0 and 0
+        for a cache not made (the CPU)."""
+        resident = self._resident
+        caches = {"step": self._step_graphs, "render": self._render_graphs,
+                  "resident": resident,
+                  "final": getattr(resident, "final", None)}
+        return {name: {"kept": len(getattr(c, "_graphs", ())),
+                       "captures": getattr(c, "captures", 0)}
+                for name, c in caches.items()}
+
+    @property
+    def resident_rebins(self) -> Optional[torch.Tensor]:
+        """A copy of the (2,) int32 device counter of the rebins (white,
+        yolk) the replayed resident loops took, not read; None before the
+        first replayed loop, and where the loop runs eagerly (the CPU:
+        ``ops.solver.rebins`` counts those)."""
+        rebins = getattr(self._resident, "rebins", None)
+        return None if rebins is None else rebins.clone()
 
     @property
     def render_audit(self) -> Optional[np.ndarray]:

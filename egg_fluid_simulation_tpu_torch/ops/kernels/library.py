@@ -28,8 +28,10 @@ from typing import Optional
 
 import torch
 
+from ...utils.profiling import span
+
 __all__ = ["load", "build", "open_build", "use", "kernel_resources", "check",
-           "stream_handle", "ptr"]
+           "stream_handle", "ptr", "load_seconds"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -62,7 +64,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-last_build_seconds: Optional[float] = None
+load_seconds = 0.0            # host seconds of load()'s builds and opens
 last_build_log: dict = {}     # source name -> nvcc / ptxas output of its build
 
 
@@ -89,7 +91,6 @@ def build(csrc: Optional[Path] = None, extra_flags=()) -> Path:
     ``csrc`` (default: the package's ``csrc/``) and ``extra_flags`` (added to
     ``NVCC_FLAGS``) let a measurement script build another source tree or a
     ``-D`` variant beside the package's own library."""
-    global last_build_seconds
     csrc = CSRC if csrc is None else Path(csrc)
     flags = [*NVCC_FLAGS, *extra_flags]
     h = hashlib.sha256(" ".join(flags).encode())
@@ -100,7 +101,6 @@ def build(csrc: Optional[Path] = None, extra_flags=()) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs, procs = [], []
@@ -128,7 +128,6 @@ def build(csrc: Optional[Path] = None, extra_flags=()) -> Path:
             raise RuntimeError("nvcc link failed (exit %d):\n%s\n%s"
                                % (link.returncode, link.stdout, link.stderr))
         os.replace(tmp, out)
-    last_build_seconds = time.perf_counter() - t0
     return out
 
 
@@ -171,11 +170,16 @@ def open_build(csrc: Optional[Path] = None, extra_flags=(),
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+    """The loaded kernel library (built on first call). Its build or load is
+    the span ``egg.library.load`` and adds its host seconds to
+    ``load_seconds``."""
+    global _lib, load_seconds
     with _lock:
         if _lib is None:
-            _lib = open_build()
+            t0 = time.perf_counter()
+            with span("egg.library.load"):
+                _lib = open_build()
+            load_seconds += time.perf_counter() - t0
     return _lib
 
 

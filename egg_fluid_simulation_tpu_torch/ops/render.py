@@ -28,7 +28,10 @@ it reads the device or copies from the host: the paste lands at a device
 offset, the bin counts have a fixed size, the outline offsets come from the
 host config, and the frame's scalars are fills. :func:`draw` reads the
 device once for the canvas-bucket stats (:func:`frame_options`) and once for
-the overflow audit; ``host_reads`` counts those reads.
+the overflow audit; ``host_reads`` counts those reads, ``rerenders`` the
+budget's re-renders (:func:`boost_until_clean`) and ``dropped`` the splats
+the audits read on the host found dropped. Each read, render and re-render
+is a span (``utils.profiling.span``: ``egg.draw.*``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 
 from ..config import population_config
 from ..utils.mathx import EPS
+from ..utils.profiling import span
 from .grid import count_pairs
 from .kernels import splat_kernel
 
@@ -50,7 +54,7 @@ __all__ = ["RenderOptions", "CANVAS_BUCKETS", "splat_population",
            "outline_pass", "lighting_pass", "render_population",
            "post_population", "draw", "boost_until_clean", "frame_options",
            "auto_render_options", "pick_canvas_bucket", "outline_thickness",
-           "host_reads"]
+           "host_reads", "rerenders", "dropped"]
 
 # Positions and canvases must never pass through reduced precision.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -60,6 +64,8 @@ torch.backends.cudnn.allow_tf32 = False
 CANVAS_BUCKETS = (256, 512, 1024, 2048, 2560)
 
 host_reads = 0      # device-to-host reads of draw: the stats and the audit
+rerenders = 0       # renders boost_until_clean repeated
+dropped = 0         # splats the audits read on the host found dropped
 
 
 @dataclass(frozen=True)
@@ -631,9 +637,15 @@ def frame_options(handler, stats=None) -> Tuple[RenderOptions, RenderOptions]:
     """Per-population RenderOptions for the handler's CURRENT state (canvas
     buckets from the latest step stats, reference :1944-1954; ``stats`` in
     place of the handler's, as a spatial handler passes its mesh-wide ones).
-    The stats come to the host in one read (``host_reads``)."""
+    The stats come to the host in one read (``host_reads``), inside the
+    span ``egg.draw.read_stats`` with the options built from them."""
+    with span("egg.draw.read_stats"):
+        return _frame_options(handler,
+                              handler.stats if stats is None else stats)
+
+
+def _frame_options(handler, stats):
     global host_reads
-    stats = handler.stats if stats is None else stats
     counts = handler.get_n_particles()
     host = torch.cat([stats.aabb_min.reshape(-1), stats.aabb_max.reshape(-1),
                       stats.max_velocity.reshape(-1)]).cpu().numpy()
@@ -687,9 +699,12 @@ def _frame_scalars(handler, viewport, alpha=None):
 
 
 def _read_audits(audits_t) -> np.ndarray:
-    global host_reads
+    global host_reads, dropped
+    with span("egg.draw.read_audit"):
+        audits = audits_t.cpu().numpy()
     host_reads += 1
-    return audits_t.cpu().numpy()
+    dropped += int(audits[:, 0].sum())
+    return audits
 
 
 def boost_until_clean(handler, opts2, audits_t, render, stats=None):
@@ -700,8 +715,11 @@ def boost_until_clean(handler, opts2, audits_t, render, stats=None):
     budget boost is sized from the measured peak, a warning logged, and
     ``render(opts2)`` (which draws the frame again and returns its audit)
     runs at the handler's new options (:func:`frame_options` with
-    ``stats``), 3 attempts at most. The boost and the hint persist on the
-    handler. Returns the audit of the last frame drawn."""
+    ``stats``), 3 attempts at most, each a span ``egg.draw.rerender`` that
+    holds its reads and its render and counts in ``rerenders``. The boost
+    and the hint persist on the handler. Returns the audit of the last
+    frame drawn."""
+    global rerenders
     audits = _read_audits(audits_t)
     dens = list(handler._render_peak_density)
     for i in range(2):
@@ -716,24 +734,27 @@ def boost_until_clean(handler, opts2, audits_t, render, stats=None):
     # from the MEASURED max bin occupancy and re-render until the frame
     # drops nothing
     for attempt in range(3):
-        if attempt:
-            audits = _read_audits(audits_t)
         if audits[:, 0].sum() == 0:
             break
         from ..utils import log
-        boosts = list(handler._render_k_boost)
-        for i in range(2):
-            if audits[i, 0] > 0:
-                need = min(256, max(8, -(-int(audits[i, 1] * 1.2) // 8) * 8))
-                boosts[i] *= max(1.0, need / opts2[i].tile_capacity)
-        handler._render_k_boost = boosts
-        log.warning("render budget overflow: dropped ", int(audits[0, 0]),
-                    " white / ", int(audits[1, 0]), " yolk particles "
-                    "past tile_capacity (peak bin occupancy ",
-                    (int(audits[0, 1]), int(audits[1, 1])),
-                    "); re-rendering with budget boost ", tuple(boosts))
-        opts2 = frame_options(handler, stats)
-        audits_t = render(opts2)
+        with span("egg.draw.rerender"):
+            rerenders += 1
+            boosts = list(handler._render_k_boost)
+            for i in range(2):
+                if audits[i, 0] > 0:
+                    need = min(256, max(8, -(-int(audits[i, 1] * 1.2)
+                                            // 8) * 8))
+                    boosts[i] *= max(1.0, need / opts2[i].tile_capacity)
+            handler._render_k_boost = boosts
+            log.warning("render budget overflow: dropped ", int(audits[0, 0]),
+                        " white / ", int(audits[1, 0]), " yolk particles "
+                        "past tile_capacity (peak bin occupancy ",
+                        (int(audits[0, 1]), int(audits[1, 1])),
+                        "); re-rendering with budget boost ", tuple(boosts))
+            opts2 = frame_options(handler, stats)
+            audits_t = render(opts2)
+            if attempt < 2:            # the last attempt's audit is not read
+                audits = _read_audits(audits_t)
     return audits_t
 
 

@@ -49,8 +49,9 @@ import torch
 
 from ..config import DeviceConfig
 from ..state import ParticleState, StepStats
+from ..utils.profiling import span
 from . import render as R
-from .step_graph import EAGER, copy_in, sync_errors
+from .step_graph import EAGER, copy_in, kept, sync_errors
 
 __all__ = ["EAGER", "RenderGraph", "RenderGraphs", "render_key",
            "render_handler_frame"]
@@ -208,19 +209,15 @@ class RenderGraphs:
         :meth:`RenderGraph.load` takes them."""
         static = dict(opts2=opts2, use_lighting=use_lighting, vw=vw, vh=vh,
                       pop_caps=pop_caps, thickness=thickness)
-        key = render_key(state, **static)
-        g = self._graphs.get(key)
-        if g is None:
-            g = RenderGraph(static, state, stats, cfg2, scalars,
-                            capture=self.capture)
+        g, made = kept(self._graphs, render_key(state, **static),
+                       lambda: RenderGraph(static, state, stats, cfg2,
+                                           scalars, capture=self.capture),
+                       self.MAX_GRAPHS, "render")
+        if made:
             self.captures += 1
-            self._graphs[key] = g
-            while len(self._graphs) > self.MAX_GRAPHS:
-                self._graphs.popitem(last=False)
             frame, *canvases, audits = g.first     # the build rendered it
             g.first = None                         # the caller's now
             return frame, tuple(canvases), audits
-        self._graphs.move_to_end(key)
         g.load(state, stats, cfg2, scalars)
         g.replay()
         return g.result(clone)
@@ -237,7 +234,15 @@ def render_handler_frame(handler, opts2, viewport, *, state=None, stats=None,
     handler's config and scalars, ``alpha`` (a float or a 0-dim device
     tensor) in place of its interpolation alpha: ``(frame, canvases,
     audits)``. On a CUDA handler a replay of its render graphs, on the CPU
-    (and while its ``_render_graphs`` is ``EAGER``) the eager render."""
+    (and while its ``_render_graphs`` is ``EAGER``) the eager render; either
+    is the span ``egg.draw.render``."""
+    with span("egg.draw.render"):
+        return _render_handler_frame(handler, opts2, viewport, state, stats,
+                                     alpha, clone)
+
+
+def _render_handler_frame(handler, opts2, viewport, state, stats, alpha,
+                          clone):
     state = handler.state if state is None else state
     stats = handler.stats if stats is None else stats
     x, y, w, h = viewport

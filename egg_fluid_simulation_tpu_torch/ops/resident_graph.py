@@ -45,9 +45,10 @@ the eager loop.
 buffers, reading the rebin flag on the host: the plumbing on any device,
 no graph (how it is tested on the CPU).
 
-:class:`LoopGraph` (the capture of a loop's parts, the IF node) and
-:func:`kept` (the cache of the most recently used) are shared with the
-spatial layer's graphs (``parallel/spatial_graph.py``).
+:class:`LoopGraph` (the capture of a loop's parts, the IF node) is shared
+with the spatial layer's graphs (``parallel/spatial_graph.py``); every cache
+builds through :func:`.step_graph.kept`. ``steps`` opens the spans
+``egg.run_steps.load``, ``.replay`` and ``.final``.
 """
 
 from __future__ import annotations
@@ -59,11 +60,11 @@ import torch
 from ..config import DeviceConfig
 from ..state import ParticleState
 from . import solver
-from .step_graph import (StaticInputs, StepGraphs, graph_key, measured,
+from ..utils.profiling import span
+from .step_graph import (StaticInputs, StepGraphs, graph_key, kept, measured,
                          sync_errors)
 
-__all__ = ["LoopGraph", "ResidentGraph", "ResidentGraphs", "resident_key",
-           "kept"]
+__all__ = ["LoopGraph", "ResidentGraph", "ResidentGraphs", "resident_key"]
 
 KINDS = ("steps", "frames")
 
@@ -72,19 +73,6 @@ def resident_key(kind: str, state: ParticleState,
                  options: solver.SolverOptions):
     """What changes the captured work of a resident loop."""
     return (kind, *graph_key(state, options))
-
-
-def kept(cache: OrderedDict, key, make, limit: int):
-    """``(cache[key], False)``, or ``(make(), True)`` stored under ``key``
-    when missing; the ``limit`` most recently used kept."""
-    g = cache.get(key)
-    if g is not None:
-        cache.move_to_end(key)
-        return g, False
-    g = cache[key] = make()
-    while len(cache) > limit:
-        cache.popitem(last=False)
-    return g, True
 
 
 class LoopGraph(StaticInputs):
@@ -239,42 +227,49 @@ class ResidentGraphs:
         self.capture = capture
         self._graphs: "OrderedDict[tuple, ResidentGraph]" = OrderedDict()
         self.captures = 0          # resident loops built
-        self.final = StepGraphs(capture=capture)
+        self.final = StepGraphs(capture=capture, name="final")
         self.rebins = None
 
     def _graph(self, kind, state, cfg2, step_delta, relaxation, options,
                wide_state) -> ResidentGraph:
-        """The key's loop with the call's inputs loaded."""
+        """The key's loop with the call's inputs loaded (the span
+        ``egg.run_steps.load``)."""
         if self.rebins is None:
             self.rebins = torch.zeros((2,), dtype=torch.int32,
                                       device=state.device)
-        g, made = kept(self._graphs, resident_key(kind, state, options),
-                       lambda: ResidentGraph(kind, state, cfg2, step_delta,
-                                             relaxation, options, wide_state,
-                                             self.rebins,
-                                             capture=self.capture),
-                       self.MAX_GRAPHS)
-        if made:
-            self.captures += 1
-        else:
-            g.load(state, cfg2, step_delta, relaxation, wide_state)
+        with span("egg.run_steps.load"):
+            g, made = kept(self._graphs, resident_key(kind, state, options),
+                           lambda: ResidentGraph(kind, state, cfg2,
+                                                 step_delta, relaxation,
+                                                 options, wide_state,
+                                                 self.rebins,
+                                                 capture=self.capture),
+                           self.MAX_GRAPHS, "resident")
+            if made:
+                self.captures += 1
+            else:
+                g.load(state, cfg2, step_delta, relaxation, wide_state)
         return g
 
     def steps(self, state: ParticleState, cfg2: DeviceConfig, step_delta,
               relaxation, options: solver.SolverOptions, n_steps: int,
               wide_state):
         """The resident route of ``multi_step`` (``n_steps`` steps from
-        ``state``): ``(state, stats, wide_state)``."""
+        ``state``): ``(state, stats, wide_state)``. Spans: the loop's
+        ``egg.run_steps.load``, its enter, advances and exit in one
+        ``egg.run_steps.replay``, the final step's ``egg.run_steps.final``."""
         if int(n_steps) > 1:
             g = self._graph("steps", state, cfg2, step_delta, relaxation,
                             options, wide_state)
-            g.enter()
-            for _ in range(int(n_steps) - 1):
-                g.advance()
-            fields, wide_state = g.exit()
+            with span("egg.run_steps.replay"):
+                g.enter()
+                for _ in range(int(n_steps) - 1):
+                    g.advance()
+                fields, wide_state = g.exit()
             state = state.replace(**fields)
-        return self.final.run(state, cfg2, step_delta, relaxation, options,
-                              wide_state)
+        with span("egg.run_steps.final"):
+            return self.final.run(state, cfg2, step_delta, relaxation,
+                                  options, wide_state)
 
     def frames(self, state: ParticleState, cfg2: DeviceConfig, step_delta,
                relaxation, options: solver.SolverOptions, wide_state):

@@ -38,6 +38,12 @@ symbol (``chip_smoke.launches_run``).
 ``StepGraph(..., capture=False)`` replays by running the step eagerly on
 the static buffers: the same copy-in / copy-out plumbing on any device, no
 graph (how the plumbing is tested on the CPU).
+
+Every graph cache builds through :func:`kept`: a build (its eager warm-up
+and its capture) is the span ``egg.graph.capture.<cache>`` and adds its
+host seconds (less the kernel library's load, which the first build may
+hold: ``library.load_seconds``) to ``capture_seconds``, summed over every
+build of every cache in the process; a replay moves neither.
 """
 
 from __future__ import annotations
@@ -51,10 +57,12 @@ import torch
 
 from ..config import DeviceConfig
 from ..state import ParticleState, StepStats
+from ..utils.profiling import span
 from . import solver
+from .kernels import library
 
 __all__ = ["EAGER", "StaticInputs", "StepGraph", "StepGraphs", "graph_key",
-           "copy_in", "sync_errors", "measured"]
+           "copy_in", "sync_errors", "measured", "kept", "capture_seconds"]
 
 # a handler's ``_step_graphs`` set to this runs its fixed steps eagerly on
 # any device (how a measurement times the eager step beside the replayed one)
@@ -63,6 +71,8 @@ EAGER = "eager"
 # state fields the step writes, carried from one replay to the next
 CARRIED = ("pos", "prev", "vel", "inv_mass", "radius", "last_pos")
 _STATS = tuple(f.name for f in dataclasses.fields(StepStats))
+
+capture_seconds = 0.0   # host seconds of every graph build, every cache
 
 
 def graph_key(state: ParticleState, options: solver.SolverOptions):
@@ -151,6 +161,28 @@ def measured(owner, dev):
     yield
     owner.capture_seconds = time.perf_counter() - t0
     owner.pool_bytes = torch.cuda.memory_reserved(dev) - before
+
+
+def kept(cache: OrderedDict, key, make, limit: int, name: str):
+    """``(cache[key], False)``, or ``(make(), True)`` stored under ``key``
+    when missing; the ``limit`` most recently used kept. A build is the
+    span ``egg.graph.capture.<name>`` and adds its host seconds, less a
+    load of the kernel library inside it, to ``capture_seconds``."""
+    global capture_seconds
+    g = cache.get(key)
+    if g is not None:
+        cache.move_to_end(key)
+        return g, False
+    t0, lib0 = time.perf_counter(), library.load_seconds
+    with span("egg.graph.capture." + name):
+        g = cache[key] = make()
+    # the kernel library's first load falls inside the first build; it
+    # counts in library.load_seconds, not here
+    capture_seconds += time.perf_counter() - t0 - (library.load_seconds
+                                                   - lib0)
+    while len(cache) > limit:
+        cache.popitem(last=False)
+    return g, True
 
 
 class StaticInputs:
@@ -288,12 +320,14 @@ class StepGraph(StaticInputs):
 
 class StepGraphs:
     """A handler's captured steps, one per :func:`graph_key`, the
-    ``MAX_GRAPHS`` most recently used kept."""
+    ``MAX_GRAPHS`` most recently used kept; ``name`` names the cache in its
+    builds' spans (``step``, or ``final`` for a resident loop's final
+    step)."""
 
     MAX_GRAPHS = 2      # a caller alternating two options keeps both
 
-    def __init__(self, *, capture: bool = True):
-        self.capture = capture
+    def __init__(self, *, capture: bool = True, name: str = "step"):
+        self.capture, self.name = capture, name
         self._graphs: "OrderedDict[tuple, StepGraph]" = OrderedDict()
         self.captures = 0          # graphs built (each one capture)
 
@@ -303,18 +337,15 @@ class StepGraphs:
         """``n_steps >= 1`` fixed steps from ``state``: ``(state, stats,
         wide_state)`` as ``n_steps`` calls of :func:`.solver.step` give
         them."""
-        key = graph_key(state, options)
-        g = self._graphs.get(key)
-        if g is None:
-            g = StepGraph(state, cfg2, step_delta, relaxation, options,
-                          wide_state, capture=self.capture)
+        g, made = kept(self._graphs, graph_key(state, options),
+                       lambda: StepGraph(state, cfg2, step_delta, relaxation,
+                                         options, wide_state,
+                                         capture=self.capture),
+                       self.MAX_GRAPHS, self.name)
+        if made:
             self.captures += 1
-            self._graphs[key] = g
-            while len(self._graphs) > self.MAX_GRAPHS:
-                self._graphs.popitem(last=False)
             n_steps -= 1               # the build ran the first step
         else:
-            self._graphs.move_to_end(key)
             g.load(state, cfg2, step_delta, relaxation, wide_state)
         g.replay(n_steps)
         return g.result(state)

@@ -45,9 +45,8 @@ from collections import OrderedDict
 import torch
 
 from ..config import DeviceConfig
-from ..ops.resident_graph import kept
 from ..ops.solver import SolverOptions
-from ..ops.step_graph import StepGraph, measured
+from ..ops.step_graph import StepGraph, kept, measured
 from ..state import ParticleState
 from .mesh import CAPTURE_ERROR_MODE, Mesh
 from .sharding import shard_body
@@ -129,7 +128,7 @@ class ShardedGraphs:
                                             step_delta, relaxation,
                                             self.options,
                                             capture=self.capture),
-                       self.MAX_GRAPHS)
+                       self.MAX_GRAPHS, "sharded")
         if made:
             self.captures += 1         # the build ran the call's step
         else:

@@ -81,8 +81,8 @@ import torch
 from ..config import DeviceConfig
 from ..ops import solver as solver_ops
 from ..ops.render_graph import RenderGraph
-from ..ops.resident_graph import LoopGraph, kept
-from ..ops.step_graph import measured, sync_errors
+from ..ops.resident_graph import LoopGraph
+from ..ops.step_graph import kept, measured, sync_errors
 from ..state import ParticleState, StepStats
 from . import spatial as S
 from .mesh import CAPTURE_ERROR_MODE, Mesh
@@ -337,7 +337,7 @@ class SpatialGraphs:
                                  state, cfg2, step_delta, relaxation,
                                  wide_state, self.rebins,
                                  capture=self.capture),
-            self.MAX_GRAPHS)
+            self.MAX_GRAPHS, "spatial")
         if made:
             self.captures += 1
         else:
@@ -396,7 +396,7 @@ class SpatialGraphs:
                str(state.device))
         g, made = kept(self._draws, key, lambda: SpatialDrawGraph(
             self.mesh, static, state, stats, cfg2, scalars,
-            capture=self.capture), self.MAX_GRAPHS)
+            capture=self.capture), self.MAX_GRAPHS, "spatial_draw")
         if made:
             self.captures += 1
             out = g.first                    # the build rendered it

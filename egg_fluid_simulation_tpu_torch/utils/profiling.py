@@ -1,7 +1,9 @@
 """Profiling and state audits.
 
-``StepTimer`` (rolling phase timings) and ``trace`` (a ``torch.profiler``
-trace), what ran on the card (``kernel_launches``: a trace's launches of
+``StepTimer`` (rolling phase timings), ``span`` (the port's named ranges,
+recorded only while a profiler runs), ``trace`` (a ``torch.profiler``
+trace, the spans in it) and ``counters`` (the port's counters in one
+read), what ran on the card (``kernel_launches``: a trace's launches of
 named kernels; ``graph_node_types``: a captured CUDA graph's nodes), then
 the collision-budget drop rate and the NaN guard: host-side numpy over a
 handler's current state, as in ``egg_fluid_simulation_tpu/utils/profiling.py``.
@@ -23,8 +25,8 @@ import torch
 
 from . import log
 
-__all__ = ["StepTimer", "trace", "kernel_launches", "graph_node_types",
-           "nvidia_smi",
+__all__ = ["StepTimer", "span", "trace", "counters", "kernel_launches",
+           "graph_node_types", "nvidia_smi",
            "validate_state", "collision_drop_stats"]
 
 
@@ -101,11 +103,26 @@ class StepTimer:
         return statistics.fmean(xs) / (frame_s * 1000) * 100
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the port's host work (``egg.<...>``): a
+    ``torch.profiler.record_function`` while a profiler records, so it lands
+    in the trace on the clock of the device activity and nests in the spans
+    open around it; otherwise one shared no-op context, which costs a check
+    of the profiler's state and makes, reads and allocates nothing."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def trace(dir_path: str):
     """Wrap a block in a ``torch.profiler`` trace (CPU activity, and CUDA
     activity where a card is present), written to ``dir_path/trace.json``
-    in the Chrome trace format."""
+    in the Chrome trace format; the port's spans (:func:`span`) are its
+    ``user_annotation`` events named ``egg.*``."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -113,6 +130,31 @@ def trace(dir_path: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(dir_path, "trace.json"))
+
+
+def counters(handler=None) -> dict:
+    """The port's counters, read from the host without a read of the
+    device: the draw's device reads (``host_reads``), re-renders and splats
+    found dropped (``rerenders``, ``dropped``; ``ops/render.py``), the eager
+    resident loops' rebin-flag reads and rebins (``host_syncs``,
+    ``rebins``; ``ops/solver.py``), the host seconds of every graph build
+    and of the kernel library's loads (``capture_seconds``,
+    ``load_seconds``). With ``handler``: its graphs built by cache
+    (``captures``, :attr:`~..handler.SimulationHandler.graph_census`) and
+    the replayed resident loops' rebin counter (``resident_rebins``, a
+    device tensor, not read; None before the first replayed loop)."""
+    from ..ops import render, solver, step_graph
+    from ..ops.kernels import library
+    out = {"host_reads": render.host_reads, "rerenders": render.rerenders,
+           "dropped": render.dropped, "host_syncs": solver.host_syncs,
+           "rebins": list(solver.rebins),
+           "capture_seconds": step_graph.capture_seconds,
+           "load_seconds": library.load_seconds}
+    if handler is not None:
+        out["captures"] = {k: v["captures"]
+                           for k, v in handler.graph_census.items()}
+        out["resident_rebins"] = handler.resident_rebins
+    return out
 
 
 def kernel_launches(prof, symbols: Dict[str, str]) -> Dict[str, int]:
