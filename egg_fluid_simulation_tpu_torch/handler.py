@@ -229,6 +229,8 @@ class SimulationHandler:
         self._render_k_boost = [1.0, 1.0]       # per-pop render-budget multiplier
         self._render_peak_density = [None, None]  # measured peak bin density
         self._render_audit: Optional[torch.Tensor] = None
+        self._frame_stats: Optional[np.ndarray] = None  # the stats the last
+        # frame_options read to the host
         self._canvases: Optional[Tuple[torch.Tensor, ...]] = None  # raw
         # density canvases of the last draw
         self._cfg2_cache: Optional[DeviceConfig] = None

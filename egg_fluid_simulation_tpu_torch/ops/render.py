@@ -29,9 +29,11 @@ offset, the bin counts have a fixed size, the outline offsets come from the
 host config, and the frame's scalars are fills. :func:`draw` reads the
 device once for the canvas-bucket stats (:func:`frame_options`) and once for
 the overflow audit; ``host_reads`` counts those reads, ``rerenders`` the
-budget's re-renders (:func:`boost_until_clean`) and ``dropped`` the splats
-the audits read on the host found dropped. Each read, render and re-render
-is a span (``utils.profiling.span``: ``egg.draw.*``).
+budget's re-renders (:func:`boost_until_clean`), ``rerenders_skipped`` the
+re-renders it skipped because their options equal those just drawn, and
+``dropped`` the splats the audits read on the host found dropped. Each
+read, render and re-render is a span (``utils.profiling.span``:
+``egg.draw.*``).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ __all__ = ["RenderOptions", "CANVAS_BUCKETS", "splat_population",
            "outline_pass", "lighting_pass", "render_population",
            "post_population", "draw", "boost_until_clean", "frame_options",
            "auto_render_options", "pick_canvas_bucket", "outline_thickness",
-           "host_reads", "rerenders", "dropped"]
+           "host_reads", "rerenders", "rerenders_skipped", "dropped"]
 
 # Positions and canvases must never pass through reduced precision.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -65,6 +67,7 @@ CANVAS_BUCKETS = (256, 512, 1024, 2048, 2560)
 
 host_reads = 0      # device-to-host reads of draw: the stats and the audit
 rerenders = 0       # renders boost_until_clean repeated
+rerenders_skipped = 0   # re-renders it skipped: options equal to those drawn
 dropped = 0         # splats the audits read on the host found dropped
 
 
@@ -638,18 +641,25 @@ def frame_options(handler, stats=None) -> Tuple[RenderOptions, RenderOptions]:
     buckets from the latest step stats, reference :1944-1954; ``stats`` in
     place of the handler's, as a spatial handler passes its mesh-wide ones).
     The stats come to the host in one read (``host_reads``), inside the
-    span ``egg.draw.read_stats`` with the options built from them."""
-    with span("egg.draw.read_stats"):
-        return _frame_options(handler,
-                              handler.stats if stats is None else stats)
-
-
-def _frame_options(handler, stats):
+    span ``egg.draw.read_stats`` with the options built from them. The host
+    copy stays on the handler (``_frame_stats``), for
+    :func:`boost_until_clean` to form the options of a re-render without a
+    read."""
     global host_reads
+    if stats is None:
+        stats = handler.stats
+    with span("egg.draw.read_stats"):
+        handler._frame_stats = torch.cat([
+            stats.aabb_min.reshape(-1), stats.aabb_max.reshape(-1),
+            stats.max_velocity.reshape(-1)]).cpu().numpy()
+        host_reads += 1
+        return _frame_options(handler, handler._frame_stats)
+
+
+def _frame_options(handler, host):
+    """The options of :func:`frame_options` from its host copy of the
+    stats, at the handler's current budget boost and peak-density hint."""
     counts = handler.get_n_particles()
-    host = torch.cat([stats.aabb_min.reshape(-1), stats.aabb_max.reshape(-1),
-                      stats.max_velocity.reshape(-1)]).cpu().numpy()
-    host_reads += 1
     aabb_min_all = host[0:4].reshape(2, 2)
     aabb_max_all = host[4:8].reshape(2, 2)
     max_vel = host[8:10]
@@ -712,14 +722,23 @@ def boost_until_clean(handler, opts2, audits_t, render, stats=None):
     (pop, [drops, peak bin occupancy]) on the device), read once a fresh
     frame (``host_reads``): the handler's peak-density hint is raised (never
     lowered) to the measured peak; while a population dropped splats, its
-    budget boost is sized from the measured peak, a warning logged, and
+    budget boost is sized from the measured peak and a warning logged, 3
+    attempts at most, as the JAX package's draw does.
+
+    An attempt re-renders only if the options it would draw at (the
+    handler's new boost and hint over the stats :func:`frame_options` last
+    read, kept on the handler) differ from those just drawn: then
     ``render(opts2)`` (which draws the frame again and returns its audit)
     runs at the handler's new options (:func:`frame_options` with
-    ``stats``), 3 attempts at most, each a span ``egg.draw.rerender`` that
-    holds its reads and its render and counts in ``rerenders``. The boost
-    and the hint persist on the handler. Returns the audit of the last
-    frame drawn."""
-    global rerenders
+    ``stats``), a span ``egg.draw.rerender`` that holds its reads and its
+    render, counted in ``rerenders``. Equal options would replay the same
+    render of the same inputs, so the attempt draws nothing and reads
+    nothing (``rerenders_skipped``): the frame, the canvases and the audit
+    stay those already drawn, and the next attempt's boost is sized from
+    the same audit numbers that the repeated render would have read. The
+    boost and the hint persist on the handler. Returns the audit of the
+    last frame drawn."""
+    global rerenders, rerenders_skipped
     audits = _read_audits(audits_t)
     dens = list(handler._render_peak_density)
     for i in range(2):
@@ -737,20 +756,22 @@ def boost_until_clean(handler, opts2, audits_t, render, stats=None):
         if audits[:, 0].sum() == 0:
             break
         from ..utils import log
+        boosts = list(handler._render_k_boost)
+        for i in range(2):
+            if audits[i, 0] > 0:
+                need = min(256, max(8, -(-int(audits[i, 1] * 1.2) // 8) * 8))
+                boosts[i] *= max(1.0, need / opts2[i].tile_capacity)
+        handler._render_k_boost = boosts
+        log.warning("render budget overflow: dropped ", int(audits[0, 0]),
+                    " white / ", int(audits[1, 0]), " yolk particles "
+                    "past tile_capacity (peak bin occupancy ",
+                    (int(audits[0, 1]), int(audits[1, 1])),
+                    "); re-rendering with budget boost ", tuple(boosts))
+        if _frame_options(handler, handler._frame_stats) == tuple(opts2):
+            rerenders_skipped += 1
+            continue
         with span("egg.draw.rerender"):
             rerenders += 1
-            boosts = list(handler._render_k_boost)
-            for i in range(2):
-                if audits[i, 0] > 0:
-                    need = min(256, max(8, -(-int(audits[i, 1] * 1.2)
-                                            // 8) * 8))
-                    boosts[i] *= max(1.0, need / opts2[i].tile_capacity)
-            handler._render_k_boost = boosts
-            log.warning("render budget overflow: dropped ", int(audits[0, 0]),
-                        " white / ", int(audits[1, 0]), " yolk particles "
-                        "past tile_capacity (peak bin occupancy ",
-                        (int(audits[0, 1]), int(audits[1, 1])),
-                        "); re-rendering with budget boost ", tuple(boosts))
             opts2 = frame_options(handler, stats)
             audits_t = render(opts2)
             if attempt < 2:            # the last attempt's audit is not read
@@ -765,11 +786,14 @@ def draw(handler, viewport=None, background=None, check_overflow=True):
     (r, g, b, a) tuple composited under everything. ``check_overflow``
     (default ON — the reference drops nothing inside its canvas, :2054-2064)
     reads the per-bin render-budget counters once per fresh frame, warns,
-    and re-renders with a boosted budget until the frame drops nothing; the
-    boost persists on the handler. The render is one replay of the
-    handler's render graph on a CUDA device (``ops/render_graph.py``);
-    the device is read for the stats and, with ``check_overflow``, for the
-    audit of each rendered frame (``host_reads``).
+    and re-renders with a boosted budget until the frame drops nothing, 3
+    times at most (:func:`boost_until_clean`); the boost persists on the
+    handler. A re-render whose options equal those just drawn (a budget at
+    its cap of 256) is skipped: it would draw the same frame and drop the
+    same splats. The render is one replay of the handler's render graph on
+    a CUDA device (``ops/render_graph.py``); the device is read for the
+    stats and, with ``check_overflow``, for the audit of each rendered
+    frame (``host_reads``).
     """
     from .render_graph import render_handler_frame   # it imports this module
     if viewport is None:

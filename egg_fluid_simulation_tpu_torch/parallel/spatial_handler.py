@@ -394,8 +394,11 @@ class SpatialHandler:
         combined over the mesh, is read once a frame; splats dropped past a
         bin's budget raise the inner handler's boost and the frame is drawn
         again (a new draw key), the boost and the audit
-        (``_render_audit``) kept on the inner handler. Per-particle colour
-        is refused (``ValueError``). The stats are read once a frame."""
+        (``_render_audit``) kept on the inner handler. A re-render whose
+        options equal those just drawn (a budget at its cap) is skipped:
+        the same draw key would draw the same frame and drop the same
+        splats. Per-particle colour is refused (``ValueError``). The stats
+        are read once a frame."""
         if viewport is None:
             viewport = (0.0, 0.0, 800, 600)
         self._ensure_spatial()

@@ -134,8 +134,9 @@ def trace(dir_path: str):
 
 def counters(handler=None) -> dict:
     """The port's counters, read from the host without a read of the
-    device: the draw's device reads (``host_reads``), re-renders and splats
-    found dropped (``rerenders``, ``dropped``; ``ops/render.py``), the eager
+    device: the draw's device reads (``host_reads``), re-renders, re-renders
+    skipped at unchanged options and splats found dropped (``rerenders``,
+    ``rerenders_skipped``, ``dropped``; ``ops/render.py``), the eager
     resident loops' rebin-flag reads and rebins (``host_syncs``,
     ``rebins``; ``ops/solver.py``), the host seconds of every graph build
     and of the kernel library's loads (``capture_seconds``,
@@ -146,6 +147,7 @@ def counters(handler=None) -> dict:
     from ..ops import render, solver, step_graph
     from ..ops.kernels import library
     out = {"host_reads": render.host_reads, "rerenders": render.rerenders,
+           "rerenders_skipped": render.rerenders_skipped,
            "dropped": render.dropped, "host_syncs": solver.host_syncs,
            "rebins": list(solver.rebins),
            "capture_seconds": step_graph.capture_seconds,

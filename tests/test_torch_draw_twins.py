@@ -5,6 +5,10 @@ scenes of the JAX package's render suites:
   density-sized render budget; both handlers auto-bump ``_render_k_boost``
   to the same multipliers and the same peak-density hint, and a render at
   the boosted options drops nothing; the uniform scene needs no boost;
+  a heap whose peak bin stays past the budget's cap of 256: the JAX draw
+  renders four times, the port's skips each re-render whose options equal
+  those just drawn (two reads when nothing changes), with the same boosts,
+  the same hint and the frame of a render at the options drawn;
 - ``tests/test_interpolation.py``: a draw at a fractional
   ``interpolation_alpha`` (the quads at ``mix(last_pos, pos, alpha)``, the
   canvases at the interpolated centroid);
@@ -173,6 +177,77 @@ def test_uniform_scene_needs_no_boost_as_jax(route):
     assert ht._render_k_boost == hj._render_k_boost == [1.0, 1.0]
     assert int(ht.render_audit[:, 0].sum()) == 0
     _assert_frames_close(ft, fj, ht, hj)
+
+
+# the clump sits half a bin off the canvas centre, so one bin holds most of
+# it (a peak of 316 splats); the far batch, off the canvas, widens the AABB,
+# so the first draw's density-sized budget is small
+HEAP = [(128.0, 128.0, 20.0, 8.0, None, None, 400, 20),
+        (784.0, 784.0, 8.0, 4.0, None, None, 10, 3)]
+HEAP_KW = dict(capacity=1024, max_batches=8, canvas_size=256)
+
+
+@pytest.fixture(scope="module")
+def heap():
+    """The heap, stepped once by the JAX handler, and its two draws: the
+    frame, the boosts, the hint and the renders each draw ran."""
+    hj, _ = _pair(BASE_OVERFLOW, HEAP, **HEAP_KW)
+    hj.step_once()
+    renders = []
+    real = jrender._render_frame
+
+    def counted(*a, **k):
+        renders.append(1)
+        return real(*a, **k)
+
+    draws = []
+    jrender._render_frame = counted
+    try:
+        for _ in range(2):
+            hj._frames = None
+            del renders[:]
+            frame = np.asarray(hj.draw(viewport=VIEW, check_overflow=True))
+            draws.append(dict(frame=frame, renders=len(renders),
+                              boost=list(hj._render_k_boost),
+                              peak=list(hj._render_peak_density)))
+    finally:
+        jrender._render_frame = real
+    return hj, draws
+
+
+@pytest.mark.parametrize("route", ["eager", "graph"])
+@pytest.mark.parametrize("draw,rerenders", [(0, 1), (1, 0)],
+                         ids=["raised", "capped"])
+def test_capped_heap_skips_rerenders_as_jax(heap, route, draw, rerenders):
+    """``raised``: the first draw's re-render lifts the budget to its cap
+    and the frame still drops splats; ``capped``: the next draw starts at
+    the cap. The JAX draw renders four times either way."""
+    hj, draws = heap
+    want = draws[draw]
+    assert want["renders"] == 4
+    _, ht = _pair(BASE_OVERFLOW, HEAP, **HEAP_KW)
+    _take_jax_state(hj, ht, route)
+    for _ in range(draw):
+        trender.draw(ht, viewport=VIEW)
+    trender.host_reads = trender.rerenders = 0
+    trender.rerenders_skipped = 0
+    frame = trender.draw(ht, viewport=VIEW)
+    assert trender.rerenders == rerenders
+    assert trender.rerenders_skipped == 3 - rerenders
+    assert trender.host_reads == 2 + 2 * rerenders
+    assert ht._render_k_boost == want["boost"]
+    assert ht._render_peak_density == want["peak"]
+    opts2 = trender.frame_options(ht)
+    assert opts2[0].tile_capacity == 256
+    assert int(ht.render_audit[0, 0]) > 0      # still over the cap
+    np.testing.assert_allclose(frame.numpy(), want["frame"], rtol=0,
+                               atol=FRAME_TOL)
+    # what the skipped re-renders would have drawn
+    again, canvases, audit = RG.render_handler_frame(ht, opts2, VIEW)
+    assert torch.equal(again, frame)
+    for got, kept in zip(canvases, ht._canvases):
+        assert torch.equal(got, kept)
+    assert torch.equal(audit, ht._render_audit)
 
 
 # -------------------------------------------- tests/test_interpolation.py --

@@ -12,7 +12,11 @@ package's on purpose (both departures repair faults the JAX package keeps):
   ranks' canvases through ``1 - exp(sum log(1 - a))``, which rounds
   otherwise than the dense splat's product even on one rank. The boosts
   and the audits are equal. The draw run through the graphs' plumbing
-  (``SpatialGraphs(capture=False)``) equals the eager one bit for bit.
+  (``SpatialGraphs(capture=False)``) equals the eager one bit for bit. On a
+  heap whose peak bin stays past the budget's cap of 256 the spatial draw
+  re-renders once and skips the attempts whose options no longer change,
+  the next draw skips all three, with the JAX handler's boost and an
+  unchanged frame.
 - **In transit means outside the rank's window.** A particle over its
   cell's budget integrates without collision, but it is in the window, so
   it is no longer counted in transit: on one rank, with cells over K, the
@@ -25,8 +29,8 @@ package's on purpose (both departures repair faults the JAX package keeps):
 - Per-particle colour is refused at the spatial draw.
 
 Scenes: ``torch_ranks.CLUMP`` (300 white, 40 yolk particles packed into
-cells of K = 4 on a G = 32 grid, and a small batch away from them) and
-the spread scene of
+cells of K = 4 on a G = 32 grid, and a small batch away from them), the
+same clump of 900 white particles (``HEAP``) and the spread scene of
 ``tests/test_torch_spatial.py``.
 """
 
@@ -58,6 +62,8 @@ SPREAD = [(60.0, 50.0, 40.0, 12.0, None, None, 40, 10),
           (150.0, 90.0, 40.0, 12.0, None, None, 40, 10)]
 SPREAD_VIEW = (0.0, 0.0, 256, 192)
 N_CLUMP = 353        # the clump's particles, both populations
+# the clump with 900 white particles: a peak bin past the budget's cap
+HEAP = ((128.0, 128.0, 12.0, 4.0, None, None, 900, 40),) + torch_ranks.CLUMP[1:]
 # resident steps that never rebin: the drift count cannot pass every
 # live particle, so the enter's binning of the call's input is the last
 NO_REBIN = 1.0
@@ -196,6 +202,47 @@ def test_spatial_draw_graph_plumbing_matches_eager(clump_draws):
     np.testing.assert_array_equal(graphs[3], eager[3])
     assert graphs[4] == eager[4] == 4
     assert graphs[5]._spatial.captures == 2   # the boost is a new draw key
+
+
+@pytest.fixture(scope="module")
+def heap_jax():
+    """The heap drawn by the JAX handler (four renders): the frame, the
+    boost and the hint."""
+    from egg_fluid_simulation_tpu.ops.pallas import sweep_kernel as jsweep
+    saved = jsweep.FORCE_INTERPRET
+    jsweep.FORCE_INTERPRET = False
+    try:
+        hj = _jax(HEAP)
+        frame = np.asarray(hj.draw(viewport=VIEW))
+    finally:
+        jsweep.FORCE_INTERPRET = saved
+    return hj, frame
+
+
+@pytest.mark.parametrize("route", ["eager", "graphs"])
+def test_spatial_draw_skips_rerenders_on_a_capped_heap(heap_jax, route):
+    hj, frame_j = heap_jax
+    hs = T.SpatialHandler.from_handler(_take_jax_state(hj, _port(HEAP)))
+    if route == "graphs":
+        hs._spatial = SpatialGraphs(hs.mesh, hs.layout, hs._options,
+                                    capture=False)
+    frames = []
+    for rerenders in (1, 0):
+        trender.host_reads = trender.rerenders = 0
+        trender.rerenders_skipped = 0
+        frames.append(hs.draw(viewport=VIEW).numpy())
+        assert trender.rerenders == rerenders
+        assert trender.rerenders_skipped == 3 - rerenders
+        assert trender.host_reads == 2 + 2 * rerenders
+        assert hs._inner._render_k_boost == hj._render_k_boost
+        assert hs._inner._render_peak_density == hj._render_peak_density
+        assert hs._frame_options()[0].tile_capacity == 256
+        assert int(hs._inner._render_audit[0, 0]) > 0   # over the cap
+    np.testing.assert_array_equal(frames[1], frames[0])
+    np.testing.assert_allclose(frames[0], frame_j, rtol=FRAME_RTOL,
+                               atol=FRAME_ATOL)
+    if route == "graphs":
+        assert hs._spatial.captures == 2      # K 256 once, then replays
 
 
 def test_post_mode_reaches_the_spatial_draw():

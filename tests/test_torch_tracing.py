@@ -8,9 +8,11 @@
   graphs' plumbing) are in the trace, each inside the span the table of
   ``PERF.md`` gives it, graph builds and the library's load included;
 - the draw's counters on the overflowing cluster of
-  ``tests/test_torch_render_graph.py``: ``rerenders`` and ``dropped`` count,
-  and ``host_reads`` reads 2 + 2 r (less 1 at r = 3); a clean scene
-  re-renders nothing and reads twice;
+  ``tests/test_torch_render_graph.py``: ``rerenders``, ``rerenders_skipped``
+  and ``dropped`` count, and ``host_reads`` reads 2 + 2 r; the cluster that
+  stays over the budget's cap re-renders once, then skips the two attempts
+  whose options no longer change; a clean scene re-renders nothing and
+  reads twice;
 - ``step_graph.capture_seconds`` and each cache's ``captures`` rise on a
   graph build and not on a replay (``capture=False``: the plumbing, no
   graph); ``graph_census``, ``resident_rebins`` and ``counters``;
@@ -195,24 +197,34 @@ def test_an_eager_draw_and_its_rerenders_under_a_trace(tmp_path):
 
 # ----------------------------------------------------------- counters ----
 
-@pytest.mark.parametrize("white,rerenders", [(300, 1), (400, 3)])
-def test_overflow_counts_rerenders_and_drops(white, rerenders):
+@pytest.mark.parametrize("white,rerenders,skipped", [(300, 1, 0),
+                                                     (400, 1, 2)],
+                         ids=["300-1", "400-1"])
+def test_overflow_counts_rerenders_and_drops(white, rerenders, skipped):
+    """300: one re-render cleans the frame. 400: one re-render raises the
+    budget to its cap of 256 and the frame still drops splats; the other
+    two attempts would draw at the same options, so they are skipped."""
     h = _clustered(white)
-    R.host_reads = R.rerenders = R.dropped = 0
+    R.host_reads = R.rerenders = R.rerenders_skipped = R.dropped = 0
     h.draw(viewport=(0, 0, 256, 256), check_overflow=True)
     assert R.rerenders == rerenders
-    assert R.host_reads == 2 + 2 * rerenders - (rerenders == 3)
+    assert R.rerenders_skipped == skipped
+    assert R.host_reads == 2 + 2 * rerenders
     assert R.dropped > 0
-    if rerenders < 3:                         # the boost cleaned the frame
-        assert int(h._render_audit[:, 0].sum()) == 0
+    dirty = int(h._render_audit[:, 0].sum()) > 0
+    assert dirty == (skipped > 0)
+    if dirty:                                 # three attempts in all
+        assert R.rerenders + R.rerenders_skipped == 3
+        assert [o.tile_capacity for o in R.frame_options(h)][0] == 256
 
 
 def test_a_clean_scene_rerenders_nothing():
     h = _spawned(False)
     h.update(1 / 60)
-    R.host_reads = R.rerenders = R.dropped = 0
+    R.host_reads = R.rerenders = R.rerenders_skipped = R.dropped = 0
     h.draw(viewport=VIEW)
-    assert (R.host_reads, R.rerenders, R.dropped) == (2, 0, 0)
+    assert (R.host_reads, R.rerenders, R.rerenders_skipped,
+            R.dropped) == (2, 0, 0, 0)
 
 
 def test_captures_and_capture_seconds_rise_on_a_build_only():
@@ -264,8 +276,8 @@ def test_counters_read_the_resident_rebins_as_a_copy():
     assert rebins.data_ptr() != h._resident.rebins.data_ptr()
     assert got["captures"] == {k: v["captures"]
                                for k, v in h.graph_census.items()}
-    for key in ("host_reads", "rerenders", "dropped", "host_syncs", "rebins",
-                "capture_seconds", "load_seconds"):
+    for key in ("host_reads", "rerenders", "rerenders_skipped", "dropped",
+                "host_syncs", "rebins", "capture_seconds", "load_seconds"):
         assert key in got
     assert "captures" not in profiling.counters()
 
