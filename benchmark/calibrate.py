@@ -1,6 +1,6 @@
 """The readings a cell's limits are set from, on the card:
 
-    python benchmark/calibrate.py --workload <name> --seeds 1,2,3 [--seconds 3] [--control 3] [--unchanged 1]
+    python benchmark/calibrate.py --workload <name> --seeds 1,2,3 [--seconds 3] [--control 3] [--unchanged 1] [--samples 40]
     python benchmark/calibrate.py --workload <name> --seeds 1 --idle 10
 
 For each seed, in one process: the cell's set-up and a short window at its
@@ -9,7 +9,10 @@ reference and, in turn, the program, the witness (a float32 program that
 rounds otherwise: with the program, the lower readings), the control (the
 upper readings; the first ``--control`` seeds) and a step that hands back
 its state unchanged (the first ``--unchanged`` seeds), all on the same held
-units (``check.py``, ``reference/control.py``). One JSON line a seed.
+units (``check.py``, ``reference/control.py``). ``--samples`` holds that
+many of the window's units in place of the mix's ``check_samples``, so a
+rare unit that reads far above the rest (a pair set that rounding changes)
+is seen in a dozen seeds. One JSON line a seed.
 
 ``--idle S`` reads instead, after set-up, the units' mean seconds over an
 untraced window of S seconds and over one of S seconds traced with the
@@ -33,7 +36,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from benchmark import manifest  # noqa: E402
+from benchmark import manifest, traffic  # noqa: E402
 from benchmark.check import Checker  # noqa: E402
 from benchmark.harness import Cell  # noqa: E402
 from benchmark.tracing import DEVICE_CATS  # noqa: E402
@@ -110,12 +113,17 @@ def main(argv=None) -> int:
     ap.add_argument("--control", type=int, default=3)
     ap.add_argument("--unchanged", type=int, default=1)
     ap.add_argument("--idle", type=float, default=0.0)
+    ap.add_argument("--samples", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     w = manifest.workload(manifest.load(), args.workload)
+    mix = traffic.load(w["traffic"])
+    if args.samples > 0:
+        mix = traffic.Mix(mix.name, dict(mix.params,
+                                         check_samples=args.samples))
     for n, seed in enumerate(int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        cell = Cell(w, seed, torch.device(args.device), False)
+        cell = Cell(w, seed, torch.device(args.device), False, mix=mix)
         cell.setup()
         if args.idle > 0:
             out = {"workload": args.workload, "seed": seed,

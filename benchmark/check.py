@@ -212,25 +212,24 @@ class Checker:
         ``wide``, ``stats``, ``targets``, ``steps``, ``alpha``,
         ``step_delta``, ``unit`` and, for a drawn frame, ``frame``."""
         t0 = time.perf_counter()
-        sink = {}
+        sink, drawn = {}, {}
         args = (item["before"], item["wide"], item["targets"],
                 item["step_delta"], item["steps"])
         after, stats, _ = self._replaced(
             item, lambda: self._stand_in(self.ref.step, *args))
         with tally_mod.tally(sink):
             st, stt, _ = self.ref.step(*args)
-            found = self._state_gaps(item["before"], after, stats, st, stt)
-            if "frame" in item:
-                sink.clear()                  # the render's bound alone
-                dargs = (item["before"], item["after"], viewport,
-                         item["alpha"])
-                want = self.ref.draw(*dargs)
+        found = self._state_gaps(item["before"], after, stats, st, stt)
         if "frame" in item:
+            dargs = (item["before"], item["after"], viewport, item["alpha"])
+            with tally_mod.tally(drawn):
+                want = self.ref.draw(*dargs)
             got = item["frame"]
             if self.stand_in in ("control", "witness"):
                 got = self._stand_in(self.ref.draw, *dargs)
             found["frame_gap"] = _gap(got, want)
-            self.bounds[item["unit"]] = dict(sink)
+            # the step's bounds (``update``) beside the render's (``draw``)
+            self.bounds[item["unit"]] = {**sink, **drawn}
         self._note(found)
         self.seconds += time.perf_counter() - t0
 

@@ -40,7 +40,8 @@ from .check import Checker, Reservoir
 from .reference.model import Clock
 
 KERNEL_SYMBOLS = {"substep_pass": "substep_pass_kernel",
-                  "splat": "splat_kernel"}
+                  "splat": "splat_kernel",
+                  "gather_sweep": "gather_sweep_kernel"}
 FORBIDDEN = ("jax", "jaxlib", "flax", "egg_fluid_simulation_tpu")
 STEP_DELTA = 1 / 60
 

@@ -1,7 +1,9 @@
 # Frozen copy of egg_fluid_simulation_tpu_torch/ops/solver.py at commit e9e0aedb87f3: the port's plain
 # PyTorch path, kept as the benchmark's reference and trimmed to what the
-# cells run (the dense engine's fused path and its eager resident loop).
-"""XPBD solver core: the dense engine's fused component path.
+# cells run (the dense engine's fused path and its eager resident loop; the
+# gather engine's step is in gather_step.py).
+"""XPBD solver core: the dense engine's fused component path, and the step
+that hands the gather engine to ``gather_step.py``.
 
 The counterpart of ``egg_fluid_simulation_tpu/ops/solver.py``, reference
 pipeline ``simulation_handler.lua:1324-1990``, as the handler's automatic
@@ -9,10 +11,11 @@ options run it at capacity 16384 and up (``budget_mode="off"``,
 ``dense_rebin="step"``): per population, once per step, sort-bin into the
 torus cell planes (kernel A) -> per substep: ``n_collision_steps`` fused
 passes (kernel B; the first also integrates and applies the follow
-constraint) -> extract. The gather engine, the plane-resident path (the
-ordered budget, the symmetric sweep, ``dense_rebin="substep"``), the
-per-pass route, the frame loop and the graph replays of the port are left
-out of this copy.
+constraint) -> extract. The gather engine (``engine="gather"``, the
+handler's choice below capacity 16384) steps in ``gather_step.py``. The
+plane-resident path (the ordered budget on the dense engine, the symmetric
+sweep, ``dense_rebin="substep"``), the per-pass route, the frame loop and
+the graph replays of the port are left out of this copy.
 
 Velocity is encoded by ``prev`` on the fused path (``v = (x - prev) /
 sub_dt``). Particles over the per-cell budget K integrate without collision
@@ -761,9 +764,11 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
                                                state.pos, 0.0), dim=1)
                          / n_act[:, None])
 
-    if options.engine != "dense":
-        raise ValueError("only the dense engine is kept")
-    if follow_rows is None:
+    gather = options.engine == "gather"
+    if gather:
+        from . import gather_step       # it imports this module
+        follow_radius = torch.sqrt(torch.clamp(state.batch_radius, min=0.0))
+    elif follow_rows is None:
         follow_rows = _follow_rows(state, caps)
 
     new_pos, new_prev, new_vel = (state.pos.clone(), state.prev.clone(),
@@ -775,12 +780,20 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
         act = active_full[i, :cap]
         cfg = population_config(cfg2, i)
         g, k = options.dense_grid_dim[i], options.dense_slots[i]
-        pos, prev, vel, inv_mass, radius, ws_out[i] = \
-            _population_step_dense(
-                state.pos[i, :cap], state.vel[i, :cap],
-                state.mass_t[i, :cap], state.batch_slot[i, :cap], act,
-                cfg, follow_rows[i], sub_dt, relaxation, options, g, k,
-                wide_state=wide_state[i] if thread_wide else None)
+        if gather:
+            # the gather engine has no wide machinery: the episode state
+            # passes through untouched
+            ws_out[i] = wide_state[i] if thread_wide else None
+            pos, prev, vel, inv_mass, radius = gather_step.population_step(
+                state, i, cap, act, cfg, follow_radius, sub_dt, relaxation,
+                options)
+        else:
+            pos, prev, vel, inv_mass, radius, ws_out[i] = \
+                _population_step_dense(
+                    state.pos[i, :cap], state.vel[i, :cap],
+                    state.mass_t[i, :cap], state.batch_slot[i, :cap], act,
+                    cfg, follow_rows[i], sub_dt, relaxation, options, g, k,
+                    wide_state=wide_state[i] if thread_wide else None)
 
         if with_stats:
             n_a = torch.clamp(torch.sum(act), min=1)

@@ -2,8 +2,10 @@
 
 Frozen from ``chip_smoke.py`` (commit e9e0aedb87f3): the peaks, the
 operation counts per unit of work, ``bound``, ``nbytes``, ``window_pairs``
-and ``splat_inside_pairs``, and the B and C counts of its
-``check.substep_pass`` and ``check.splat``. A kernel's bound is the larger
+and ``splat_inside_pairs``, the B and C counts of its ``check.substep_pass``
+and ``check.splat``, and kernel H's sweep count of its
+``check.gather_pairs`` (its bytes narrowed to what the sweep reads, see
+``gather_sweep_seconds``). A kernel's bound is the larger
 of its operations over the FP32 peak and its bytes (each input read once,
 each output written once) over the HBM peak; the operations count only what
 this call's data needs, so the counts are the same whichever implementation
@@ -20,7 +22,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # FP32 operations per unit of work, counted from the kernels' sources:
 PAIR_OPS = 36        # one (self, partner) term of pair_terms.cuh's
-                     # projection with its accumulation (kernel B)
+                     # projection with its accumulation (kernels B and H)
 PROLOGUE_OPS = 20    # kernel B's integrate + follow prologue, per slot
 SPLAT_OPS = 28       # kernel C: one candidate at one pixel, exp as one
 SPLAT_BOX_OPS = 27   # kernel C: one window candidate's extent box against
@@ -115,3 +117,18 @@ def splat_seconds(payload, counts, opts, alpha, rgb, cull_counts,
     moved = (float(filled[:-1].sum()) * payload.shape[-1] * 4
              + nbytes(counts, alpha, rgb))
     return bound(n_inside * SPLAT_OPS + n_window * SPLAT_BOX_OPS, moved)
+
+
+def gather_sweep_seconds(pairs: float, record, rows: int, slots: int,
+                         budgeted: int) -> float:
+    """Kernel H's sweep bound for one pass: ``pairs`` (self, candidate)
+    pairs in the true 3x3 cells, each a pair term. Bytes: the (N, 8)
+    records (every particle reads its own); the ``rows`` distinct slot
+    table rows of ``slots`` int32 each that the live particles' 3x3 cells
+    hash to (a particle reads only those, and a warp with no live particle
+    reads none); the budget's prefix at the ``budgeted`` live particles
+    (0 with the budget off); 8 bytes a particle written. The smoke charged
+    the whole table and prefix, which the sweep does not read."""
+    return bound(pairs * PAIR_OPS,
+                 nbytes(record) + (rows * slots + budgeted) * 4
+                 + record.shape[0] * 8)

@@ -1,6 +1,7 @@
 """A cell of the benchmark shrunk to a size a CPU test holds: four default
-configs' batches of 60 white + 6 yolk on capacity 16384 (the dense engine,
-as the real cells run), a few settling steps, short units."""
+configs' batches of 60 white + 6 yolk on the cell's capacity (16384, the
+dense engine, for ``frames`` and ``headless``; 4096, the gather engine, for
+``gather``), a few settling steps, short units."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import torch
 
 from benchmark import harness, manifest, traffic
 
-CELLS = {"frames": "eggs_64.frames", "headless": "eggs_64.headless"}
+CELLS = {"frames": "eggs_64.frames", "headless": "eggs_64.headless",
+         "gather": "default_4k.frames"}
 SEED = 2 ** 31 + 11
 
 

@@ -11,7 +11,8 @@ from benchmark import harness, manifest
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", ["eggs_64.headless", "eggs_64.frames"])
+@pytest.mark.parametrize("cell", ["eggs_64.headless", "eggs_64.frames",
+                                  "default_4k.frames"])
 def test_cell_runs_correct_on_the_card(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -2,14 +2,16 @@
 sound and with the timed path broken underneath: the sound run is
 correct, each fault the cells can have makes ``correct`` false, and so
 does the control in the program's place. The cells run on one card, so
-there is no exchange between cards to leave out."""
+there is no exchange between cards to leave out. ``gather`` is the frames
+cell of the gather engine (``default_4k.frames``)."""
 
 import pytest
 import torch
 
 import bench_tiny
 
-KINDS = ("frames", "headless")
+KINDS = ("frames", "headless", "gather")
+FRAMES = ("frames", "gather")
 
 
 def _solver():
@@ -94,9 +96,9 @@ def _pixel_altered(monkeypatch):
 
 FAULTS = {"state_unchanged": (_state_unchanged, KINDS),
           "half_left_out": (_half_left_out, KINDS),
-          "position_altered": (_position_altered, ("frames",)),
+          "position_altered": (_position_altered, FRAMES),
           "out_of_its_egg": (_out_of_its_egg, KINDS),
-          "pixel_altered": (_pixel_altered, ("frames",))}
+          "pixel_altered": (_pixel_altered, FRAMES)}
 
 
 @pytest.mark.parametrize("kind,fault", [(k, f) for f, (_, ks) in

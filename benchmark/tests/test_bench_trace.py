@@ -53,13 +53,14 @@ def test_reduce_ranges_busy_gaps_and_kernels():
     assert "host:sync" in gaps or "host:frame" in gaps
 
 
-@pytest.mark.parametrize("kind", ("frames", "headless"))
+@pytest.mark.parametrize("kind", ("frames", "headless", "gather"))
 def test_traced_run_reports_the_per_layer_metrics_it_can(kind):
     r = bench_tiny.run(kind, trace=True, seconds=0.4)
     assert r["correct"] is True
     names = set(r["metrics"])
     # the CPU has no device trace: only the counters' metrics are there
     want = {"frames": {"host_reads_per_frame"},
-            "headless": {"rebins_per_step"}}[kind]
+            "headless": {"rebins_per_step"},
+            "gather": {"host_reads_per_frame"}}[kind]
     assert names == want
     assert "busy_s" in r["device"] and "breakdown" in r

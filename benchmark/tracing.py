@@ -19,6 +19,7 @@ import contextlib
 import json
 import os
 import re
+import tempfile
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -76,7 +77,11 @@ class Tracer:
         """The reduced trace (:func:`reduce`), or None without one."""
         if self.prof is None:
             return None
-        path = os.path.join(tmpdir, "bench_trace.json")
+        # a file of its own: processes that share a temporary directory
+        # (a test run's workers) must not read each other's traces
+        fd, path = tempfile.mkstemp(prefix="bench_trace_", suffix=".json",
+                                    dir=tmpdir)
+        os.close(fd)
         self.prof.export_chrome_trace(path)
         try:
             with open(path) as f:
