@@ -1562,13 +1562,18 @@ def check_gather_pairs(h, phase: str, results) -> None:
     a few microseconds) with the one-by-one time beside, and an empty
     kernel's time from a graph of 20 as the latency floor. The bound
     counts PAIR_OPS for each candidate pair in the true 3x3 cells (this
-    data's work) and the table, the records and the output once."""
+    data's work) and the table, the records and the output once. Every
+    count and sweep runs with a row of the budget's cut counter, as a
+    step's pass does, and the kernel's row must move as the plain
+    version's (the half budget cuts, the budget off never does); the times
+    are of the launches with the row."""
     import torch
     from egg_fluid_simulation_tpu_torch.ops import solver as S
     from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
     from egg_fluid_simulation_tpu_torch.ops.kernels import library
     opts = h._options
     errs, count_exact, rows, stress, fronts = {}, True, [], {}, {}
+    cut_moves, cuts_equal = {}, True
     for pop, name in ((0, "white"), (1, "yolk")):
         d = gather_pass_inputs(h, pop)
         small = gather_pass_inputs(h, pop, STRESS_TABLE, STRESS_SLOTS)
@@ -1595,16 +1600,22 @@ def check_gather_pairs(h, phase: str, results) -> None:
         def held(key, dd, cm, spacing, own=None):
             """H against plain on one variant of the pass (count, when the
             budget is on, and sweep): the sweep's error."""
-            nonlocal count_exact
+            nonlocal count_exact, cuts_equal
+            cut_k, cut_p = (torch.zeros((3,), dtype=torch.int32,
+                                        device=rec.device) for _ in range(2))
             if cm[0] is not None:
-                got_c = GK.gather_count(dd["record"], dd["hgrid"])
+                got_c = GK.gather_count(dd["record"], dd["hgrid"], cut_k)
                 count_exact &= bool(torch.equal(
-                    got_c, GK.gather_count_plain(dd["record"], dd["hgrid"])))
+                    got_c, GK.gather_count_plain(dd["record"], dd["hgrid"],
+                                                 cut_p)))
             got = GK.gather_sweep(dd["record"], dd["hgrid"], *cm, *scal,
-                                  spacing=spacing, owned=own)
+                                  spacing=spacing, owned=own, cuts=cut_k)
             want = GK.gather_sweep_plain(dd["record"], dd["hgrid"], *cm,
-                                         *scal, spacing=spacing, owned=own)
+                                         *scal, spacing=spacing, owned=own,
+                                         cuts=cut_p)
             errs[f"{name}.{key}"] = float((got - want).abs().max())
+            cut_moves[f"{name}.{key}"] = cut_k[:2].tolist()
+            cuts_equal &= bool(torch.equal(cut_k[:2], cut_p[:2]))
             return want
 
         for budget in ("ordered", "off"):
@@ -1630,13 +1641,19 @@ def check_gather_pairs(h, phase: str, results) -> None:
                 and stress[name]["small_table_pairs"] > 0):
             raise AssertionError(f"{phase}: a stress case of kernel H does "
                                  f"not stress it ({stress[name]})")
+        if not (cut_moves[f"{name}.budget_half"] == [1, 1]
+                and cut_moves[f"{name}.off"] == [0, 0]):
+            raise AssertionError(f"{phase}: the cut counter of kernel H "
+                                 f"misses a cut or counts one ({cut_moves})")
         cand, valid = GK.candidates(grid, act)
         near = GK.in_cells(grid.cell_xy, torch.clamp(cand, min=0).long())
         pairs = int((valid & near).sum())
         k = grid.table.shape[1]
+        cut_row = torch.zeros((3,), dtype=torch.int32, device=rec.device)
 
         def sweep():
-            GK.gather_sweep(rec, grid, cum, max_pairs, *scal, spacing=True)
+            GK.gather_sweep(rec, grid, cum, max_pairs, *scal, spacing=True,
+                            cuts=cut_row)
 
         def sweep_plain():
             GK.gather_sweep_plain(rec, grid, cum, max_pairs, *scal,
@@ -1646,7 +1663,7 @@ def check_gather_pairs(h, phase: str, results) -> None:
                   act)
         ms = graph_ms(sweep, 20)
         one_by_one = cuda_ms(sweep, 20)
-        count_ms = graph_ms(lambda: GK.gather_count(rec, grid), 20)
+        count_ms = graph_ms(lambda: GK.gather_count(rec, grid, cut_row), 20)
         front_ms = graph_ms(lambda: GK.gather_front(
             *fields, d["cell"], d["table_size"]), 20)
         plain_ms = cuda_ms(sweep_plain, 5)
@@ -1675,15 +1692,17 @@ def check_gather_pairs(h, phase: str, results) -> None:
     log(f"check.gather_pairs.{phase}", table_size=opts.table_size,
         slots_per_cell=opts.slots_per_cell, max_abs_err=errs, tol=GATHER_TOL,
         count_bit_exact=count_exact, front_bit_exact=fronts, stress=stress,
+        cut_moves=cut_moves, cuts_equal=cuts_equal,
         stress_grid=dict(table_size=STRESS_TABLE, slots=STRESS_SLOTS),
         launch_floor_ms=round(floor_ms, 5),
         per_pop=[{k_: (float(f"{v:.6g}") if isinstance(v, float) else v)
                   for k_, v in r.items()} for r in rows],
         card=nvidia_smi())
-    if not (err <= GATHER_TOL and count_exact and front_ok):
+    if not (err <= GATHER_TOL and count_exact and front_ok and cuts_equal):
         raise AssertionError(f"{phase}: kernel H disagrees with its plain "
                              f"version (err {errs}, count exact "
-                             f"{count_exact}, front {fronts})")
+                             f"{count_exact}, front {fronts}, cuts "
+                             f"{cut_moves})")
     white = rows[0]
     for key, pre, err_k in (("gather_sweep", "", err),
                             ("gather_count", "count_", 0.0),

@@ -37,6 +37,13 @@
 //   candidates; out = pos[p] + (active[p] ? relaxation * total : 0).
 //   An owned range (offset, count) sweeps particles offset + i of the
 //   record (the particle-sharded step's local slice) into out[i].
+// - the budget's cut counter (optional, the solver's pass of a population:
+//   int32 {cut passes, budgeted passes, last cut pass}): the count adds one
+//   to the budgeted passes (one thread), and the sweep adds one to the cut
+//   passes when some pair in the true 3x3 cells fails cum[min(p, c)] <
+//   max_pairs: the first lane of each warp that meets such a pair raises
+//   the last cut pass to the pass's number with one atomicMax, and the
+//   lane that raised it counts the pass. Nothing in the step reads it.
 //   The per-pair arithmetic is the plain version's op for op (the library
 //   builds with --fmad=false, IEEE '/' and sqrtf), so a pair's term rounds
 //   alike; the sum runs in another order (a lane's candidates, then a
@@ -252,8 +259,10 @@ template <int K>
 __global__ void __launch_bounds__(kThreads)
 gather_count_kernel(const float4* __restrict__ rec,
                     const int* __restrict__ table, float* __restrict__ out,
-                    int n, int table_size, int k) {
+                    int n, int table_size, int k, int* __restrict__ cuts) {
   constexpr int L = kCountLanes;
+  // the budgeted pass's number: the sweep after this count reads it
+  if (cuts != nullptr && blockIdx.x == 0 && threadIdx.x == 0) cuts[1] += 1;
   const int g = blockIdx.x * (kThreads / L) + threadIdx.x / L;
   const int lane = threadIdx.x % L;
   const bool in_range = g < n;
@@ -297,7 +306,7 @@ gather_sweep_kernel(const float4* __restrict__ rec,
                     const int* __restrict__ table,
                     const float* __restrict__ cum, SweepScalars sc,
                     float2* __restrict__ out, int n_groups, int offset,
-                    int table_size, int k, int spacing) {
+                    int table_size, int k, int spacing, int* cuts) {
   constexpr int L = kSweepLanes;
   // a group's list of the batch's candidates that pass the cell test and
   // the budget: at most 9 a lane
@@ -325,6 +334,7 @@ gather_sweep_kernel(const float4* __restrict__ rec,
   const unsigned repeated = repeated_buckets(cx, cy, mask, bucket);
   int* list = s_list[gi];
   float tx = 0.0f, ty = 0.0f;
+  bool cut = false;   // a pair in the true cells the budget leaves out
   // a warp with no live particle (the inactive tail) skips the walk
   if (__any_sync(0xffffffffu, live)) for_batches<L, K>(k, [&](int base) {
     int c[kRows];
@@ -341,9 +351,10 @@ gather_sweep_kernel(const float4* __restrict__ rec,
     int n_list = 0;
 #pragma unroll
     for (int t = 0; t < kRows; ++t) {
-      const bool pair = c[t] >= 0 && c[t] != p && adjacent(o[t].x, cx) &&
-                        adjacent(o[t].y, cy) &&
-                        (!ordered || cum_min[t] < max_pairs);
+      const bool near = c[t] >= 0 && c[t] != p && adjacent(o[t].x, cx) &&
+                        adjacent(o[t].y, cy);
+      const bool pair = near && (!ordered || cum_min[t] < max_pairs);
+      cut = cut || (near && !pair);
       const unsigned vote = __ballot_sync(0xffffffffu, pair) & group_mask;
       if (pair) list[n_list + __popc(vote & below)] = c[t];
       n_list += __popc(vote);
@@ -379,6 +390,15 @@ gather_sweep_kernel(const float4* __restrict__ rec,
   });
   tx = group_sum<L>(tx);
   ty = group_sum<L>(ty);
+  if (cuts != nullptr) {
+    const unsigned cut_lanes = __ballot_sync(0xffffffffu, cut);
+    if (cut_lanes != 0u && wl == static_cast<unsigned>(__ffs(cut_lanes) - 1)) {
+      const int pass = *reinterpret_cast<volatile int*>(cuts + 1);
+      if (*reinterpret_cast<volatile int*>(cuts + 2) != pass &&
+          atomicMax(cuts + 2, pass) < pass)
+        atomicAdd(cuts, 1);
+    }
+  }
   if (lane == 0 && in_range) {
     const float relax = *sc.relaxation;
     out[g] = make_float2(me.x + (live ? relax * tx : 0.0f),
@@ -396,19 +416,20 @@ unsigned blocks_for(int n, int lanes) {
 // The instances: K compiled in (0: read at run time).
 template <int K>
 int launch_count(const float4* rec, const int* table, float* out, int n,
-                 int table_size, int k, cudaStream_t stream) {
+                 int table_size, int k, int* cuts, cudaStream_t stream) {
   gather_count_kernel<K><<<blocks_for(n, kCountLanes), kThreads, 0,
-                           stream>>>(rec, table, out, n, table_size, k);
+                           stream>>>(rec, table, out, n, table_size, k, cuts);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
 int launch_sweep(const float4* rec, const int* table, const float* cum,
                  SweepScalars sc, float2* out, int n_groups, int offset,
-                 int table_size, int k, int spacing, cudaStream_t stream) {
+                 int table_size, int k, int spacing, int* cuts,
+                 cudaStream_t stream) {
   gather_sweep_kernel<K><<<blocks_for(n_groups, kSweepLanes), kThreads, 0,
                            stream>>>(rec, table, cum, sc, out, n_groups,
-                                     offset, table_size, k, spacing);
+                                     offset, table_size, k, spacing, cuts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -440,12 +461,12 @@ extern "C" int egg_gather_front(const float* pos, const float* inv_mass,
 
 extern "C" int egg_gather_count(const float* record, const int* table,
                                 float* out, int n, int table_size, int k,
-                                cudaStream_t stream) {
+                                int* cuts, cudaStream_t stream) {
   if (n <= 0) return 0;
   const float4* rec = reinterpret_cast<const float4*>(record);
   return by_k(k, [&](auto kc) {
     return launch_count<decltype(kc)::value>(rec, table, out, n, table_size,
-                                             k, stream);
+                                             k, cuts, stream);
   });
 }
 
@@ -456,7 +477,8 @@ extern "C" int egg_gather_sweep(const float* record, const int* table,
                                 const float* coh_factor,
                                 const float* relaxation, float* out,
                                 int n_groups, int offset, int table_size,
-                                int k, int spacing, cudaStream_t stream) {
+                                int k, int spacing, int* cuts,
+                                cudaStream_t stream) {
   if (n_groups <= 0) return 0;
   const SweepScalars sc{max_pairs, collision_c, cohesion_c, overlap,
                         coh_factor, relaxation};
@@ -465,7 +487,7 @@ extern "C" int egg_gather_sweep(const float* record, const int* table,
   return by_k(k, [&](auto kc) {
     return launch_sweep<decltype(kc)::value>(rec, table, cum, sc, o,
                                              n_groups, offset, table_size, k,
-                                             spacing, stream);
+                                             spacing, cuts, stream);
   });
 }
 

@@ -18,8 +18,9 @@ loop routes of ``run_steps`` is captured once in a CUDA graph and replayed
 ``update``, ``draw`` and ``run_steps`` are spans (``egg.update``,
 ``egg.draw``, ``egg.run_steps``; ``utils.profiling.span``), and so are the
 targets' upload and the step inside ``update`` (``egg.update.targets``,
-``egg.update.step``); ``graph_census`` and ``resident_rebins`` read the
-graph caches without a read of the device.
+``egg.update.step``) and the loop of steps inside ``run_steps``
+(``egg.run_steps.loop``); ``graph_census`` and ``resident_rebins`` read
+the graph caches without a read of the device.
 """
 
 from __future__ import annotations
@@ -568,7 +569,8 @@ class SimulationHandler:
             self._check_caps()
             dt, relax = self._step_scalars(step_delta)
             if solver_ops.multi_step_is_loop(self._options):
-                self._advance(int(n_steps), self._device_cfg2(), dt, relax)
+                self._advance(int(n_steps), self._device_cfg2(), dt, relax,
+                              "egg.run_steps.loop")
             else:
                 self._state, self._stats, self._wide_state = \
                     solver_ops.multi_step(
@@ -615,14 +617,16 @@ class SimulationHandler:
             self._render_graphs = RenderGraphs()
         return self._render_graphs
 
-    def _advance(self, n_steps: int, cfg2, dt, relax) -> None:
+    def _advance(self, n_steps: int, cfg2, dt, relax,
+                 name: str = "egg.update.step") -> None:
         """``n_steps >= 1`` calls of ``solver.step`` from the handler's state,
         the episode state of the wide gate threaded through: on a CUDA device
         one captured step replayed (``ops/step_graph.py``), on the CPU
-        eagerly; the span ``egg.update.step``."""
+        eagerly; the span ``name`` (``update``'s ``egg.update.step``,
+        ``run_steps``' ``egg.run_steps.loop``)."""
         wide = self._wide_or_init()
         graphs = self._graphs()
-        with span("egg.update.step"):
+        with span(name):
             if graphs is not None:
                 self._state, self._stats, self._wide_state = graphs.run(
                     self._state, cfg2, dt, relax, self._options, wide,

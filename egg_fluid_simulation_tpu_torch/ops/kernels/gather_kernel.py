@@ -46,6 +46,14 @@ The dispatchers take the tensors' device: CPU tensors take the ``*_plain``
 version; CUDA tensors launch the kernel, or raise. ``launches`` counts the
 sweep's launches, ``count_launches`` the count's, ``front_launches`` the
 front's.
+
+The ordered budget's cuts are counted on the device, per population, where
+the solver hands the count and the sweep a row of :func:`cut_counter`:
+the count adds one budgeted pass, and the sweep adds one cut pass when some
+pair in the true 3x3 cells goes unexamined because ``cum[min(p, c)]`` has
+reached ``max_pairs`` (the kernel with one atomic a warp that meets one, the
+plain version with one ``any``). Nothing in the step reads it; a replayed
+step graph moves it. :func:`cut_counts` copies it out.
 """
 
 from __future__ import annotations
@@ -60,13 +68,45 @@ from .. import grid as grid_ops
 __all__ = ["gather_front", "gather_front_plain", "gather_sweep",
            "gather_sweep_plain", "gather_count", "gather_count_plain",
            "record_cells", "record_active", "candidates", "in_cells",
-           "count_from_candidates", "launches", "count_launches", "front_launches"]
+           "count_from_candidates", "launches", "count_launches", "front_launches",
+           "cut_counter", "cut_counts"]
 
 launches = 0         # kernel H, sweep
 count_launches = 0   # kernel H, count
 front_launches = 0   # kernel H, front (record and bucket)
 
 RECORD_WORDS = 8     # float32 words a particle record
+
+# device -> (2, 3) int32 budget cut counter, a row a population (white,
+# yolk): cut passes, budgeted passes, the last cut pass's number
+_cut_counters: dict = {}
+_cut_device: Optional[torch.device] = None   # of the last budgeted pass
+
+
+def cut_counter(device) -> torch.Tensor:
+    """The ordered budget's (2, 3) int32 cut counter of ``device`` (see the
+    module), made zero at its first use, which must not be inside a CUDA
+    graph's capture (a step's eager first run comes before its capture)."""
+    global _cut_device
+    dev = torch.device(device)
+    t = _cut_counters.get(dev)
+    if t is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("cut_counter: first use inside a capture")
+        t = _cut_counters[dev] = torch.zeros((2, 3), dtype=torch.int32,
+                                             device=dev)
+    _cut_device = dev
+    return t
+
+
+def cut_counts(device=None) -> Optional[torch.Tensor]:
+    """A (2, 2) int32 copy of the cut counter, ``[cut passes, budgeted
+    passes]`` of white and yolk, on ``device`` (default: the device of the
+    last budgeted pass), without a read; None before any budgeted pass
+    there."""
+    dev = _cut_device if device is None else torch.device(device)
+    t = _cut_counters.get(dev)
+    return None if t is None else t[:, :2].clone()
 
 
 def record_cells(record: torch.Tensor) -> torch.Tensor:
@@ -137,8 +177,10 @@ def _live_end(active: torch.Tensor) -> int:
     return int(live[-1]) + 1 if live.numel() else 0
 
 
-def gather_count_plain(record, grid: grid_ops.CellGrid):
+def gather_count_plain(record, grid: grid_ops.CellGrid, cuts=None):
     """Plain PyTorch :func:`gather_count`."""
+    if cuts is not None:
+        cuts[1] += 1
     active = record_active(record)
     m = _live_end(active)
     counts = record.new_zeros(record.shape[0])
@@ -155,7 +197,7 @@ def gather_sweep_plain(record, grid: grid_ops.CellGrid, cum, max_pairs,
                        collision_compliance, cohesion_compliance, overlap,
                        coh_factor, relaxation, *, spacing: bool,
                        owned: Optional[Tuple[int, int]] = None,
-                       pair_chunk: int = 1 << 15):
+                       pair_chunk: int = 1 << 15, cuts=None):
     """Plain PyTorch :func:`gather_sweep`. Particles are swept
     ``pair_chunk`` at a time, which bounds the gathered (chunk, 9K, 8)
     block of records. The JAX package's masks of the partner's mass and
@@ -177,6 +219,7 @@ def gather_sweep_plain(record, grid: grid_ops.CellGrid, cum, max_pairs,
                           table_size=grid.table_size),
         rec_i[off:off + live, 7] != 0, off)
     ordered = cum is not None
+    cut = []                # per chunk: a pair in the true cells left out
 
     def sweep(lo, hi):
         """Correction sum (C, 2) of owned particles [lo, hi)."""
@@ -197,7 +240,10 @@ def gather_sweep_plain(record, grid: grid_ops.CellGrid, cum, max_pairs,
                                           device=record.device)[:, None]
             cum_min = torch.where(cand_c < self_idx, cum[safe],
                                   cum[off + lo:off + hi, None])
-            ok = ok & (cum_min < max_pairs)
+            kept = cum_min < max_pairs
+            if cuts is not None:
+                cut.append(torch.any(ok & ~kept))
+            ok = ok & kept
         dx = g[..., 0] - me[..., 0]
         dy = g[..., 1] - me[..., 1]
         dist2 = dx * dx + dy * dy
@@ -235,6 +281,8 @@ def gather_sweep_plain(record, grid: grid_ops.CellGrid, cum, max_pairs,
     total = record.new_zeros((cnt, 2))
     for lo in range(0, live, c):
         total[lo:min(lo + c, live)] = sweep(lo, min(lo + c, live))
+    if cut:
+        cuts[0] += torch.any(torch.stack(cut)).to(torch.int32)
     active = rec_i[off:off + cnt, 7] != 0
     return record[off:off + cnt, 0:2] + torch.where(
         active[:, None], relaxation * total, 0.0)
@@ -306,24 +354,34 @@ def gather_front(pos, inv_mass, radius, batch_slot, active, cell_size,
     return record, bucket
 
 
-def gather_count(record, grid: grid_ops.CellGrid):
+def _check_cuts(name: str, cuts, dev):
+    if cuts is not None and (cuts.shape != (3,) or cuts.dtype != torch.int32
+                             or cuts.device != dev
+                             or not cuts.is_contiguous()):
+        raise ValueError(f"{name}: an int32 (3,) cut counter row on the "
+                         "record's device expected")
+
+
+def gather_count(record, grid: grid_ops.CellGrid, cuts=None):
     """(N,) float32 ``new_pairs`` of the ordered budget (see the module):
     the record's particles on the slot table ``grid.table`` (the cells are
-    the record's)."""
+    the record's). ``cuts``, a row of :func:`cut_counter`, counts the
+    budgeted pass."""
     dev = record.device
     if dev.type == "cpu":
-        return gather_count_plain(record, grid)
+        return gather_count_plain(record, grid, cuts)
     if dev.type != "cuda":
         raise RuntimeError(f"gather_count: no kernel for device {dev}")
     from . import library
     _check_record("gather_count", record, grid)
+    _check_cuts("gather_count", cuts, dev)
     n, k = record.shape[0], grid.table.shape[1]
     record, table = record.contiguous(), grid.table.contiguous()
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = library.load()
     err = lib.egg_gather_count(record.data_ptr(), table.data_ptr(),
                                out.data_ptr(), n, grid.table_size, k,
-                               library.stream_handle(dev))
+                               library.ptr(cuts), library.stream_handle(dev))
     library.check("gather_count", err)
     global count_launches
     count_launches += 1
@@ -334,14 +392,15 @@ def gather_sweep(record, grid: grid_ops.CellGrid, cum: Optional[torch.Tensor],
                  max_pairs, collision_compliance, cohesion_compliance,
                  overlap, coh_factor, relaxation, *, spacing: bool,
                  owned: Optional[Tuple[int, int]] = None,
-                 pair_chunk: int = 1 << 15):
+                 pair_chunk: int = 1 << 15, cuts=None):
     """(C, 2) positions after one Jacobi pair pass of the record's
     particles on the slot table ``grid.table`` (see the module): all N, or
     the ``owned = (offset, count)`` particles ``offset + i``. ``cum`` (N,)
     float32 is the ordered budget's exclusive prefix and ``max_pairs`` its
     cutoff, or both None with the budget off. ``pair_chunk`` caps the plain
     version's gathered block; H gathers nothing into memory, so it has no
-    meaning there."""
+    meaning there. ``cuts``, a row of :func:`cut_counter`, counts the pass
+    if the budget cuts it (under the budget only)."""
     dev = record.device
     n = record.shape[0]
     if owned is not None:
@@ -354,7 +413,7 @@ def gather_sweep(record, grid: grid_ops.CellGrid, cum: Optional[torch.Tensor],
         return gather_sweep_plain(
             record, grid, cum, max_pairs, collision_compliance,
             cohesion_compliance, overlap, coh_factor, relaxation,
-            spacing=spacing, owned=owned, pair_chunk=pair_chunk)
+            spacing=spacing, owned=owned, pair_chunk=pair_chunk, cuts=cuts)
     if dev.type != "cuda":
         raise RuntimeError(f"gather_sweep: no kernel for device {dev}")
     from . import library
@@ -364,6 +423,7 @@ def gather_sweep(record, grid: grid_ops.CellGrid, cum: Optional[torch.Tensor],
                     or cum.device != dev or max_pairs is None):
         raise ValueError("gather_sweep: float32 cum (N,) with max_pairs on "
                          "the record's device expected")
+    _check_cuts("gather_sweep", cuts, dev)
     off, cnt = owned if owned is not None else (0, n)
     k = grid.table.shape[1]
     record, table = record.contiguous(), grid.table.contiguous()
@@ -380,7 +440,7 @@ def gather_sweep(record, grid: grid_ops.CellGrid, cum: Optional[torch.Tensor],
     err = lib.egg_gather_sweep(
         record.data_ptr(), table.data_ptr(), library.ptr(cum),
         library.ptr(mp), *(s.data_ptr() for s in scalars), out.data_ptr(),
-        cnt, off, grid.table_size, k, int(spacing),
+        cnt, off, grid.table_size, k, int(spacing), library.ptr(cuts),
         library.stream_handle(dev))
     library.check("gather_sweep", err)
     global launches

@@ -56,8 +56,8 @@ _SIGNATURES = {
     "egg_count_planes": [_C_PTR] * 2 + [_C_INT] * 3 + [_C_PTR],
     "egg_splat_tiles": [_C_PTR] * 3 + [_C_INT] * 6 + [_C_PTR],
     "egg_gather_front": [_C_PTR] * 8 + [_C_INT] * 2 + [_C_PTR],
-    "egg_gather_count": [_C_PTR] * 3 + [_C_INT] * 3 + [_C_PTR],
-    "egg_gather_sweep": [_C_PTR] * 10 + [_C_INT] * 5 + [_C_PTR],
+    "egg_gather_count": [_C_PTR] * 3 + [_C_INT] * 3 + [_C_PTR] * 2,
+    "egg_gather_sweep": [_C_PTR] * 10 + [_C_INT] * 5 + [_C_PTR] * 2,
     "egg_empty": [_C_PTR],
     "egg_if_node": [_C_PTR] * 3,
 }

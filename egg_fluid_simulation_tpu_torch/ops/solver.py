@@ -1044,7 +1044,7 @@ def _ordered_budget(grid, cand, valid, active):
 
 def solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg: DeviceConfig,
                 collision_compliance, cohesion_compliance, relaxation,
-                options: SolverOptions):
+                options: SolverOptions, pop: Optional[int] = None):
     """One grid rebuild + Jacobi pair projection pass (the gather engine).
 
     Vectorized ``_rebuild_spatial_hash`` + ``_solve_collision`` (reference
@@ -1056,7 +1056,9 @@ def solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg: DeviceConfig,
     CUDA tensors and its plain version on CPU tensors: H's front writes
     each particle's record and bucket, the slot table's sort, rank and
     scatter are PyTorch (``grid.slot_table``), and the count and the sweep
-    read the record."""
+    read the record. With ``pop``, a step's pass of that population, the
+    budget's cuts are counted on the device
+    (``gather_kernel.cut_counter``)."""
     max_factor = torch.maximum(cfg.collision_overlap_factor,
                                cfg.cohesion_interaction_distance_factor)
     cell_size = torch.clamp(cfg.max_radius * max_factor, min=1.0)  # :1756-1760
@@ -1068,9 +1070,11 @@ def solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg: DeviceConfig,
     grid = grid_ops.CellGrid(table=table,
                              cell_xy=gather_kernel.record_cells(record),
                              table_size=options.table_size)
-    cum = max_pairs = None
+    cum = max_pairs = cuts = None
     if options.budget_mode == "ordered":
-        new_pairs = gather_kernel.gather_count(record, grid)
+        if pop is not None:
+            cuts = gather_kernel.cut_counter(pos.device)[pop]
+        new_pairs = gather_kernel.gather_count(record, grid, cuts)
         cum = torch.cumsum(new_pairs, 0) - new_pairs
         max_pairs = _max_pairs(active)
     return gather_kernel.gather_sweep(
@@ -1078,7 +1082,7 @@ def solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg: DeviceConfig,
         cohesion_compliance, cfg.collision_overlap_factor,
         cfg.cohesion_interaction_distance_factor, relaxation,
         spacing=options.cohesion_mode == "spacing",
-        pair_chunk=options.pair_chunk)
+        pair_chunk=options.pair_chunk, cuts=cuts)
 
 
 def solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
@@ -1107,9 +1111,11 @@ def solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
 
 def substep(pos, prev, vel, inv_mass, radius, mass_t, batch_slot, active,
             cfg: DeviceConfig, batch_target, follow_radius, sub_dt,
-            relaxation, options: SolverOptions, g: int = 0, k: int = 0):
+            relaxation, options: SolverOptions, g: int = 0, k: int = 0,
+            pop: Optional[int] = None):
     """One solver substep of one population in particle layout (reference
-    :1821-1932): the gather engine and the per-pass dense route."""
+    :1821-1932): the gather engine and the per-pass dense route; ``pop``
+    as for :func:`solve_pairs`."""
     follow_c = strength_to_compliance(cfg.follow_strength, sub_dt)
     collision_c = strength_to_compliance(cfg.collision_strength, sub_dt)
     cohesion_c = strength_to_compliance(cfg.cohesion_strength, sub_dt)
@@ -1120,7 +1126,8 @@ def substep(pos, prev, vel, inv_mass, radius, mass_t, batch_slot, active,
     for _ in range(options.n_collision_steps):
         if options.engine == "gather":
             pos = solve_pairs(pos, inv_mass, radius, batch_slot, active, cfg,
-                              collision_c, cohesion_c, relaxation, options)
+                              collision_c, cohesion_c, relaxation, options,
+                              pop=pop)
         else:
             pos = solve_pairs_dense(pos, inv_mass, radius, batch_slot, active,
                                     cfg, collision_c, cohesion_c, relaxation,
@@ -1227,7 +1234,8 @@ def _step_impl(state: ParticleState, cfg2: DeviceConfig, step_delta,
                 pos, prev, vel, inv_mass, radius = substep(
                     pos, prev, vel, inv_mass, radius, state.mass_t[i, :cap],
                     state.batch_slot[i, :cap], act, cfg, state.batch_target,
-                    follow_radius[i], sub_dt, relaxation, options, g, k)
+                    follow_radius[i], sub_dt, relaxation, options, g, k,
+                    pop=i)
 
         if with_stats:
             n_a = torch.clamp(torch.sum(act), min=1)

@@ -140,18 +140,24 @@ def counters(handler=None) -> dict:
     resident loops' rebin-flag reads and rebins (``host_syncs``,
     ``rebins``; ``ops/solver.py``), the host seconds of every graph build
     and of the kernel library's loads (``capture_seconds``,
-    ``load_seconds``). With ``handler``: its graphs built by cache
+    ``load_seconds``), and the ordered budget's cut counter
+    (``budget_cuts``, ``gather_kernel.cut_counts``: a (2, 2) int32 device
+    tensor, not read, ``[cut passes, budgeted passes]`` of white and yolk,
+    of the handler's device or else of the last budgeted pass's; None
+    before any). With ``handler``: its graphs built by cache
     (``captures``, :attr:`~..handler.SimulationHandler.graph_census`) and
     the replayed resident loops' rebin counter (``resident_rebins``, a
     device tensor, not read; None before the first replayed loop)."""
     from ..ops import render, solver, step_graph
-    from ..ops.kernels import library
+    from ..ops.kernels import gather_kernel, library
     out = {"host_reads": render.host_reads, "rerenders": render.rerenders,
            "rerenders_skipped": render.rerenders_skipped,
            "dropped": render.dropped, "host_syncs": solver.host_syncs,
            "rebins": list(solver.rebins),
            "capture_seconds": step_graph.capture_seconds,
-           "load_seconds": library.load_seconds}
+           "load_seconds": library.load_seconds,
+           "budget_cuts": gather_kernel.cut_counts(
+               None if handler is None else handler.state.pos.device)}
     if handler is not None:
         out["captures"] = {k: v["captures"]
                            for k, v in handler.graph_census.items()}

@@ -5,8 +5,9 @@
   more than ``render.host_reads`` counts;
 - under ``profiling.trace`` the spans of ``update``, ``draw`` (the eager
   render and the render graphs' plumbing) and ``run_steps`` (the resident
-  graphs' plumbing) are in the trace, each inside the span the table of
-  ``PERF.md`` gives it, graph builds and the library's load included;
+  graphs' plumbing, and the gather engine's loop of steps) are in the
+  trace, each inside the span the table of ``PERF.md`` gives it, graph
+  builds and the library's load included;
 - the draw's counters on the overflowing cluster of
   ``tests/test_torch_render_graph.py``: ``rerenders``, ``rerenders_skipped``
   and ``dropped`` count, and ``host_reads`` reads 2 + 2 r; the cluster that
@@ -178,6 +179,31 @@ def test_spans_nest_under_a_trace(tmp_path):
     assert count["egg.draw"] == 3 and count["egg.draw.render"] == 2
     assert count["egg.run_steps.replay"] == 2
     assert count["egg.graph.capture.resident"] == 1
+
+
+def test_a_gather_run_steps_loop_under_a_trace(tmp_path):
+    """A gather handler's ``run_steps`` is a loop of steps from the step
+    cache: its span ``egg.run_steps.loop`` sits in ``egg.run_steps`` (not
+    in ``update``'s ``egg.update.step``) and holds the cache's first
+    build."""
+    h = T.SimulationHandler(T.default_white_config(),
+                            T.default_yolk_config(), capacity=256,
+                            max_batches=8, device="cpu",
+                            options=T.SolverOptions(engine="gather"))
+    h._step_graphs = SG.StepGraphs(capture=False)
+    h.add(120.0, 100.0, 30.0, 10.0, None, None, 60, 12)
+    with profiling.trace(str(tmp_path)):
+        h.run_steps(3)                        # builds the step
+        h.run_steps(3)                        # replays it
+    spans = _spans(tmp_path)
+    assert _parents(spans) == {
+        "egg.run_steps": {None},
+        "egg.run_steps.loop": {"egg.run_steps"},
+        "egg.graph.capture.step": {"egg.run_steps.loop"},
+    }
+    count = {n: sum(1 for s in spans if s[0] == n)
+             for n in ("egg.run_steps.loop", "egg.graph.capture.step")}
+    assert count == {"egg.run_steps.loop": 2, "egg.graph.capture.step": 1}
 
 
 def test_an_eager_draw_and_its_rerenders_under_a_trace(tmp_path):
