@@ -241,6 +241,8 @@ CUM_EXACT = 2.0 ** 24       # FIELD_CUM, a float32 prefix of counts, is
 REF_TOL = 1e-3              # px after a few steps, card vs CPU (the CPU
                             # tests' tolerance against the JAX package)
 SPLAT_TOL = 1e-4            # alpha: products taken in another order
+COMPOSITE_TOL = 1e-5        # a channel: kernel I rounds each tap's product,
+                            # the matrices' FMA chains do not (~1e-7)
 GATHER_TOL = 1e-4           # px a pass: kernel H sums a particle's
                             # candidates in another order than its plain
                             # version (each pair's term rounds alike)
@@ -305,6 +307,11 @@ COUNT_OPS = 4        # kernel F: one partner's adjacency test and count
 FRONT_OPS = 12       # kernel H's front, a particle: two divides, two
                      # floors, the hash's products, XOR, mask and select
 SPLAT_OPS = 28       # kernel C: one candidate at one pixel, exp as one
+COMPOSITE_OPS = 202  # kernel I's composite, a screen pixel on the canvas
+                     # at a factor above 1: four samples of 36 (two rows of
+                     # two taps and the column pass, four channels), the
+                     # shift's 44, the blend's 14
+UPSAMPLE_OPS = 9     # kernel I's upsample, a channel of an output pixel
 SPLAT_BOX_OPS = 27   # kernel C: one window candidate's extent box against
                      # its tile (splat_kernel.extent_box and the four tests)
 TILES_OPS = 26       # kernel G: the same with the normalised box test
@@ -573,6 +580,7 @@ def traced(fn, n: int) -> dict:
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
     return dict(device_ms=dev_ms / n, kernels=len(kernels) / n,
+                gemm=sum("gemm" in e.name.lower() for e in kernels) / n,
                 profiled_wall_ms=wall / n,
                 busy_share=dev_ms / wall if wall else None,
                 by_kernel=kernel_counts(prof),
@@ -983,11 +991,15 @@ def check_draw_graph(h, scene: str, viewport) -> dict:
     def unit(check_overflow=True):
         draw_outputs(h, viewport, check_overflow)
 
+    # kernel I: a composite a population, an upsample a raw canvas that
+    # was evaluated below the canvas size
+    expect = {"splat": 2, "composite": 2,
+              "upsample": sum(o.downsample > 1 for o in R.frame_options(h))}
     timed = graph_vs_eager(h, f"{scene}.draw", unit, DRAW_UNITS, DRAW_BLOCKS,
-                           expect={"splat": 2}, line="draw_graph")
+                           expect=expect, line="draw_graph")
     # where a replayed draw's device time goes, kernel by kernel
-    top = traced(lambda: [unit() for _ in range(DRAW_UNITS)],
-                 DRAW_UNITS)["top"]
+    prof = traced(lambda: [unit() for _ in range(DRAW_UNITS)], DRAW_UNITS)
+    top = prof["top"]
     reads = {}
     for audit in (True, False):
         R.host_reads = 0
@@ -999,15 +1011,20 @@ def check_draw_graph(h, scene: str, viewport) -> dict:
                   bytes=g.pool_bytes)
              for g in graphs._graphs.values()]
     splats = timed["replay"]["by_kernel"].get("splat", 0.0)
+    replayed = {k: timed["replay"]["by_kernel"].get(k, 0.0) for k in expect}
     log(f"draw_graph.{scene}.reads", host_reads_per_draw=reads,
-        splat_per_replayed_draw=splats, graphs=len(graphs._graphs),
+        splat_per_replayed_draw=splats, launches_per_replayed_draw=replayed,
+        expected_launches=expect, gemm_per_draw=prof["gemm"],
+        graphs=len(graphs._graphs),
         max_graphs=graphs.MAX_GRAPHS, pool_bytes=pools,
         pool_bytes_total=graphs.pool_bytes(), top_kernels_per_draw=top,
         card=nvidia_smi())
-    if reads != {"audit": 2.0, "no_audit": 1.0} or splats != 2.0:
+    if (reads != {"audit": 2.0, "no_audit": 1.0} or replayed != expect
+            or prof["gemm"]):
         raise AssertionError(f"draw_graph.{scene}: host reads {reads} a draw "
                              f"(2 with the audit, 1 without expected), "
-                             f"{splats} C launches a replayed draw (2)")
+                             f"launches {replayed} a replayed draw ({expect}), "
+                             f"{prof['gemm']} GEMMs a draw (none)")
     return dict(out, reads=reads, time=timed, pools=pools)
 
 
@@ -1827,6 +1844,136 @@ def check_splat(h, results) -> None:
                      library_ms=None)
 
 
+# kernel I's cases: (name, viewport (vh, vw), white and yolk canvas sizes):
+# the 1M draw's (eggs_1m.frames), the heap's (eggs_64.frames) and the
+# default handler's (default_4k.frames; the demo's window)
+COMPOSITE_SHAPES = (("1m", (2560, 2560), (2560, 2560)),
+                    ("heap", (2048, 2048), (2048, 1024)),
+                    ("default", (800, 800), (512, 256)),
+                    ("demo", (600, 800), (512, 256)))
+
+
+def composite_corners(vh: int, vw: int, s: int) -> dict:
+    """White canvas corners (x, y) inside, partly off every edge, wholly
+    off, and whole, with fractional parts."""
+    mx, my = (vw - s) / 2, (vh - s) / 2
+    return {"inside": (mx + 0.37, my + 0.81),
+            "off_left": (-s / 2 - 0.25, my + 0.5),
+            "off_right": (vw - s / 2 + 0.75, my + 0.125),
+            "off_top": (mx + 0.5, -s / 2 - 0.999),
+            "off_bottom": (mx + 0.25, vh - s / 2 + 0.125),
+            "off_top_left": (-s / 3 - 0.5, -s / 5 - 0.75),
+            "gone": (vw + 3.5, -s - 10.25),
+            "whole": (float(int(mx)) - 3.0, float(int(my)) + 5.0)}
+
+
+def composite_case(dev, seed: int, vh: int, vw: int, sizes, factor: int,
+                   corner):
+    """Seeded straight RGBA (colour below 0 and alpha past 1, as the
+    lighting gives them) of both populations at ``canvas / factor``, the
+    yolk's corner centred on the white's, as (rgba, s, corner) pairs."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pops = []
+    for i, s in enumerate(sizes):
+        src = torch.rand((s // factor, s // factor, 4), generator=g) * 1.3 - 0.1
+        off = (sizes[0] - s) / 2 + (0.3 if i else 0.0)
+        c = torch.tensor([corner[0] + off, corner[1] + off + 0.3 * i],
+                         dtype=torch.float32)
+        pops.append((src.to(dev), s, c.to(dev)))
+    return pops
+
+
+def composite_frame(fn, pops, vh: int, vw: int):
+    """White over zero, then yolk over white, through ``fn``."""
+    import torch
+    frame = torch.empty((vh, vw, 4), dtype=torch.float32,
+                        device=pops[0][0].device)
+    for i, (rgba, s, corner) in enumerate(pops):
+        fn(frame, rgba, s, corner, over_zero=i == 0)
+    return frame
+
+
+def check_composite(dev, results) -> None:
+    """Kernel I (``csrc/composite.cu``) against its plain version (the
+    matrix route, cuBLAS's FP32 products) on the card: the composite of
+    both populations, white over zero then yolk over white, at the 1M
+    draw's, the heap's, the default handler's and the demo's shapes,
+    factors 1, 2 and 4, corners inside, off every edge and wholly off; the
+    upsample of one and of three channels at factors 2 and 4. Then the 1M
+    draw's tail timed as it runs there (two composites and the two raw
+    alpha canvases at factor 4) against the plain route, and against the
+    upsamples through the matrix products alone (``library_ms``)."""
+    import torch
+    from egg_fluid_simulation_tpu_torch.ops.kernels import composite_kernel as CK
+    worst, n = 0.0, 0
+    for name, (vh, vw), sizes in COMPOSITE_SHAPES:
+        errs = {}
+        for factor in (1, 2, 4):
+            for cname, corner in composite_corners(vh, vw, sizes[0]).items():
+                pops = composite_case(dev, SEED + n, vh, vw, sizes, factor,
+                                      corner)
+                n += 1
+                got = composite_frame(CK.composite, pops, vh, vw)
+                want = composite_frame(CK.composite_plain, pops, vh, vw)
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"composite {name} x{factor} "
+                                         f"{cname}: frame not finite")
+                errs[f"x{factor}.{cname}"] = float((got - want).abs().max())
+        for factor in (2, 4):
+            for channels in (1, 3):
+                s_in = sizes[0] // factor
+                shape = (s_in, s_in) if channels == 1 else (s_in, s_in, channels)
+                img = torch.rand(shape, device=dev)
+                errs[f"upsample.x{factor}.c{channels}"] = float(
+                    (CK.upsample(img, sizes[0])
+                     - CK.upsample_plain(img, sizes[0])).abs().max())
+        same = CK.upsample(img, s_in) is img
+        err = max(errs.values())
+        worst = max(worst, err)
+        log("check.composite", shape=name, viewport=f"{vh}x{vw}",
+            canvases=sizes, max_abs_err=err,
+            worst_case=max(errs, key=errs.get), tol=COMPOSITE_TOL,
+            factor_1_upsample_is_input=same)
+        if not (err <= COMPOSITE_TOL and same):
+            raise AssertionError(f"composite {name} disagrees with its plain "
+                                 f"version: {errs}")
+
+    # the 1M draw's tail: white and yolk composited, both raw canvases
+    (vh, vw), sizes = COMPOSITE_SHAPES[0][1:]
+    pops = composite_case(dev, SEED, vh, vw, sizes, 4,
+                          composite_corners(vh, vw, sizes[0])["inside"])
+    alphas = [rgba[..., 3].contiguous() for rgba, _, _ in pops]
+
+    def tail(comp, up):
+        composite_frame(comp, pops, vh, vw)
+        for a, (_, s, _) in zip(alphas, pops):
+            up(a, s)
+
+    ms = cuda_ms(lambda: tail(CK.composite, CK.upsample), 20, warmup=2)
+    plain_ms = cuda_ms(lambda: tail(CK.composite_plain, CK.upsample_plain),
+                       10, warmup=2)
+    library_ms = cuda_ms(lambda: [CK.upsample_plain(rgba, s) for rgba, s, _
+                                  in pops] + [CK.upsample_plain(a, s) for a, s
+                                              in zip(alphas, sizes)], 10,
+                         warmup=2)
+    covered = vh * vw              # both canvases cover the 2560 px viewport
+    moved = (vh * vw * 16          # the white's frame writes
+             + 2 * covered * 16    # the yolk's frame reads and writes
+             + sum(s * s * 4 for s in sizes)       # the raw canvases
+             + 2 * sum(nbytes(rgba) for rgba, _, _ in pops)  # each source
+             )                                     # read by two launches
+    ops = 2 * covered * COMPOSITE_OPS + sum(s * s for s in sizes) * UPSAMPLE_OPS
+    b_ms, b_by = bound(ops, moved)
+    log("check.composite.time", viewport=f"{vh}x{vw}", canvases=sizes,
+        factor=4, launches=4, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        library_ms=round(library_ms, 4), bound_ms=round(b_ms, 4),
+        bound_by=b_by, share=round(b_ms / ms, 4), bytes=moved)
+    results["composite"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=library_ms)
+
+
 def slot_major_candidates(payload, counts, opts):
     """Kernel G's input from the render payload: per tile, its window
     candidates stable-compacted (occupied slots first, raster bin order),
@@ -2131,10 +2278,12 @@ def check_sweep(ordered_planes, results) -> None:
 
 
 def reset_counters() -> None:
+    from egg_fluid_simulation_tpu_torch.ops.kernels import composite_kernel as CK
     from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
     from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
     from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
     from egg_fluid_simulation_tpu_torch.ops.kernels import sweep_kernel as SK
+    CK.launches = CK.upsample_launches = 0
     PK.launches = SPK.launches = SPK.tiles_launches = 0
     SK.launches = SK.sweep_launches = SK.sweep_sym_launches = 0
     SK.count_launches = GK.launches = GK.count_launches = 0
@@ -2142,6 +2291,7 @@ def reset_counters() -> None:
 
 
 def read_counters() -> dict:
+    from egg_fluid_simulation_tpu_torch.ops.kernels import composite_kernel as CK
     from egg_fluid_simulation_tpu_torch.ops.kernels import gather_kernel as GK
     from egg_fluid_simulation_tpu_torch.ops.kernels import place_kernel as PK
     from egg_fluid_simulation_tpu_torch.ops.kernels import splat_kernel as SPK
@@ -2152,7 +2302,8 @@ def read_counters() -> dict:
             "sweep_planes_sym": SK.sweep_sym_launches,
             "splat_tiles": SPK.tiles_launches,
             "gather_sweep": GK.launches, "gather_count": GK.count_launches,
-            "gather_front": GK.front_launches}
+            "gather_front": GK.front_launches,
+            "composite": CK.launches, "upsample": CK.upsample_launches}
 
 
 # each kernel's symbol in csrc/, as a profiler trace names its launches
@@ -2165,7 +2316,9 @@ KERNEL_SYMBOLS = {"place_planes": "place_planes_kernel",
                   "splat_tiles": "splat_tiles_kernel",
                   "gather_sweep": "gather_sweep_kernel",
                   "gather_count": "gather_count_kernel",
-                  "gather_front": "gather_front_kernel"}
+                  "gather_front": "gather_front_kernel",
+                  "composite": "composite_kernel",
+                  "upsample": "upsample_kernel"}
 
 
 def kernel_counts(prof) -> dict:
@@ -2211,6 +2364,7 @@ def plane_launches(opts, n_steps: int) -> dict:
     return {"place_planes": 0 if ordered else 2 * n_steps * bins,
             "substep_pass": 0, "splat": 0, "splat_tiles": 0,
             "gather_sweep": 0, "gather_count": 0, "gather_front": 0,
+            "composite": 0, "upsample": 0,
             "count_planes": 2 * n_steps * bins if ordered else 0,
             "sweep_planes": 0 if opts.sweep_symmetric else sweep,
             "sweep_planes_sym": sweep if opts.sweep_symmetric else 0}
@@ -2299,16 +2453,20 @@ def gather_phases(dev, results) -> None:
     passes = 2 * opts.n_substeps * opts.n_collision_steps
     counted = opts.budget_mode == "ordered"
 
+    render = ("splat", "composite", "upsample")    # the draw's C and I
+
     def want_h(n_steps):
         return {n: (passes * n_steps if n in ("gather_sweep", "gather_front")
                     or (n == "gather_count" and counted) else 0)
-                for n in path_launches if n != "splat"}
+                for n in path_launches if n not in render}
 
     if (path_launches["splat"] < 2
-            or {n: v for n, v in path_launches.items() if n != "splat"}
+            or path_launches["composite"] != path_launches["splat"]
+            or {n: v for n, v in path_launches.items() if n not in render}
             != want_h(GATHER_UPDATES)
-            or res_launches != {**want_h(GATHER_RESIDENT), "splat": 0}
-            or {n: v for n, v in path_wrappers.items() if n != "splat"}
+            or res_launches != {**want_h(GATHER_RESIDENT),
+                                **dict.fromkeys(render, 0)}
+            or {n: v for n, v in path_wrappers.items() if n not in render}
             != want_h(2) or any(res_wrappers.values())):
         raise AssertionError(f"gather path: launch counts {path_launches}, "
                              f"after run_steps {res_launches}, expected "
@@ -2562,7 +2720,9 @@ def check_spatial_graph(hs, viewport) -> dict:
               {"sweep_planes": per * n}),
              ("run_steps.calm", lambda: hs.run_steps(n, step_delta=CALM_DT),
               {"sweep_planes": per * n}),
-             ("draw", lambda: hs.draw(viewport=viewport), {"splat": 2}))
+             # the spatial draw returns no raw canvas: no upsample
+             ("draw", lambda: hs.draw(viewport=viewport),
+              {"splat": 2, "composite": 2}))
     traced_launches, taken = {}, {}
     for name, unit, want in units:
         if name == "draw":
@@ -3909,6 +4069,7 @@ def main() -> int:
     check_place_shapes(dev, results)
     check_substep(h, results)
     check_splat(h, results)
+    check_composite(dev, results)
     check_splat_tiles(h, results)
     check_sweep(check_count(hp, results), results)
     check_sweep_shapes(dev, results)
@@ -3955,10 +4116,13 @@ def main() -> int:
     if not (launches["place_planes"] == 2 * n_steps
             and launches["substep_pass"] == per * n_steps
             and launches["splat"] >= 2 * n_steps
+            and launches["composite"] == launches["splat"]
+            and launches["upsample"] == launches["splat"]
             and launches["count_planes"] == launches["sweep_planes"]
             == launches["sweep_planes_sym"] == launches["splat_tiles"] == 0
             and all(run["wrappers"][n] > 0
-                    for n in ("place_planes", "substep_pass", "splat"))):
+                    for n in ("place_planes", "substep_pass", "splat",
+                              "composite", "upsample"))):
         raise AssertionError(f"unexpected kernel launch counts {launches}, "
                              f"wrappers {run['wrappers']}")
 
@@ -4097,9 +4261,11 @@ def main() -> int:
     if not (bool(torch.isfinite(frame_p).all())
             and float(frame_p[..., 3].max()) > 0.5):
         raise AssertionError("plane path: frame is not finite or empty")
-    if ({n: v for n, v in plane_launches_run.items() if n != "splat"}
-            != {n: v for n, v in want.items() if n != "splat"}
+    render = ("splat", "composite", "upsample")    # the draw's C and I
+    if ({n: v for n, v in plane_launches_run.items() if n not in render}
+            != {n: v for n, v in want.items() if n not in render}
             or plane_launches_run["splat"] < 2
+            or plane_launches_run["composite"] != plane_launches_run["splat"]
             or not all(run["wrappers"][n] > 0 for n, v in want.items() if v)):
         raise AssertionError(f"plane path: launch counts {plane_launches_run}"
                              f", expected {want} and >= 2 splats")
@@ -4295,7 +4461,10 @@ def main() -> int:
              ("gather_count", src + "gather_pairs.cu", no_tpu),
              ("gather_front", src + "gather_pairs.cu", no_tpu),
              ("gather_front.sharded", src + "gather_pairs.cu", no_tpu),
-             ("gather_sweep.sharded", src + "gather_pairs.cu", no_tpu)]
+             ("gather_sweep.sharded", src + "gather_pairs.cu", no_tpu),
+             ("composite", src + "composite.cu",
+              "none (XLA computes the upsample as matrix products and fuses "
+              "the paste, egg_fluid_simulation_tpu/ops/render.py:652, :917)")]
     # kernel G has no caller on any path: its launches are its check's
     launches["splat_tiles"] = results["splat_tiles"]["launches"]
     # D and C on the spatial path: that phase's own launches

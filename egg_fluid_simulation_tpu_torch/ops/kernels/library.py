@@ -60,6 +60,8 @@ _SIGNATURES = {
     "egg_gather_sweep": [_C_PTR] * 10 + [_C_INT] * 5 + [_C_PTR] * 2,
     "egg_empty": [_C_PTR],
     "egg_if_node": [_C_PTR] * 3,
+    "egg_composite": [_C_PTR] * 3 + [_C_INT] * 5 + [_C_PTR],
+    "egg_upsample": [_C_PTR] * 2 + [_C_INT] * 3 + [_C_PTR],
 }
 
 _lock = threading.Lock()

@@ -12,15 +12,16 @@ pipeline: ``simulation_handler.lua:1992-2175`` plus the four shaders.
 3. **Lighting** — thresholded alpha, Sobel normal, Blinn-Phong specular and
    a smoothstepped lambert shadow.
 4. **Composite** — per population, outline under lighting, canvas placed at
-   ``centroid - canvas/2``, white before yolk, alpha blending.
+   ``centroid - canvas/2``, white before yolk, alpha blending: the post
+   pass's RGBA upsampled to the canvas, shifted and pasted in one pass over
+   the viewport (kernel I on CUDA, ``kernels/composite_kernel.py``).
 
 Canvases are sized per population to the particle AABB plus the reference's
 velocity padding, snapped to a static bucket and clamped at 2560.
 
-Precision: float32 throughout. The only matrix products are the bilinear
-interpolation matrices of :func:`_resize_linear_up`; TF32 is switched off
-below so they run in full float32 (the JAX package left them to XLA, outside
-any kernel, in float32 as well).
+Precision: float32 throughout. The bilinear upsample is kernel I on CUDA;
+its plain version on the CPU is the JAX package's pair of interpolation
+matrix products, which run in full float32 (TF32 is switched off below).
 
 The JAX package jits :func:`_render_frame` into one program. Here it is one
 CUDA graph replay on a CUDA handler (``ops/render_graph.py``), so nothing in
@@ -38,7 +39,6 @@ read, render and re-render is a span (``utils.profiling.span``:
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -50,7 +50,9 @@ from ..config import population_config
 from ..utils.mathx import EPS
 from ..utils.profiling import span
 from .grid import count_pairs
-from .kernels import splat_kernel
+from .kernels import composite_kernel, splat_kernel
+# the plain paste and upsampling matrix, reachable from the render as before
+from .kernels.composite_kernel import _paste_src_over_frac, _resize_matrix  # noqa: F401
 
 __all__ = ["RenderOptions", "CANVAS_BUCKETS", "splat_population",
            "outline_pass", "lighting_pass", "render_population",
@@ -319,44 +321,12 @@ def splat_population(pos, last_pos, vel, radius, color, active,
     return alpha, rgb, audit
 
 
-@functools.lru_cache(maxsize=16)
-def _resize_matrix(s_out: int, s_in: int, device: torch.device) -> torch.Tensor:
-    """(s_out, s_in) row-interpolation matrix of a 'linear' UPSAMPLE
-    (half-pixel centres, edge clamp), made once on ``device`` by device ops
-    (no copy from the host: a render's first, eager call makes it under the
-    sync check, before the render is captured)."""
-    pos = (torch.arange(s_out, dtype=torch.float64, device=device) + 0.5) \
-        * (s_in / s_out) - 0.5
-    lo = torch.floor(pos)
-    w = (pos - lo).to(torch.float32)
-    lo = lo.to(torch.int64)
-    m = torch.zeros((s_out, s_in), dtype=torch.float32, device=device)
-    m.scatter_add_(1, torch.clamp(lo, 0, s_in - 1)[:, None], (1.0 - w)[:, None])
-    m.scatter_add_(1, torch.clamp(lo + 1, 0, s_in - 1)[:, None], w[:, None])
-    return m
-
-
-def _resize_linear_up(img: torch.Tensor, s_out: int) -> torch.Tensor:
-    """Bilinear upsample of a square (S, S[, C]) image via interpolation
-    matrix products (full float32: TF32 is off)."""
-    s_in = img.shape[0]
-    if s_out == s_in:
-        return img
-    if s_out < s_in:
-        raise ValueError("the matrix path is an upsampler")
-    m = _resize_matrix(s_out, s_in, img.device)
-    if img.dim() == 2:
-        return m @ img @ m.T
-    t = torch.einsum("oi,ijc->ojc", m, img)
-    return torch.einsum("pj,ojc->opc", m, t)
-
-
 def upsample_splat(alpha, rgb, opts: RenderOptions):
     """Bilinear upsample of a coarse-evaluated splat canvas to full res."""
     s_full = opts.canvas_size
-    alpha = _resize_linear_up(alpha, s_full)
+    alpha = composite_kernel.upsample(alpha, s_full)
     if rgb is not None and rgb.dim() == 3:
-        rgb = _resize_linear_up(rgb, s_full)
+        rgb = composite_kernel.upsample(rgb, s_full)
     return alpha, rgb
 
 
@@ -515,23 +485,24 @@ def render_population(alpha, rgb, cfg, thresholding_threshold,
 def post_population(alpha, rgb, cfg, threshold, smoothness,
                     use_lighting: bool, opts: RenderOptions,
                     outline_thickness: Optional[float] = None):
-    """The straight RGBA canvas (``opts.canvas_size`` square) of one
-    population from its splat at the effective resolution: outline and
-    lighting at the resolution ``opts.post_mode`` names (the effective one,
-    upsampled after; the canvas's; twice the canvas's, box-filtered)."""
+    """The straight RGBA of one population from its splat at the effective
+    resolution: outline and lighting at the resolution ``opts.post_mode``
+    names, returned at the effective resolution (``"coarse"``), the
+    canvas's (``"full"``) or twice the canvas's box-filtered to it
+    (``"super"``); :func:`composite_kernel.composite` upsamples it to the
+    canvas as it pastes it."""
     s = opts.canvas_size
     if opts.post_mode == "coarse":
-        rgba = render_population(alpha, rgb, cfg, threshold, smoothness,
+        return render_population(alpha, rgb, cfg, threshold, smoothness,
                                  use_lighting, opts,
                                  px_scale=float(opts.downsample),
                                  outline_thickness=outline_thickness)
-        return _resize_linear_up(rgba, s) if opts.downsample > 1 else rgba
     scale = 1 if opts.post_mode == "full" else 2
     e = s * scale
-    alpha_hi = alpha if alpha.shape[0] == e else _resize_linear_up(alpha, e)
+    alpha_hi = composite_kernel.upsample(alpha, e)
     rgb_hi = None
     if rgb is not None and rgb.dim() == 3:
-        rgb_hi = rgb if rgb.shape[0] == e else _resize_linear_up(rgb, e)
+        rgb_hi = composite_kernel.upsample(rgb, e)
     rgba = render_population(alpha_hi, rgb_hi, cfg, threshold, smoothness,
                              use_lighting, opts, px_scale=1.0 / scale,
                              outline_thickness=outline_thickness)
@@ -573,12 +544,9 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
         rgba = post_population(alpha, rgb, cfg, threshold, smoothness,
                                use_lighting, opts,
                                None if thickness is None else thickness[i])
-        if opts.downsample > 1:
-            alpha = _resize_linear_up(alpha, opts.canvas_size)
-        return rgba, alpha, audit
+        return rgba, composite_kernel.upsample(alpha, opts.canvas_size), audit
 
-    screen_rgb = torch.zeros((vh, vw, 3), dtype=torch.float32, device=dev)
-    screen_a = torch.zeros((vh, vw), dtype=torch.float32, device=dev)
+    frame = torch.empty((vh, vw, 4), dtype=torch.float32, device=dev)
     canvases = []
     audits = []
     for i in (0, 1):  # white first, then yolk (:2163-2171)
@@ -589,51 +557,9 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
         # content is centred on the INTERPOLATED centroid but pasted at the
         # END-OF-STEP centroid, exactly like the reference
         corner = stats.centroid[i] - 0.5 * opts2[i].canvas_size - viewport_origin
-        screen_rgb, screen_a = _paste_src_over_frac(screen_rgb, screen_a,
-                                                    rgba, corner)
-
-    frame = torch.cat([screen_rgb, screen_a[..., None]], dim=-1)
+        composite_kernel.composite(frame, rgba, opts2[i].canvas_size, corner,
+                                   over_zero=i == 0)
     return frame, tuple(canvases), torch.stack(audits)
-
-
-def _paste_src_over_frac(dst_rgb, dst_a, src_rgba, corner):
-    """Fractional-position paste: bilinear-shift the canvas by the corner's
-    fractional part, then integer-paste at the corner's floor, which stays
-    on the device."""
-    ci = torch.floor(corner)
-    frac = corner - ci                                       # in [0, 1)
-    fx, fy = frac[0], frac[1]
-    p = torch.nn.functional.pad(src_rgba, (0, 0, 1, 1, 1, 1))
-    s00 = p[1:-1, 1:-1]
-    s01 = p[1:-1, :-2]                                       # x-1
-    s10 = p[:-2, 1:-1]                                       # y-1
-    s11 = p[:-2, :-2]
-    shifted = (s00 * (1 - fx) * (1 - fy) + s01 * fx * (1 - fy)
-               + s10 * (1 - fx) * fy + s11 * fx * fy)
-    x0, y0 = ci.to(torch.int64)
-    return _paste_src_over(dst_rgb, dst_a, shifted, x0, y0)
-
-
-def _paste_src_over(dst_rgb, dst_a, src_rgba, x0, y0):
-    """Alpha-blend a canvas onto the screen at integer offset (x0, y0), 0-dim
-    integer tensors on the device, clipped to the viewport: screen pixel
-    (y, x) takes canvas pixel (y - y0, x - x0), zero off the canvas (the
-    JAX package's ``dynamic_slice`` of a padded canvas, without the pad)."""
-    vh, vw = dst_a.shape
-    s = src_rgba.shape[0]
-    dev = src_rgba.device
-    ry = torch.arange(vh, device=dev) - y0
-    rx = torch.arange(vw, device=dev) - x0
-    inside = (((ry >= 0) & (ry < s))[:, None]
-              & ((rx >= 0) & (rx < s))[None, :])
-    placed = src_rgba.index_select(0, torch.clamp(ry, 0, s - 1)) \
-        .index_select(1, torch.clamp(rx, 0, s - 1))
-    placed = torch.where(inside[..., None], placed, 0.0)
-    src_a = torch.clamp(placed[..., 3], 0.0, 1.0)
-    src_rgb = placed[..., :3]
-    out_rgb = src_rgb * src_a[..., None] + dst_rgb * (1.0 - src_a[..., None])
-    out_a = src_a + dst_a * (1.0 - src_a)
-    return out_rgb, out_a
 
 
 def frame_options(handler, stats=None) -> Tuple[RenderOptions, RenderOptions]:

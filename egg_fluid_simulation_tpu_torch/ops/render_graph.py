@@ -27,13 +27,14 @@ JAX package's static arguments (``opts2``, ``use_lighting``, ``vw``,
 sample offsets are formed from them on the host), the capacity, the number
 of batch slots and the device. The first call of a key renders eagerly
 under ``torch.cuda.set_sync_debug_mode("error")`` (a device read or a
-synchronising host copy there raises, naming the op; it also makes the
-upsampling matrices, which must not be made inside a capture) and then
-captures. A failed capture raises: nothing falls back to the eager render.
+synchronising host copy there raises, naming the op) and then captures. A
+failed capture raises: nothing falls back to the eager render.
 
-A replay moves no Python counter: kernel C's ``launches`` counts eager
-renders and captures (two a render); replayed launches are counted from a
-profiler trace by kernel symbol.
+A replay moves no Python counter: kernel C's ``launches`` and kernel I's
+``launches`` and ``upsample_launches`` count eager renders and captures
+(two composites and two splats a render, an upsample a canvas evaluated
+below its size); replayed launches are counted from a profiler trace by
+kernel symbol.
 
 ``RenderGraph(..., capture=False)`` replays by running the render eagerly
 and copying its outputs into the static outputs: the same plumbing on any

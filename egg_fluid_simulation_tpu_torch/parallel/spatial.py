@@ -59,7 +59,7 @@ from ..ops import dense as dense_ops
 from ..ops import render as render_ops
 from ..ops import solver as solver_ops
 from ..ops.grid import segment_extent
-from ..ops.kernels import sweep_kernel
+from ..ops.kernels import composite_kernel, sweep_kernel
 from ..ops.solver import SolverOptions, _copy_into
 from ..state import PARTICLE_FIELDS, ParticleState, StepStats
 from ..utils.mathx import EPS, torch_mix
@@ -991,8 +991,7 @@ def draw_frame(mesh: Mesh, state: ParticleState, stats: StepStats,
     alpha_t = interpolation_alpha
     centers = (stats.last_centroid
                + (stats.centroid - stats.last_centroid) * alpha_t)
-    screen_rgb = torch.zeros((vh, vw, 3), **f32)
-    screen_a = torch.zeros((vh, vw), **f32)
+    frame = torch.empty((vh, vw, 4), **f32)
     audits = []
     for i in (0, 1):  # white first, then yolk (:2163-2171)
         opts = opts2[i]
@@ -1012,12 +1011,12 @@ def draw_frame(mesh: Mesh, state: ParticleState, stats: StepStats,
         # pasted at the RAW centroid like the reference (:2132-2133);
         # only the splat centres on the interpolated one
         corner = stats.centroid[i] - 0.5 * opts.canvas_size - viewport_origin
-        screen_rgb, screen_a = render_ops._paste_src_over_frac(
-            screen_rgb, screen_a, rgba, corner)
+        composite_kernel.composite(frame, rgba, opts.canvas_size, corner,
+                                   over_zero=i == 0)
     audits = torch.stack(audits)
     audits = torch.stack([mesh.psum(audits[:, 0], "render"),
                           mesh.pmax(audits[:, 1], "render")], dim=1)
-    return torch.cat([screen_rgb, screen_a[..., None]], dim=-1), audits
+    return frame, audits
 
 
 def check_draw_options(opts2) -> None:

@@ -92,7 +92,8 @@ KERNEL_NAMES = ("place_planes_kernel", "substep_pass_kernel",
 BASELINE_PLACE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 # entry points a baseline's sources may lack (added with kernel H's front)
-BASELINE_OPTIONAL = ("egg_gather_front", "egg_empty", "egg_if_node")
+BASELINE_OPTIONAL = ("egg_gather_front", "egg_empty", "egg_if_node",
+                     "egg_composite", "egg_upsample")
 
 
 def baseline_place(lib, cell_sorted, slot_sorted, pidx_sorted, pack, g, k):
