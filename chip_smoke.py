@@ -933,7 +933,7 @@ def draw_outputs(h, viewport, check_overflow: bool = True):
     """One fresh ``draw``: (frame, white canvas, yolk canvas, audit)."""
     h._frames = None
     frame = h.draw(viewport=viewport, check_overflow=check_overflow)
-    return (frame, *h._canvases, h._render_audit)
+    return (frame, *h._canvases, h._render_budget.audit)
 
 
 def check_draw_graph(h, scene: str, viewport) -> dict:
@@ -974,7 +974,7 @@ def check_draw_graph(h, scene: str, viewport) -> dict:
     finite = bool(torch.isfinite(replay[0]).all())
     dropped = int(replay[3][:, 0].sum())
     out = dict(particles=h.get_n_particles(), viewport=viewport,
-               canvas=[o.canvas_size for o in R.frame_options(h)],
+               canvas=[o.canvas_size for o in h._frame_options()],
                cases=[*DRAW_ALPHAS, "update"], replayed=replayed,
                unequal=unequal,
                max_abs_err=worst, tol=f"bit for bit, fails beyond {DRAW_TOL}",
@@ -994,7 +994,7 @@ def check_draw_graph(h, scene: str, viewport) -> dict:
     # kernel I: a composite a population, an upsample a raw canvas that
     # was evaluated below the canvas size
     expect = {"splat": 2, "composite": 2,
-              "upsample": sum(o.downsample > 1 for o in R.frame_options(h))}
+              "upsample": sum(o.downsample > 1 for o in h._frame_options())}
     timed = graph_vs_eager(h, f"{scene}.draw", unit, DRAW_UNITS, DRAW_BLOCKS,
                            expect=expect, line="draw_graph")
     # where a replayed draw's device time goes, kernel by kernel
@@ -1062,13 +1062,13 @@ def check_draw_overflow(dev) -> dict:
     R.host_reads = 0
     first = draw_outputs(h, viewport)
     reads_first = R.host_reads
-    boost = list(h._render_k_boost)
+    boost = list(h._render_budget.k_boost)
     captures = h._render_graphs.captures
     R.host_reads = 0
     again = draw_outputs(h, viewport)
     reads_again = R.host_reads
-    h._render_k_boost = [1.0, 1.0]
-    h._render_peak_density = [None, None]
+    h._render_budget.k_boost = [1.0, 1.0]
+    h._render_budget.peak_density = [None, None]
     with eager_graphs(h):
         eager = draw_outputs(h, viewport)
     # the first draw's renders were eager (the first of each key); the
@@ -1078,7 +1078,7 @@ def check_draw_overflow(dev) -> dict:
                for name, a, b in zip(("frame", "white", "yolk", "audit"),
                                      got, eager)
                if not torch.equal(a, b)]
-    out = dict(boost=boost, eager_boost=list(h._render_k_boost),
+    out = dict(boost=boost, eager_boost=list(h._render_budget.k_boost),
                captures=captures, captures_after=h._render_graphs.captures,
                host_reads_first=reads_first, host_reads_again=reads_again,
                dropped_first=first[3][:, 0].tolist(),
@@ -1420,7 +1420,7 @@ def splat_case(h, pop: int, post_mode: str, use_rgb: bool):
     gen = torch.Generator(device=dev).manual_seed(SEED + pop)
     color = torch.cat([torch.rand((cap, 3), generator=gen, device=dev),
                        torch.ones((cap, 1), device=dev)], 1)
-    opts = dataclasses.replace(R.frame_options(h)[pop], post_mode=post_mode,
+    opts = dataclasses.replace(h._frame_options()[pop], post_mode=post_mode,
                                use_particle_color=use_rgb)
     payload, audit, counts = R._splat_payload(
         st.pos[pop, :cap], st.last_pos[pop, :cap], st.vel[pop, :cap],
@@ -1447,7 +1447,7 @@ def check_path_splat(h, phase: str, results) -> None:
     a = torch.tensor(h.interpolation_alpha, dtype=torch.float32,
                      device=st.device)
     active = st.active_mask()
-    opts2 = R.frame_options(h)
+    opts2 = h._frame_options()
     errs = {}
     for pop, name in ((0, "white"), (1, "yolk")):
         cap = min(h._options.pop_caps[pop], st.capacity)
@@ -2014,7 +2014,7 @@ def splat_tiles_case(h):
     st = h.state
     cap = h._options.pop_caps[0]
     cfg = population_config(h._device_cfg2(), 0)
-    opts = R.frame_options(h)[0]
+    opts = h._frame_options()[0]
     payload, _, counts = R._splat_payload(
         st.pos[0, :cap], st.last_pos[0, :cap], st.vel[0, :cap],
         st.radius[0, :cap], st.color[0, :cap], st.active_mask()[0, :cap],
@@ -2651,19 +2651,17 @@ def spatial_snapshot(hs):
     """What a spatial handler's step, resident steps or draw reads and
     writes (the inner handler's render budget and audit too), to start two
     runs from."""
-    inner = hs._inner
+    budget = hs._inner._render_budget
     return (hs._sp_state, hs._sp_stats, hs._sp_wide, hs._elapsed,
             hs._interpolation_alpha, hs._redistribute_count, hs._last_info,
-            list(inner._render_k_boost), list(inner._render_peak_density),
-            inner._render_audit)
+            list(budget.k_boost), list(budget.peak_density), budget.audit)
 
 
 def spatial_restore(hs, snap) -> None:
-    inner = hs._inner
+    budget = hs._inner._render_budget
     (hs._sp_state, hs._sp_stats, hs._sp_wide, hs._elapsed,
      hs._interpolation_alpha, hs._redistribute_count, hs._last_info,
-     inner._render_k_boost, inner._render_peak_density,
-     inner._render_audit) = snap
+     budget.k_boost, budget.peak_density, budget.audit) = snap
 
 
 def spatial_unequal(a, b) -> tuple:
@@ -2737,14 +2735,14 @@ def check_spatial_graph(hs, viewport) -> dict:
         rebins = (graphs.rebins - before).tolist()
         reads = S.host_reads
         got = (hs.state, hs.stats, hs._sp_wide, hs.last_migration_info,
-               frame, hs._inner._render_audit)
+               frame, hs._inner._render_budget.audit)
         spatial_restore(hs, snap)
         S.host_reads = 0
         S.rebins[:] = [0, 0]
         with eager_graphs(hs):
             frame = unit()
         want_out = (hs.state, hs.stats, hs._sp_wide, hs.last_migration_info,
-                    frame, hs._inner._render_audit)
+                    frame, hs._inner._render_budget.audit)
         unequal, stats_err, frame_err = spatial_unequal(got, want_out)
         launches = run["trace"]
         wrong = {k: v for k, v in launches.items() if v != want.get(k, 0)}
@@ -2966,8 +2964,8 @@ def spatial_phase(dev, results) -> dict:
     log("spatial_1x1.draw_audit",
         dropped_before_boost=audits_read[0][:, 0].tolist(),
         peak_bin_occupancy=audits_read[0][:, 1].tolist(),
-        boost=hs._inner._render_k_boost,
-        peak_density=hs._inner._render_peak_density,
+        boost=hs._inner._render_budget.k_boost,
+        peak_density=hs._inner._render_budget.peak_density,
         renders=len(audits_read), dropped=first_audit[:, 0].tolist())
     if first_audit[:, 0].sum() != 0:
         raise AssertionError("spatial_1x1: the audited draw dropped splats "
@@ -3132,7 +3130,7 @@ def spatial_phase(dev, results) -> dict:
     # ---- kernel C on the payload of SpatialHandler.draw ----
     st, stats = hs.state, hs.stats
     a = torch.tensor(hs.interpolation_alpha, dtype=torch.float32, device=dev)
-    opts2 = hs._frame_options()
+    opts2 = hs._inner._frame_options(hs.stats)
     rc = results.setdefault("splat.spatial_1x1",
                             dict(max_abs_err=0.0, library_ms=None))
     cerrs, dropped = {}, {}
@@ -3434,8 +3432,8 @@ def _scenario_take(h, snap) -> None:
     h._wide_state = tuple(tuple(torch.from_numpy(x) for x in w)
                           for w in snap["wide"])
     h._elapsed, h._interpolation_alpha = snap["elapsed"], snap["alpha"]
-    h._render_k_boost = list(snap["boost"])
-    h._render_peak_density = list(snap["peak"])
+    h._render_budget.k_boost = list(snap["boost"])
+    h._render_budget.peak_density = list(snap["peak"])
     h._targets_dirty = False
     h._frames = None
 
@@ -3447,8 +3445,8 @@ def scenario_snapshot(h) -> dict:
                 stats={k: v.cpu().numpy() for k, v in vars(h.stats).items()},
                 wide=[[x.cpu().numpy() for x in w] for w in h._wide_or_init()],
                 elapsed=h._elapsed, alpha=h.interpolation_alpha,
-                boost=list(h._render_k_boost),
-                peak=list(h._render_peak_density))
+                boost=list(h._render_budget.k_boost),
+                peak=list(h._render_budget.peak_density))
 
 
 def scenario_cpu_step(task) -> dict:
@@ -3477,7 +3475,7 @@ def scenario_cpu_step(task) -> dict:
         _scenario_take(h, after)
         f = h.draw(viewport=scenarios.SCENARIOS[name].viewport).numpy()
         out.update(frame_err=float(np.abs(f - frame).max()),
-                   boost=list(h._render_k_boost),
+                   boost=list(h._render_budget.k_boost),
                    dropped=int(h.render_audit[:, 0].sum()))
     return out
 
@@ -3507,7 +3505,7 @@ def scenario_card_run(name, dev, pool) -> dict:
         frame = None
         if sc.frames:
             frame = h.draw(viewport=sc.viewport).cpu().numpy()
-            frames.append(dict(boost=list(h._render_k_boost),
+            frames.append(dict(boost=list(h._render_budget.k_boost),
                                dropped=int(h.render_audit[:, 0].sum())))
         befores.append(before)
         afters.append(after)
@@ -3668,7 +3666,7 @@ def dense_cpu_frame(task) -> dict:
     t0 = time.perf_counter()
     f = h.draw(viewport=viewport).numpy()
     return dict(frame_err=float(np.abs(f - card_frame).max()),
-                boost=list(h._render_k_boost),
+                boost=list(h._render_budget.k_boost),
                 dropped=int(h.render_audit[:, 0].sum()),
                 cpu_draw_s=time.perf_counter() - t0)
 
@@ -3947,7 +3945,7 @@ def dense_twins_phase(dev) -> dict:
             viewport = BENCH._canvas_viewport(h)
             frame = h.draw(viewport=viewport)
             sync()
-        card_frame = dict(boost=list(h._render_k_boost),
+        card_frame = dict(boost=list(h._render_budget.k_boost),
                           dropped=int(h.render_audit[:, 0].sum()))
         arith = dense_arithmetic(run["befores"][0]["state"], h, dev)
         frame_fut = pool.submit(dense_cpu_frame, (

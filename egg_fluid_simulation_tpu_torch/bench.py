@@ -73,8 +73,6 @@ import torch.distributed as dist
 
 from . import (SimulationHandler, SolverOptions, SpatialHandler,
                default_white_config, default_yolk_config)
-from .ops import render as R
-from .ops.render_graph import render_handler_frame
 from .ops import solver as S
 from .parallel import spatial as SP
 from .parallel import spatial_bench
@@ -210,12 +208,12 @@ def render_frame_fn(h, viewport, audits=None, alphas=None):
     card). The interpolation alpha is ``alphas[t % len(alphas)]`` (a 1-D
     tensor on the handler's device), else the handler's own. Each frame's
     render audit is appended to ``audits``."""
-    opts2 = R.frame_options(h)
+    opts2 = h._frame_options()
 
     def frame_fn(state, stats, t=0):
         a = None if alphas is None else alphas[t % alphas.shape[0]]
-        f, _, audit = render_handler_frame(h, opts2, viewport, state=state,
-                                           stats=stats, alpha=a, clone=False)
+        f, _, audit = h._render(opts2, viewport, state=state, stats=stats,
+                                alpha=a, clone=False)
         if audits is not None:
             audits.append(audit.clone())
         return torch.sum(f)
@@ -331,7 +329,7 @@ def stage_1m_step(device, n: int, settle: int, block: int, blocks: int):
 def _canvas_viewport(h):
     """``bench.py``'s frame viewport: the largest canvas of the current
     render options, square, centred on the white centroid."""
-    view = float(max(o.canvas_size for o in R.frame_options(h)))
+    view = float(max(o.canvas_size for o in h._frame_options()))
     origin = (h.stats.centroid[0].cpu().numpy() - view / 2.0).astype(np.float32)
     return (float(origin[0]), float(origin[1]), int(view), int(view))
 
@@ -385,12 +383,11 @@ def stage_render_modes(h, block: int, blocks: int) -> dict:
         h._render_post_mode = mode
         try:
             viewport = _canvas_viewport(h)
-            opts2 = R.frame_options(h)
+            opts2 = h._frame_options()
             alphas = _alphas(block, h.device)
 
             def render(a):
-                return render_handler_frame(h, opts2, viewport, alpha=a,
-                                            clone=False)[0]
+                return h._render(opts2, viewport, alpha=a, clone=False)[0]
 
             def loop():
                 acc = torch.zeros((), dtype=torch.float32, device=h.device)

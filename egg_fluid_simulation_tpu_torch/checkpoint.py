@@ -62,7 +62,7 @@ def save(handler, path: str) -> None:
         "use_lighting": handler._use_lighting,
         # overflow-recovery render-budget multipliers: without them a
         # resumed clustered scene drops splats until the next audited draw
-        "render_k_boost": list(handler._render_k_boost),
+        "render_k_boost": list(handler._render_budget.k_boost),
     }
     arrays["host_targets"] = handler._host_targets
     ws = handler._wide_state
@@ -94,7 +94,8 @@ def load(path: str, *, options=None, device="cuda") -> SimulationHandler:
     handler._use_particle_color = meta["use_particle_color"]
     handler._use_lighting = meta["use_lighting"]
     if "render_k_boost" in meta:   # absent in the oldest checkpoints
-        handler._render_k_boost = [float(b) for b in meta["render_k_boost"]]
+        handler._render_budget.k_boost = [float(b)
+                                          for b in meta["render_k_boost"]]
 
     handler._state = state_from_numpy(
         {f.name: data[f"state_{f.name}"] for f in fields(ParticleState)},

@@ -35,6 +35,7 @@ import torch
 
 from . import config as config_mod
 from .config import DeviceConfig, device_config_from_dict, stack_device_configs
+from .ops import render as render_ops
 from .ops import solver as solver_ops
 from .ops.solver import SolverOptions
 from .ops.render_graph import RenderGraphs
@@ -227,11 +228,7 @@ class SimulationHandler:
         self._interpolation_alpha = 0.0
         self._frames: Optional[torch.Tensor] = None  # cached rendered frame
         self._frame_key = None
-        self._render_k_boost = [1.0, 1.0]       # per-pop render-budget multiplier
-        self._render_peak_density = [None, None]  # measured peak bin density
-        self._render_audit: Optional[torch.Tensor] = None
-        self._frame_stats: Optional[np.ndarray] = None  # the stats the last
-        # frame_options read to the host
+        self._render_budget = render_ops.RenderBudget()
         self._canvases: Optional[Tuple[torch.Tensor, ...]] = None  # raw
         # density canvases of the last draw
         self._cfg2_cache: Optional[DeviceConfig] = None
@@ -675,50 +672,91 @@ class SimulationHandler:
         ``(x, y, w, h)`` in world px. Repeated draws without an intervening
         step/recolor return the cached frame (:1996-1999).
         ``check_overflow`` (default ON) audits the per-bin render budget and
-        auto-bumps it until the frame drops zero particles."""
-        from .ops import render as render_ops
+        auto-bumps it until the frame drops zero particles
+        (``render.draw``); ``background`` an optional (r, g, b, a)
+        composited under everything."""
         with span("egg.draw"):
             key = (tuple(viewport) if viewport is not None else None,
                    tuple(background) if background is not None else None,
                    self._interpolation_alpha, bool(check_overflow))
             if self._frames is not None and self._frame_key == key:
                 return self._frames
-            frame = render_ops.draw(self, viewport=viewport,
-                                    background=background,
-                                    check_overflow=check_overflow)
+            if viewport is None:
+                viewport = (0.0, 0.0, 800, 600)
+
+            def render(opts2):
+                frame, self._canvases, audits = self._render(opts2, viewport)
+                return frame, audits
+
+            frame = render_ops.draw(self._render_budget, render, self._stats,
+                                    self._budget_inputs(), background,
+                                    check_overflow)
             self._frames = frame
             self._frame_key = key
             return frame
+
+    def _render(self, opts2, viewport, *, state=None, stats=None,
+                alpha=None, clone: bool = True):
+        """``render._render_frame`` of the handler's state (or ``state`` and
+        ``stats``) at ``opts2`` over ``viewport`` ``(x, y, w, h)`` with the
+        handler's config and scalars, ``alpha`` (a float or a 0-dim device
+        tensor) in place of its interpolation alpha: ``(frame, canvases,
+        audits)``. On a CUDA handler a replay of its render graphs (the
+        outputs cloned unless ``clone`` is false), on the CPU (and while its
+        ``_render_graphs`` is ``EAGER``) the eager render; either is the
+        span ``egg.draw.render``."""
+        with span("egg.draw.render"):
+            state = self._state if state is None else state
+            stats = self._stats if stats is None else stats
+            x, y, w, h = viewport
+            cfg2 = self._device_cfg2()
+            static = dict(opts2=tuple(opts2),
+                          use_lighting=bool(self._use_lighting), vw=int(w),
+                          vh=int(h), pop_caps=self._options.pop_caps,
+                          thickness=self._outline_thickness())
+            scalars = (self._interpolation_alpha if alpha is None else alpha,
+                       self._thresholding_threshold,
+                       self._thresholding_smoothness, (x, y))
+            graphs = self._renderers()
+            if graphs is None:
+                return render_ops._render_frame(
+                    state, stats, cfg2,
+                    *render_ops._frame_scalars(scalars, self._device),
+                    **static)
+            return graphs.run(state, stats, cfg2, scalars, clone=clone,
+                              **static)
+
+    def _budget_inputs(self) -> dict:
+        """What the render budget forms a frame's options from, besides
+        the stats (``render.RenderBudget.options``): the host configs, the
+        live counts and the render settings."""
+        return dict(configs=(self._white_config, self._yolk_config),
+                    counts=self.get_n_particles(),
+                    canvas_size=self._canvas_size,
+                    use_particle_color=self._use_particle_color,
+                    post_mode=self._render_post_mode)
+
+    def _frame_options(self, stats=None):
+        """(white, yolk) RenderOptions of a frame of the current state at
+        the current budget, the handler's stats (or ``stats``, as a spatial
+        handler passes its mesh-wide ones) read once
+        (``render.host_reads``)."""
+        return self._render_budget.read_options(
+            self._stats if stats is None else stats, **self._budget_inputs())
+
+    def _outline_thickness(self) -> Tuple[float, float]:
+        """Each population's outline thickness from the host configs: what
+        the render's outline offsets are formed from."""
+        return (float(self._white_config["outline_thickness"]),
+                float(self._yolk_config["outline_thickness"]))
 
     def seed_render_budget(self) -> None:
         """Measure peak render-bin occupancy host-side and keep it as the
         per-bin splat budget hint, so the first draw of a clustered scene is
         sized right without an auto-bump re-render."""
-        from .ops import render as render_ops
-        opts2 = render_ops.frame_options(self)
+        opts2 = self._frame_options()
         active = self._state.active_mask().cpu().numpy()
-        pos_all = self._state.pos.cpu().numpy()
-        dens = list(self._render_peak_density)
-        for i in range(2):
-            o = opts2[i]
-            wh = o.bin_h * o.downsample          # bin window in full-res px
-            ww = o.bin_w * o.downsample
-            pos = pos_all[i][active[i]]
-            if pos.shape[0] == 0:
-                continue
-            # max over a 2x2 set of half-bin-shifted grids: the render's bins
-            # are anchored to the canvas origin, which is not known here
-            peak = 0
-            for sy in (0.0, 0.5 * wh):
-                for sx in (0.0, 0.5 * ww):
-                    by = np.floor((pos[:, 1] + sy) / wh).astype(np.int64)
-                    bx = np.floor((pos[:, 0] + sx) / ww).astype(np.int64)
-                    by -= by.min()
-                    bx -= bx.min()
-                    cnt = np.bincount(by * (int(bx.max()) + 1) + bx)
-                    peak = max(peak, int(cnt.max()))
-            dens[i] = float(peak) / float(wh * ww)
-        self._render_peak_density = dens
+        self._render_budget.seed(opts2, self._state.pos.cpu().numpy(), active)
 
     # ----------------------------------------------------------- configs --
 
@@ -878,6 +916,5 @@ class SimulationHandler:
     def render_audit(self) -> Optional[np.ndarray]:
         """(2, 2) int [dropped past the per-bin budget, peak bin occupancy]
         per population of the last rendered frame (None before a draw)."""
-        if self._render_audit is None:
-            return None
-        return self._render_audit.cpu().numpy()
+        audit = self._render_budget.audit
+        return None if audit is None else audit.cpu().numpy()

@@ -27,14 +27,19 @@ The JAX package jits :func:`_render_frame` into one program. Here it is one
 CUDA graph replay on a CUDA handler (``ops/render_graph.py``), so nothing in
 it reads the device or copies from the host: the paste lands at a device
 offset, the bin counts have a fixed size, the outline offsets come from the
-host config, and the frame's scalars are fills. :func:`draw` reads the
-device once for the canvas-bucket stats (:func:`frame_options`) and once for
-the overflow audit; ``host_reads`` counts those reads, ``rerenders`` the
-budget's re-renders (:func:`boost_until_clean`), ``rerenders_skipped`` the
-re-renders it skipped because their options equal those just drawn, and
-``dropped`` the splats the audits read on the host found dropped. Each
-read, render and re-render is a span (``utils.profiling.span``:
-``egg.draw.*``).
+host config, and the frame's scalars are fills.
+
+A handler's render budget has one owner, its :class:`RenderBudget`: the
+boosts, the peak-density hints, the host copy of the stats and the last
+audit, and the policy over them. :func:`draw`, the draw of both handlers,
+takes the budget, the handler's render as a callable and plain values; it
+reads the device once for the canvas-bucket stats
+(:meth:`RenderBudget.read_options`) and once for the overflow audit;
+``host_reads`` counts those reads, ``rerenders`` the budget's re-renders
+(:meth:`RenderBudget.audit_frame`), ``rerenders_skipped`` the re-renders it
+skipped because their options equal those just drawn, and ``dropped`` the
+splats the audits read on the host found dropped. Each read and re-render
+is a span (``utils.profiling.span``: ``egg.draw.*``).
 """
 
 from __future__ import annotations
@@ -54,10 +59,10 @@ from .kernels import composite_kernel, splat_kernel
 # the plain paste and upsampling matrix, reachable from the render as before
 from .kernels.composite_kernel import _paste_src_over_frac, _resize_matrix  # noqa: F401
 
-__all__ = ["RenderOptions", "CANVAS_BUCKETS", "splat_population",
-           "outline_pass", "lighting_pass", "render_population",
-           "post_population", "draw", "boost_until_clean", "frame_options",
-           "auto_render_options", "pick_canvas_bucket", "outline_thickness",
+__all__ = ["RenderOptions", "RenderBudget", "CANVAS_BUCKETS",
+           "splat_population", "outline_pass", "lighting_pass",
+           "render_population", "post_population", "draw",
+           "auto_render_options", "pick_canvas_bucket",
            "host_reads", "rerenders", "rerenders_skipped", "dropped"]
 
 # Positions and canvases must never pass through reduced precision.
@@ -68,7 +73,7 @@ torch.backends.cudnn.allow_tf32 = False
 CANVAS_BUCKETS = (256, 512, 1024, 2048, 2560)
 
 host_reads = 0      # device-to-host reads of draw: the stats and the audit
-rerenders = 0       # renders boost_until_clean repeated
+rerenders = 0       # renders RenderBudget.audit_frame repeated
 rerenders_skipped = 0   # re-renders it skipped: options equal to those drawn
 dropped = 0         # splats the audits read on the host found dropped
 
@@ -252,6 +257,26 @@ def _bin_particles(p_canvas, active, opts: RenderOptions, cols):
     return payload, audit, all_counts.to(torch.int32)
 
 
+def _host_peak_density(pos: np.ndarray, opts: RenderOptions) -> float:
+    """The peak bin occupancy of host positions ``pos`` ((n > 0, 2) world
+    px) over the area of a bin of :func:`_bin_particles` at ``opts``
+    (``bin_h * downsample`` by ``bin_w * downsample`` full-resolution px):
+    the max over a 2x2 set of half-bin-shifted grids, because the render's
+    bins are anchored to the canvas origin, which is not known here."""
+    wh = opts.bin_h * opts.downsample
+    ww = opts.bin_w * opts.downsample
+    peak = 0
+    for sy in (0.0, 0.5 * wh):
+        for sx in (0.0, 0.5 * ww):
+            by = np.floor((pos[:, 1] + sy) / wh).astype(np.int64)
+            bx = np.floor((pos[:, 0] + sx) / ww).astype(np.int64)
+            by -= by.min()
+            bx -= bx.min()
+            cnt = np.bincount(by * (int(bx.max()) + 1) + bx)
+            peak = max(peak, int(cnt.max()))
+    return float(peak) / float(wh * ww)
+
+
 def _tile_bins(opts: RenderOptions, device="cpu") -> torch.Tensor:
     """(n_tiles, n_window_bins) bin ids per evaluation tile: every bin
     intersecting the tile dilated by the splat reach (ring-extended bin
@@ -304,8 +329,9 @@ def _splat_payload(pos, last_pos, vel, radius, color, active, canvas_center,
 def splat_population(pos, last_pos, vel, radius, color, active,
                      canvas_center, interpolation_alpha,
                      texture_scale, motion_blur,
-                     opts: RenderOptions, upsample: bool = True):
-    """Accumulated density canvas(es) for one population.
+                     opts: RenderOptions):
+    """Accumulated density canvas(es) for one population, at the effective
+    (downsampled) resolution.
 
     Returns ``(alpha, rgb_or_None, audit)``: ``alpha`` is the screen-blend
     accumulated gaussian density; ``rgb`` only with
@@ -316,18 +342,7 @@ def splat_population(pos, last_pos, vel, radius, color, active,
         interpolation_alpha, texture_scale, motion_blur, opts)
     alpha, rgb = splat_kernel.splat(payload, counts, opts,
                                     use_rgb=opts.use_particle_color)
-    if opts.downsample > 1 and upsample:
-        alpha, rgb = upsample_splat(alpha, rgb, opts)
     return alpha, rgb, audit
-
-
-def upsample_splat(alpha, rgb, opts: RenderOptions):
-    """Bilinear upsample of a coarse-evaluated splat canvas to full res."""
-    s_full = opts.canvas_size
-    alpha = composite_kernel.upsample(alpha, s_full)
-    if rgb is not None and rgb.dim() == 3:
-        rgb = composite_kernel.upsample(rgb, s_full)
-    return alpha, rgb
 
 
 # ------------------------------------------------------- post-process passes --
@@ -524,7 +539,7 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
     ``interpolation_alpha``, ``threshold``, ``smoothness`` are 0-dim float32
     tensors and ``viewport_origin`` a (2,) float32 tensor on the state's
     device. ``thickness``: each population's outline thickness as a host
-    float (:func:`outline_thickness`); without it the outline pass reads
+    float (the host config's); without it the outline pass reads
     ``cfg2``'s from the device. Returns ``(frame (vh, vw, 4), canvases,
     audits (2, 2))``."""
     dev = state.device
@@ -540,7 +555,7 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
             state.pos[i, :cap], state.last_pos[i, :cap], state.vel[i, :cap],
             state.radius[i, :cap], state.color[i, :cap], active[i, :cap],
             centers[i], interpolation_alpha,
-            cfg.texture_scale, cfg.motion_blur, opts, upsample=False)
+            cfg.texture_scale, cfg.motion_blur, opts)
         rgba = post_population(alpha, rgb, cfg, threshold, smoothness,
                                use_lighting, opts,
                                None if thickness is None else thickness[i])
@@ -562,76 +577,19 @@ def _render_frame(state, stats, cfg2, interpolation_alpha,
     return frame, tuple(canvases), torch.stack(audits)
 
 
-def frame_options(handler, stats=None) -> Tuple[RenderOptions, RenderOptions]:
-    """Per-population RenderOptions for the handler's CURRENT state (canvas
-    buckets from the latest step stats, reference :1944-1954; ``stats`` in
-    place of the handler's, as a spatial handler passes its mesh-wide ones).
-    The stats come to the host in one read (``host_reads``), inside the
-    span ``egg.draw.read_stats`` with the options built from them. The host
-    copy stays on the handler (``_frame_stats``), for
-    :func:`boost_until_clean` to form the options of a re-render without a
-    read."""
-    global host_reads
-    if stats is None:
-        stats = handler.stats
-    with span("egg.draw.read_stats"):
-        handler._frame_stats = torch.cat([
-            stats.aabb_min.reshape(-1), stats.aabb_max.reshape(-1),
-            stats.max_velocity.reshape(-1)]).cpu().numpy()
-        host_reads += 1
-        return _frame_options(handler, handler._frame_stats)
-
-
-def _frame_options(handler, host):
-    """The options of :func:`frame_options` from its host copy of the
-    stats, at the handler's current budget boost and peak-density hint."""
-    counts = handler.get_n_particles()
-    aabb_min_all = host[0:4].reshape(2, 2)
-    aabb_max_all = host[4:8].reshape(2, 2)
-    max_vel = host[8:10]
-    opts = []
-    for i, cfg in ((0, handler._white_config), (1, handler._yolk_config)):
-        aabb_min, aabb_max = aabb_min_all[i], aabb_max_all[i]
-        if handler._canvas_size is not None:
-            bucket = int(handler._canvas_size)
-        else:
-            bucket = pick_canvas_bucket(
-                aabb_min, aabb_max,
-                cfg["max_radius"] * cfg["texture_scale"],
-                float(max_vel[i]), cfg["motion_blur"], None)
-        area = float(max(aabb_max[0] - aabb_min[0], 1.0)
-                     * max(aabb_max[1] - aabb_min[1], 1.0))
-        density = counts[i] / area if area > 1.0 else None
-        opts.append(auto_render_options(
-            cfg, bucket, use_particle_color=handler._use_particle_color,
-            density=density, k_boost=handler._render_k_boost[i],
-            peak_density=handler._render_peak_density[i],
-            post_mode=handler._render_post_mode))
-    return tuple(opts)
-
-
-def outline_thickness(handler) -> Tuple[float, float]:
-    """Each population's outline thickness from the handler's host
-    configs: what the render's outline offsets are formed from."""
-    return (float(handler._white_config["outline_thickness"]),
-            float(handler._yolk_config["outline_thickness"]))
-
-
-def _frame_scalars(handler, viewport, alpha=None):
-    """The render's scalars on the handler's device: the interpolation
-    alpha (``alpha``, a float or a 0-dim device tensor, else the
-    handler's), the threshold, the smoothness and the viewport origin, each
-    a fill (a launch, not a copy from the host)."""
-    f32 = dict(dtype=torch.float32, device=handler.device)
-    alpha = handler.interpolation_alpha if alpha is None else alpha
+def _frame_scalars(scalars, device):
+    """The render's scalars ``(alpha, threshold, smoothness, (x, y))`` as
+    the tensors :func:`_render_frame` takes, on ``device``: the alpha a
+    float or a 0-dim device tensor (taken as it is), the rest host floats,
+    each a fill (a launch, not a copy from the host)."""
+    alpha, threshold, smoothness, (x, y) = scalars
+    f32 = dict(dtype=torch.float32, device=device)
     if not isinstance(alpha, torch.Tensor):
         alpha = torch.full((), float(alpha), **f32)
-    origin = torch.full((2,), float(viewport[0]), **f32)
-    origin[1].fill_(float(viewport[1]))
-    return (alpha,
-            torch.full((), float(handler._thresholding_threshold), **f32),
-            torch.full((), float(handler._thresholding_smoothness), **f32),
-            origin)
+    origin = torch.full((2,), float(x), **f32)
+    origin[1].fill_(float(y))
+    return (alpha, torch.full((), float(threshold), **f32),
+            torch.full((), float(smoothness), **f32), origin)
 
 
 def _read_audits(audits_t) -> np.ndarray:
@@ -643,100 +601,157 @@ def _read_audits(audits_t) -> np.ndarray:
     return audits
 
 
-def boost_until_clean(handler, opts2, audits_t, render, stats=None):
-    """The render-budget audit of a frame drawn at ``opts2`` (``audits_t``,
-    (pop, [drops, peak bin occupancy]) on the device), read once a fresh
-    frame (``host_reads``): the handler's peak-density hint is raised (never
-    lowered) to the measured peak; while a population dropped splats, its
-    budget boost is sized from the measured peak and a warning logged, 3
-    attempts at most, as the JAX package's draw does.
+class RenderBudget:
+    """The render budget of one handler, and its one owner: each
+    population's budget boost ``k_boost`` and peak-density hint
+    ``peak_density``, the host copy of the stats the options were last
+    formed from (``host_stats``) and the device audit of the last frame
+    drawn (``audit``, (pop, [drops, peak bin occupancy])). Its methods take
+    plain values; ``inputs`` are :meth:`options`' keyword arguments."""
 
-    An attempt re-renders only if the options it would draw at (the
-    handler's new boost and hint over the stats :func:`frame_options` last
-    read, kept on the handler) differ from those just drawn: then
-    ``render(opts2)`` (which draws the frame again and returns its audit)
-    runs at the handler's new options (:func:`frame_options` with
-    ``stats``), a span ``egg.draw.rerender`` that holds its reads and its
-    render, counted in ``rerenders``. Equal options would replay the same
-    render of the same inputs, so the attempt draws nothing and reads
-    nothing (``rerenders_skipped``): the frame, the canvases and the audit
-    stay those already drawn, and the next attempt's boost is sized from
-    the same audit numbers that the repeated render would have read. The
-    boost and the hint persist on the handler. Returns the audit of the
-    last frame drawn."""
-    global rerenders, rerenders_skipped
-    audits = _read_audits(audits_t)
-    dens = list(handler._render_peak_density)
-    for i in range(2):
-        o = opts2[i]
-        m = int(audits[i, 1])
-        if m > 0:
-            d = m / float(o.bin_h * o.bin_w * o.downsample ** 2)
-            if dens[i] is None or d > dens[i]:   # only RAISE the hint
-                dens[i] = d
-    handler._render_peak_density = dens
-    # auto-bump: size the per-bin budget of any overflowing population
-    # from the MEASURED max bin occupancy and re-render until the frame
-    # drops nothing
-    for attempt in range(3):
-        if audits[:, 0].sum() == 0:
-            break
-        from ..utils import log
-        boosts = list(handler._render_k_boost)
+    def __init__(self):
+        self.k_boost = [1.0, 1.0]
+        self.peak_density = [None, None]
+        self.host_stats: Optional[np.ndarray] = None
+        self.audit: Optional[torch.Tensor] = None
+
+    def read_options(self, stats, **inputs) -> Tuple[RenderOptions,
+                                                     RenderOptions]:
+        """Per-population RenderOptions of a frame (canvas buckets from
+        ``stats``, reference :1944-1954). The stats come to the host in one
+        read (``host_reads``), inside the span ``egg.draw.read_stats`` with
+        the options built from them; the host copy is kept, for a re-render
+        to form its options without a read."""
+        global host_reads
+        with span("egg.draw.read_stats"):
+            self.host_stats = torch.cat([
+                stats.aabb_min.reshape(-1), stats.aabb_max.reshape(-1),
+                stats.max_velocity.reshape(-1)]).cpu().numpy()
+            host_reads += 1
+            return self.options(**inputs)
+
+    def options(self, configs, counts, canvas_size, use_particle_color,
+                post_mode) -> Tuple[RenderOptions, RenderOptions]:
+        """The options of :meth:`read_options` from its host copy of the
+        stats, at the current boost and peak-density hint: ``configs`` the
+        (white, yolk) host configs, ``counts`` the live counts,
+        ``canvas_size`` a fixed canvas size (None: the bucket of the
+        stats), and the render's particle colour and post mode."""
+        host = self.host_stats
+        aabb_min_all = host[0:4].reshape(2, 2)
+        aabb_max_all = host[4:8].reshape(2, 2)
+        max_vel = host[8:10]
+        opts = []
+        for i, cfg in enumerate(configs):
+            aabb_min, aabb_max = aabb_min_all[i], aabb_max_all[i]
+            if canvas_size is not None:
+                bucket = int(canvas_size)
+            else:
+                bucket = pick_canvas_bucket(
+                    aabb_min, aabb_max,
+                    cfg["max_radius"] * cfg["texture_scale"],
+                    float(max_vel[i]), cfg["motion_blur"], None)
+            area = float(max(aabb_max[0] - aabb_min[0], 1.0)
+                         * max(aabb_max[1] - aabb_min[1], 1.0))
+            density = counts[i] / area if area > 1.0 else None
+            opts.append(auto_render_options(
+                cfg, bucket, use_particle_color=use_particle_color,
+                density=density, k_boost=self.k_boost[i],
+                peak_density=self.peak_density[i], post_mode=post_mode))
+        return tuple(opts)
+
+    def seed(self, opts2, pos_all, active) -> None:
+        """Set each population's peak-density hint from its host positions
+        (``pos_all`` (2, N, 2), ``active`` (2, N)) binned as a frame at
+        ``opts2`` bins them (:func:`_host_peak_density`), so the first draw
+        of a clustered scene is sized right without a re-render."""
+        dens = list(self.peak_density)
         for i in range(2):
-            if audits[i, 0] > 0:
-                need = min(256, max(8, -(-int(audits[i, 1] * 1.2) // 8) * 8))
-                boosts[i] *= max(1.0, need / opts2[i].tile_capacity)
-        handler._render_k_boost = boosts
-        log.warning("render budget overflow: dropped ", int(audits[0, 0]),
-                    " white / ", int(audits[1, 0]), " yolk particles "
-                    "past tile_capacity (peak bin occupancy ",
-                    (int(audits[0, 1]), int(audits[1, 1])),
-                    "); re-rendering with budget boost ", tuple(boosts))
-        if _frame_options(handler, handler._frame_stats) == tuple(opts2):
-            rerenders_skipped += 1
-            continue
-        with span("egg.draw.rerender"):
-            rerenders += 1
-            opts2 = frame_options(handler, stats)
-            audits_t = render(opts2)
-            if attempt < 2:            # the last attempt's audit is not read
-                audits = _read_audits(audits_t)
-    return audits_t
+            pos = pos_all[i][active[i]]
+            if pos.shape[0] > 0:
+                dens[i] = _host_peak_density(pos, opts2[i])
+        self.peak_density = dens
+
+    def audit_frame(self, opts2, frame, audits_t, render, stats, inputs):
+        """The audit of a frame drawn at ``opts2`` (``audits_t`` on the
+        device), read once a fresh frame (``host_reads``): the peak-density
+        hint is raised (never lowered) to the measured peak; while a
+        population dropped splats, its boost is sized from the measured
+        peak and a warning logged, 3 attempts at most, as the JAX package's
+        draw does.
+
+        An attempt re-renders only if the options it would draw at (the new
+        boost and hint over the kept host stats) differ from those just
+        drawn: then ``render(opts2)`` (which draws the frame again and
+        returns ``(frame, audits)``) runs at the options of a fresh read of
+        ``stats``, a span ``egg.draw.rerender`` that holds its reads and its
+        render, counted in ``rerenders``. Equal options would replay the
+        same render of the same inputs, so the attempt draws nothing and
+        reads nothing (``rerenders_skipped``): the frame and the audit stay
+        those already drawn, and the next attempt's boost is sized from the
+        same audit numbers that the repeated render would have read.
+        Returns the last frame drawn and its audit."""
+        global rerenders, rerenders_skipped
+        audits = _read_audits(audits_t)
+        dens = list(self.peak_density)
+        for i in range(2):
+            o = opts2[i]
+            m = int(audits[i, 1])
+            if m > 0:
+                d = m / float(o.bin_h * o.bin_w * o.downsample ** 2)
+                if dens[i] is None or d > dens[i]:   # only RAISE the hint
+                    dens[i] = d
+        self.peak_density = dens
+        # auto-bump: size the per-bin budget of any overflowing population
+        # from the MEASURED max bin occupancy and re-render until the frame
+        # drops nothing
+        for attempt in range(3):
+            if audits[:, 0].sum() == 0:
+                break
+            from ..utils import log
+            boosts = list(self.k_boost)
+            for i in range(2):
+                if audits[i, 0] > 0:
+                    need = min(256, max(8, -(-int(audits[i, 1] * 1.2) // 8)
+                                        * 8))
+                    boosts[i] *= max(1.0, need / opts2[i].tile_capacity)
+            self.k_boost = boosts
+            log.warning("render budget overflow: dropped ", int(audits[0, 0]),
+                        " white / ", int(audits[1, 0]), " yolk particles "
+                        "past tile_capacity (peak bin occupancy ",
+                        (int(audits[0, 1]), int(audits[1, 1])),
+                        "); re-rendering with budget boost ", tuple(boosts))
+            if self.options(**inputs) == tuple(opts2):
+                rerenders_skipped += 1
+                continue
+            with span("egg.draw.rerender"):
+                rerenders += 1
+                opts2 = self.read_options(stats, **inputs)
+                frame, audits_t = render(opts2)
+                if attempt < 2:        # the last attempt's audit is not read
+                    audits = _read_audits(audits_t)
+        return frame, audits_t
 
 
-def draw(handler, viewport=None, background=None, check_overflow=True):
-    """Render the handler's current state to an (H, W, 4) straight-alpha image.
+def draw(budget: RenderBudget, render, stats, inputs: dict, background=None,
+         check_overflow=True):
+    """A frame drawn at ``budget``'s options: the draw of both handlers.
 
-    ``viewport=(x, y, w, h)`` in world pixels. ``background`` optionally an
-    (r, g, b, a) tuple composited under everything. ``check_overflow``
-    (default ON — the reference drops nothing inside its canvas, :2054-2064)
-    reads the per-bin render-budget counters once per fresh frame, warns,
-    and re-renders with a boosted budget until the frame drops nothing, 3
-    times at most (:func:`boost_until_clean`); the boost persists on the
-    handler. A re-render whose options equal those just drawn (a budget at
-    its cap of 256) is skipped: it would draw the same frame and drop the
-    same splats. The render is one replay of the handler's render graph on
-    a CUDA device (``ops/render_graph.py``); the device is read for the
-    stats and, with ``check_overflow``, for the audit of each rendered
-    frame (``host_reads``).
-    """
-    from .render_graph import render_handler_frame   # it imports this module
-    if viewport is None:
-        viewport = (0.0, 0.0, 800, 600)
-    drawn = {}
-
-    def render(opts2):
-        drawn["frame"], handler._canvases, audits_t = render_handler_frame(
-            handler, opts2, viewport)
-        return audits_t
-
-    opts2 = frame_options(handler)
-    audits_t = render(opts2)
+    ``render(opts2)`` renders the frame at ``opts2`` and returns ``(frame
+    (H, W, 4) straight alpha, audits)``; ``stats`` and ``inputs`` are what
+    the options are formed from. ``check_overflow`` (default ON — the
+    reference drops nothing inside its canvas, :2054-2064) audits the frame
+    and re-renders it with a boosted budget
+    (:meth:`RenderBudget.audit_frame`); the audit of the frame drawn is kept
+    on the budget.
+    ``background``, an optional (r, g, b, a), is composited under
+    everything."""
+    opts2 = budget.read_options(stats, **inputs)
+    frame, audits_t = render(opts2)
     if check_overflow:
-        audits_t = boost_until_clean(handler, opts2, audits_t, render)
-    handler._render_audit = audits_t
-    frame = drawn["frame"]
+        frame, audits_t = budget.audit_frame(opts2, frame, audits_t, render,
+                                             stats, inputs)
+    budget.audit = audits_t
     if background is not None:
         # a float operand, not a copy of the colour to the device
         bg = [float(v) for v in background]

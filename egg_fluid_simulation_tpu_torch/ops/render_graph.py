@@ -50,12 +50,10 @@ import torch
 
 from ..config import DeviceConfig
 from ..state import ParticleState, StepStats
-from ..utils.profiling import span
 from . import render as R
 from .step_graph import EAGER, copy_in, kept, sync_errors
 
-__all__ = ["EAGER", "RenderGraph", "RenderGraphs", "render_key",
-           "render_handler_frame"]
+__all__ = ["EAGER", "RenderGraph", "RenderGraphs", "render_key"]
 
 # the state and stats fields _render_frame reads; the others are not held
 STATE_READ = ("pos", "last_pos", "vel", "radius", "color", "count")
@@ -226,37 +224,3 @@ class RenderGraphs:
     def pool_bytes(self) -> int:
         """The kept captures' private memory pools, in bytes."""
         return sum(g.pool_bytes for g in self._graphs.values())
-
-
-def render_handler_frame(handler, opts2, viewport, *, state=None, stats=None,
-                         alpha=None, clone: bool = True):
-    """``_render_frame`` of the handler's state (or ``state`` and
-    ``stats``) at ``opts2`` over ``viewport`` ``(x, y, w, h)`` with the
-    handler's config and scalars, ``alpha`` (a float or a 0-dim device
-    tensor) in place of its interpolation alpha: ``(frame, canvases,
-    audits)``. On a CUDA handler a replay of its render graphs, on the CPU
-    (and while its ``_render_graphs`` is ``EAGER``) the eager render; either
-    is the span ``egg.draw.render``."""
-    with span("egg.draw.render"):
-        return _render_handler_frame(handler, opts2, viewport, state, stats,
-                                     alpha, clone)
-
-
-def _render_handler_frame(handler, opts2, viewport, state, stats, alpha,
-                          clone):
-    state = handler.state if state is None else state
-    stats = handler.stats if stats is None else stats
-    x, y, w, h = viewport
-    cfg2 = handler._device_cfg2()
-    static = dict(opts2=tuple(opts2), use_lighting=bool(handler._use_lighting),
-                  vw=int(w), vh=int(h), pop_caps=handler._options.pop_caps,
-                  thickness=R.outline_thickness(handler))
-    graphs = handler._renderers()
-    if graphs is None:
-        return R._render_frame(state, stats, cfg2,
-                               *R._frame_scalars(handler, viewport, alpha),
-                               **static)
-    scalars = (handler.interpolation_alpha if alpha is None else alpha,
-               handler._thresholding_threshold,
-               handler._thresholding_smoothness, (x, y))
-    return graphs.run(state, stats, cfg2, scalars, clone=clone, **static)

@@ -1000,7 +1000,7 @@ def draw_frame(mesh: Mesh, state: ParticleState, stats: StepStats,
         alpha_local, _, audit = render_ops.splat_population(
             state.pos[i], state.last_pos[i], state.vel[i],
             state.radius[i], state.color[i], active, centers[i], alpha_t,
-            cfg.texture_scale, cfg.motion_blur, opts, upsample=False)
+            cfg.texture_scale, cfg.motion_blur, opts)
         audits.append(audit)
         # 1 - prod_rank(1 - a_rank), through one log-space sum
         log1m = torch.log(torch.clamp(1.0 - alpha_local, min=1e-30))

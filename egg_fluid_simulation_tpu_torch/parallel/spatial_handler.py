@@ -26,9 +26,10 @@ Every rank runs the same calls (SPMD): the host bookkeeping is replicated.
   JAX package counts it, and so redistributes a packed scene at every call
   on one rank, where a redistribute changes nothing).
 - **Audited draws.** ``draw`` renders with the inner handler's render
-  settings and runs ``SimulationHandler.draw``'s render-budget audit and
-  boost on the audit combined over the mesh (the JAX package's spatial
-  draw ignores the settings and drops splats past the budget unannounced).
+  settings and goes through ``SimulationHandler.draw``'s budget, audit and
+  background path (``render.draw``) with the inner handler's render budget,
+  on the audit combined over the mesh (the JAX package's spatial draw
+  ignores the settings and drops splats past the budget unannounced).
 - **Resident fast-forward.** ``run_steps`` (and an ``update`` of more than
   one step) uses the resident steps of :func:`~.spatial.spatial_multi_step`.
 - **Graph replays on a card.** ``update``, ``step_once``, ``run_steps`` and
@@ -384,30 +385,21 @@ class SpatialHandler:
     def draw(self, viewport=None, background=None):
         """Sharded render: each rank splats its own particles, one log-space
         sum over the mesh combines them; returns the (H, W, 4) frame, the
-        same on every rank. ``background`` is an optional (r, g, b, a)
-        composited under everything, as ``SimulationHandler.draw`` does. On
-        a card the frame is a replay of the key's draw graph.
-
-        The inner handler's render settings apply as in
-        ``SimulationHandler.draw`` (:meth:`_frame_options`), and so does its
-        render-budget audit (``render.boost_until_clean``): the audit,
-        combined over the mesh, is read once a frame; splats dropped past a
-        bin's budget raise the inner handler's boost and the frame is drawn
-        again (a new draw key), the boost and the audit
-        (``_render_audit``) kept on the inner handler. A re-render whose
-        options equal those just drawn (a budget at its cap) is skipped:
-        the same draw key would draw the same frame and drop the same
-        splats. Per-particle colour is refused (``ValueError``). The stats
-        are read once a frame."""
+        same on every rank. On a card the frame is a replay of the key's
+        draw graph. The frame goes through ``render.draw``, as
+        ``SimulationHandler.draw``'s does (the options, the audit and its
+        re-renders, ``background``), at the inner handler's render settings
+        and budget over the mesh-wide stats, on the audit combined over the
+        mesh; a boost is a new draw key. Per-particle colour is refused
+        (``ValueError``)."""
         if viewport is None:
             viewport = (0.0, 0.0, 800, 600)
         self._ensure_spatial()
         x, y, w, h = viewport
-        thickness = render_ops.outline_thickness(self._inner)
-        cfg2 = self._inner._device_cfg2()
         inner = self._inner
+        thickness = inner._outline_thickness()
+        cfg2 = inner._device_cfg2()
         graphs = self._spatial_graphs()
-        drawn = {}
 
         def render(opts2):
             if graphs is None:
@@ -418,38 +410,18 @@ class SpatialHandler:
                         inner._thresholding_threshold,
                         inner._thresholding_smoothness, inner._use_lighting,
                         thickness=thickness)
-                drawn["frame"], audits = self._draw_cache[key](
+                return self._draw_cache[key](
                     self._sp_state, self.stats, cfg2,
                     self._interpolation_alpha)
-            else:
-                drawn["frame"], audits = graphs.draw(
-                    self._sp_state, self.stats, cfg2,
-                    (self._interpolation_alpha, inner._thresholding_threshold,
-                     inner._thresholding_smoothness, (x, y)),
-                    opts2=opts2, vw=w, vh=h, use_lighting=inner._use_lighting,
-                    thickness=thickness)
-            return audits
+            return graphs.draw(
+                self._sp_state, self.stats, cfg2,
+                (self._interpolation_alpha, inner._thresholding_threshold,
+                 inner._thresholding_smoothness, (x, y)),
+                opts2=opts2, vw=w, vh=h, use_lighting=inner._use_lighting,
+                thickness=thickness)
 
-        opts2 = self._frame_options()
-        inner._render_audit = render_ops.boost_until_clean(
-            inner, opts2, render(opts2), render, stats=self.stats)
-        frame = drawn["frame"]
-        if background is not None:
-            bg = torch.tensor(background, dtype=torch.float32,
-                              device=frame.device)
-            a = frame[..., 3:4]
-            frame = torch.cat([frame[..., :3] + bg[:3] * (1.0 - a),
-                               torch.clamp(frame[..., 3:4], min=float(bg[3]))],
-                              dim=-1)
-        return frame
-
-    def _frame_options(self):
-        """(white, yolk) RenderOptions of the current state:
-        ``render.frame_options`` of the inner handler (its canvas size,
-        particle colour, budget boost, peak density hint and post mode) on
-        the mesh-wide step statistics. The stats come to the host in one
-        read (``render.host_reads``)."""
-        return render_ops.frame_options(self._inner, stats=self.stats)
+        return render_ops.draw(inner._render_budget, render, self.stats,
+                               inner._budget_inputs(), background)
 
     # ----------------------------------------------------------- queries --
 

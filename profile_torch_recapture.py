@@ -10,7 +10,7 @@ handler's step graphs dropped between, so the next ``update`` captures
 anew), the replayed ``update`` per step (CUDA events around ``--n``
 replays, the median of 3 blocks) and the device time of one traced block
 (the sum of its CUDA kernel, copy and set events, per step); then the same
-for the replayed 2560 px render (``render_handler_frame`` at alpha 0.5,
+for the replayed 2560 px render (the handler's ``_render`` at alpha 0.5,
 the render graphs dropped between captures). ``--tree`` imports the
 package from another checkout (its own kernel library is built there), so
 two commits run in turns in one call compare on one card. Prints one JSON
@@ -46,10 +46,7 @@ def main(argv=None) -> int:
         print("no CUDA device: nothing to measure", file=sys.stderr)
         return 1
     from egg_fluid_simulation_tpu_torch import bench as B
-    from egg_fluid_simulation_tpu_torch.ops import render as R
     from egg_fluid_simulation_tpu_torch.ops.kernels import library
-    from egg_fluid_simulation_tpu_torch.ops.render_graph import \
-        render_handler_frame
     library.load()
     dev = torch.device("cuda", 0)
 
@@ -87,11 +84,11 @@ def main(argv=None) -> int:
         h._step_graphs = None
     h.seed_render_budget()
     viewport = B._canvas_viewport(h)
-    opts2 = R.frame_options(h)
+    opts2 = h._frame_options()
     render = []
     for _ in range(args.captures):
-        render.append(timed(lambda: render_handler_frame(
-            h, opts2, viewport, alpha=0.5, clone=False)))
+        render.append(timed(lambda: h._render(opts2, viewport, alpha=0.5,
+                                              clone=False)))
         h._render_graphs = None
     print(json.dumps({"tree": args.tree or ".", "card": card(),
                       "update_ms_device_ms": update,

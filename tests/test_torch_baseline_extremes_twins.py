@@ -73,8 +73,8 @@ def test_config5_frames_step_locked_to_jax():
         for ct, cj in zip(ht._canvases, hj._canvases):
             np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=0,
                                        atol=TW.FRAME_TOL)
-        assert ht._render_k_boost == hj._render_k_boost
-        assert ht._render_peak_density == hj._render_peak_density
+        assert ht._render_budget.k_boost == hj._render_k_boost
+        assert ht._render_budget.peak_density == hj._render_peak_density
         assert int(ht.render_audit[:, 0].sum()) == 0
     assert rep.steps == sc.frames and not rep.flips, TW.flip_lines(rep)
 

@@ -37,7 +37,6 @@ import egg_fluid_simulation_tpu_torch as T
 from egg_fluid_simulation_tpu.state import host_view
 from egg_fluid_simulation_tpu_torch import bench as B
 from egg_fluid_simulation_tpu_torch.interop import state_to_numpy
-from egg_fluid_simulation_tpu_torch.ops import render as TR
 
 ROOT = Path(__file__).resolve().parent.parent
 TOY = {"10k": dict(n=400, settle=2, block=2, blocks=2),
@@ -159,8 +158,8 @@ def test_drop_stats_and_render_budget_match_jax(jbench):
     assert B.drop_stats(ht) == jbench.drop_stats(hj)
     hj.seed_render_budget()
     ht.seed_render_budget()
-    assert ht._render_peak_density == hj._render_peak_density
-    assert ([dataclasses.asdict(o) for o in TR.frame_options(ht)]
+    assert ht._render_budget.peak_density == hj._render_peak_density
+    assert ([dataclasses.asdict(o) for o in ht._frame_options()]
             == [dataclasses.asdict(o) for o in JR.frame_options(hj)])
 
 

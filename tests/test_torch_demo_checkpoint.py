@@ -44,7 +44,6 @@ from egg_fluid_simulation_tpu.state import host_view
 from egg_fluid_simulation_tpu_torch import checkpoint as tckpt
 from egg_fluid_simulation_tpu_torch import demo as tdemo
 from egg_fluid_simulation_tpu_torch.interop import state_to_numpy
-from egg_fluid_simulation_tpu_torch.ops import render as tR
 from egg_fluid_simulation_tpu_torch.state import WHITE
 
 POS_TOL = 1e-3     # px
@@ -133,11 +132,7 @@ def test_demo_frame_matches_jax(sessions, tmp_path):
     # the frame's density canvases, as the JAX draw keeps them, agree a
     # decade tighter than the frame: the shading, not the splat, widens it
     # (the port's canvases rendered again at the draw's options and scalars)
-    alpha_t, thr, smooth, origin = tR._frame_scalars(ht, kw["viewport"])
-    _, canvases, _ = tR._render_frame(
-        ht.state, ht.stats, ht._device_cfg2(), alpha_t, thr, smooth, origin,
-        tR.frame_options(ht), bool(ht._use_lighting), 800, 600,
-        pop_caps=ht._options.pop_caps)
+    _, canvases, _ = ht._render(ht._frame_options(), kw["viewport"])
     assert len(canvases) == len(hj._canvases) == 2
     for ct, cj in zip(canvases, hj._canvases):
         assert ct.shape == cj.shape and float(np.max(cj)) > 0.5
@@ -252,20 +247,21 @@ def test_checkpoint_wide_state_none_and_render_k_boost(tmp_path):
     d.update()
     h = d.handler
     h._wide_state = (None, tuple(torch.tensor(v) for v in (True, 5, 2)))
-    h._render_k_boost = [2.0, 1.5]
+    h._render_budget.k_boost = [2.0, 1.5]
     path = str(tmp_path / "none.npz")
     tckpt.save(h, path)
     assert np.load(path)["wide_state"].tolist() == [[0, -1, 0], [1, 5, 2]]
-    for r in (tckpt.load(path, device="cpu"), jckpt.load(path)):
+    rt, rj = tckpt.load(path, device="cpu"), jckpt.load(path)
+    for r in (rt, rj):
         assert _host_ws(r._wide_state) == [None, (True, 5, 2)]
-        assert r._render_k_boost == [2.0, 1.5]
+    assert rt._render_budget.k_boost == rj._render_k_boost == [2.0, 1.5]
     # and back: a JAX file with a None entry
     hj = jckpt.load(path)
     path2 = str(tmp_path / "none_jax.npz")
     jckpt.save(hj, path2)
     r = tckpt.load(path2, device="cpu")
     assert _host_ws(r._wide_state) == [None, (True, 5, 2)]
-    assert r._render_k_boost == [2.0, 1.5]
+    assert r._render_budget.k_boost == [2.0, 1.5]
     r.update(1 / 60)                    # a None entry steps (gather engine)
     assert torch.isfinite(r.state.pos).all()
 

@@ -2,7 +2,8 @@
 scenes of the JAX package's render suites:
 
 - ``tests/test_overflow.py``: the clustered scene overflows its
-  density-sized render budget; both handlers auto-bump ``_render_k_boost``
+  density-sized render budget; both handlers auto-bump the budget boost
+  (the JAX handler's ``_render_k_boost``, the port's ``_render_budget``)
   to the same multipliers and the same peak-density hint, and a render at
   the boosted options drops nothing; the uniform scene needs no boost;
   a heap whose peak bin stays past the budget's cap of 256: the JAX draw
@@ -139,13 +140,13 @@ def test_clustered_scene_overflows_then_autobumps_as_jax(clustered):
     at this budget is slow on the CPU."""
     hj = clustered["hj"]
     ht = _port_clustered(clustered, "graph")
-    opts2 = trender.frame_options(ht)
+    opts2 = ht._frame_options()
     assert ([dataclasses.asdict(o) for o in opts2]
             == [dataclasses.asdict(o) for o in clustered["opts2"]])
     frame = ht.draw(viewport=VIEW, check_overflow=True)
-    assert max(ht._render_k_boost) > 1.0
-    assert ht._render_k_boost == clustered["boost"]
-    for got, want in zip(ht._render_peak_density, clustered["peak"]):
+    assert max(ht._render_budget.k_boost) > 1.0
+    assert ht._render_budget.k_boost == clustered["boost"]
+    for got, want in zip(ht._render_budget.peak_density, clustered["peak"]):
         assert (got is None) == (want is None)
         assert want is None or got == pytest.approx(want, rel=1e-6)
     assert ht._render_graphs.captures >= 2      # the boost was a new key
@@ -153,7 +154,7 @@ def test_clustered_scene_overflows_then_autobumps_as_jax(clustered):
     _assert_frames_close(frame, clustered["frame"], ht, hj)
     # tests/test_overflow.py's gate: a render at the boosted options drops
     # nothing, and both audits agree
-    opts2b = trender.frame_options(ht)
+    opts2b = ht._frame_options()
     assert opts2b[0].tile_capacity > opts2[0].tile_capacity
     _, _, ov_j = jrender._render_frame(
         hj.state, hj.stats, hj._device_cfg2(), jnp.float32(1.0),
@@ -161,7 +162,7 @@ def test_clustered_scene_overflows_then_autobumps_as_jax(clustered):
                                                          jnp.float32),
         jrender.frame_options(hj), True, 256, 256,
         pop_caps=hj._options.pop_caps)
-    _, _, ov_t = RG.render_handler_frame(ht, opts2b, VIEW, alpha=1.0)
+    _, _, ov_t = ht._render(opts2b, VIEW, alpha=1.0)
     assert int(ov_t[:, 0].sum()) == 0
     np.testing.assert_array_equal(ov_t.numpy(), np.asarray(ov_j))
 
@@ -174,7 +175,7 @@ def test_uniform_scene_needs_no_boost_as_jax(route):
     fj = hj.draw(viewport=VIEW, check_overflow=True)
     _take_jax_state(hj, ht, route)
     ft = ht.draw(viewport=VIEW, check_overflow=True)
-    assert ht._render_k_boost == hj._render_k_boost == [1.0, 1.0]
+    assert ht._render_budget.k_boost == hj._render_k_boost == [1.0, 1.0]
     assert int(ht.render_audit[:, 0].sum()) == 0
     _assert_frames_close(ft, fj, ht, hj)
 
@@ -228,26 +229,27 @@ def test_capped_heap_skips_rerenders_as_jax(heap, route, draw, rerenders):
     _, ht = _pair(BASE_OVERFLOW, HEAP, **HEAP_KW)
     _take_jax_state(hj, ht, route)
     for _ in range(draw):
-        trender.draw(ht, viewport=VIEW)
+        ht.draw(viewport=VIEW)
+        ht._frames = None
     trender.host_reads = trender.rerenders = 0
     trender.rerenders_skipped = 0
-    frame = trender.draw(ht, viewport=VIEW)
+    frame = ht.draw(viewport=VIEW)
     assert trender.rerenders == rerenders
     assert trender.rerenders_skipped == 3 - rerenders
     assert trender.host_reads == 2 + 2 * rerenders
-    assert ht._render_k_boost == want["boost"]
-    assert ht._render_peak_density == want["peak"]
-    opts2 = trender.frame_options(ht)
+    assert ht._render_budget.k_boost == want["boost"]
+    assert ht._render_budget.peak_density == want["peak"]
+    opts2 = ht._frame_options()
     assert opts2[0].tile_capacity == 256
     assert int(ht.render_audit[0, 0]) > 0      # still over the cap
     np.testing.assert_allclose(frame.numpy(), want["frame"], rtol=0,
                                atol=FRAME_TOL)
     # what the skipped re-renders would have drawn
-    again, canvases, audit = RG.render_handler_frame(ht, opts2, VIEW)
+    again, canvases, audit = ht._render(opts2, VIEW)
     assert torch.equal(again, frame)
     for got, kept in zip(canvases, ht._canvases):
         assert torch.equal(got, kept)
-    assert torch.equal(audit, ht._render_audit)
+    assert torch.equal(audit, ht._render_budget.audit)
 
 
 # -------------------------------------------- tests/test_interpolation.py --

@@ -3,7 +3,8 @@
 ``bench_torch.py``, ``profile_torch_*.py``) imports ``jax`` or the JAX
 package ``egg_fluid_simulation_tpu``. Every such ``.py`` file is parsed with
 ``ast`` (so a lazy import inside a function counts too) and each ``import``
-/ ``from ... import`` is checked."""
+/ ``from ... import`` is checked. The same parse holds the ``ops/`` layer
+below the handlers: no module there takes a handler."""
 
 import ast
 from pathlib import Path
@@ -54,6 +55,24 @@ def test_the_port_has_its_root_scripts():
 @pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
 def test_root_script_has_no_jax_import(path):
     _assert_no_jax(path)
+
+
+def test_no_ops_module_takes_a_handler():
+    """The layers point down: no module under ``ops/`` has a parameter
+    named ``handler`` or reads an attribute through one. The handlers own
+    their state and pass the render budget, their render and plain values
+    down."""
+    bad = []
+    for path in sorted((PKG / "ops").rglob("*.py")):
+        where = path.relative_to(PKG).as_posix()
+        for node in ast.walk(ast.parse(path.read_text(), filename=where)):
+            if isinstance(node, ast.arg) and node.arg == "handler":
+                bad.append(f"{where}:{node.lineno} parameter handler")
+            elif (isinstance(node, ast.Attribute)
+                  and isinstance(node.value, ast.Name)
+                  and node.value.id == "handler"):
+                bad.append(f"{where}:{node.lineno} handler.{node.attr}")
+    assert not bad, bad
 
 
 def _assert_no_jax(path):

@@ -114,7 +114,7 @@ def test_splat_plain_matches_jax_scan(scene, pop, use_rgb):
     at, rt, audit_t = trender.splat_population(
         *[torch.from_numpy(np.asarray(a)) for a in args],
         torch.from_numpy(center), torch.tensor(0.7), torch.tensor(12.0),
-        torch.tensor(0.0003), ot, upsample=False)
+        torch.tensor(0.0003), ot)
     np.testing.assert_array_equal(audit_t.numpy(), np.asarray(audit_j))
     assert float(at.max()) > 0.5
     np.testing.assert_allclose(at.numpy(), np.asarray(jax.block_until_ready(aj)),

@@ -14,10 +14,12 @@ clone handed out, the cache bound) runs here as it runs on the card:
   replaced (kept here as the reference) and within 1e-6 of the JAX
   ``_paste_src_over_frac``, inside, partly and fully off each edge, at
   negative and fractional corners;
-- ``frame_options`` (one read of the stats) against the options of the
-  three reads it replaced; the upsampling matrix made on the device bit for
-  bit against the numpy matrix it replaced; the background composite with
-  float operands against the colour tensor it replaced;
+- the render budget's options (``RenderBudget.read_options``: one read of
+  the stats) against the options of the three reads it replaced; the
+  upsampling matrix made on the device bit for bit against the numpy
+  matrix it replaced; the background composite with float operands, the
+  dense handler's and the spatial handler's, against the colour tensor it
+  replaced;
 - draws through ``RenderGraphs(capture=False)`` with state, alpha,
   viewport origin, colour and config changes between them, bit for bit
   against a handler that renders eagerly (frame, canvases, audit); a held
@@ -182,7 +184,8 @@ def _spawned(graph, **kw):
 
 
 def _options_three_reads(h):
-    """``frame_options`` before: each stat read to the host on its own."""
+    """The frame's options before: each stat read to the host on its
+    own."""
     stats = h.stats
     counts = h.get_n_particles()
     aabb_min_all = stats.aabb_min.cpu().numpy()
@@ -201,8 +204,8 @@ def _options_three_reads(h):
         density = counts[i] / area if area > 1.0 else None
         opts.append(R.auto_render_options(
             cfg, bucket, use_particle_color=h._use_particle_color,
-            density=density, k_boost=h._render_k_boost[i],
-            peak_density=h._render_peak_density[i],
+            density=density, k_boost=h._render_budget.k_boost[i],
+            peak_density=h._render_budget.peak_density[i],
             post_mode=h._render_post_mode))
     return tuple(opts)
 
@@ -213,10 +216,10 @@ def test_frame_options_read_the_stats_once(case):
         h = _spawned(False, canvas_size=None)
     else:
         h = _spawned(False, render_post_mode="full")
-        h._render_k_boost = [1.5, 2.0]
-        h._render_peak_density = [0.05, None]
+        h._render_budget.k_boost = [1.5, 2.0]
+        h._render_budget.peak_density = [0.05, None]
     reads = R.host_reads
-    got = R.frame_options(h)
+    got = h._frame_options()
     assert R.host_reads == reads + 1
     assert got == _options_three_reads(h)
 
@@ -236,15 +239,25 @@ def test_upsampling_matrix_made_on_the_device(sizes):
 
 
 def test_background_composite_as_the_colour_tensor_did():
-    h = _spawned(False)
+    """Both handlers' draws composite ``background`` through one path
+    (``render.draw``), with float operands: as the colour tensor copied to
+    the device did, bit for bit."""
+    hs = T.SpatialHandler(T.default_white_config(), T.default_yolk_config(),
+                          capacity=256, max_batches=8, canvas_size=256,
+                          options=T.SolverOptions(**OPTS), device="cpu")
+    hs.add(120.0, 100.0, 30.0, 10.0, None, None, 60, 12)
+    hs.update(1 / 60)
     bgc = (0.1, 0.2, 0.3, 0.75)
-    frame = h.draw(viewport=VIEW)
-    got = h.draw(viewport=VIEW, background=bgc)
     bg = torch.tensor(bgc, dtype=torch.float32)
-    a = frame[..., 3:4]
-    want = torch.cat([frame[..., :3] * 1.0 + bg[:3] * (1.0 - a),
-                      torch.clamp(frame[..., 3:4], min=float(bg[3]))], dim=-1)
-    assert torch.equal(got, want)
+    for h in (_spawned(False), hs):
+        frame = h.draw(viewport=VIEW)
+        got = h.draw(viewport=VIEW, background=bgc)
+        a = frame[..., 3:4]
+        want = torch.cat([frame[..., :3] * 1.0 + bg[:3] * (1.0 - a),
+                          torch.clamp(frame[..., 3:4], min=float(bg[3]))],
+                         dim=-1)
+        assert a.max() > 0.5 and a.min() < bgc[3]
+        assert torch.equal(got, want)
 
 
 # ------------------------------------------------------- the render graphs --
@@ -255,13 +268,14 @@ def _assert_same_draw(a, b, what):
     assert len(a._canvases) == len(b._canvases) == 2
     for ca, cb in zip(a._canvases, b._canvases):
         assert torch.equal(ca, cb), f"{what}: canvas"
-    assert torch.equal(a._render_audit, b._render_audit), f"{what}: audit"
+    assert torch.equal(a._render_budget.audit, b._render_budget.audit), \
+        f"{what}: audit"
 
 
 def test_render_key():
     h = _spawned(False)
-    opts2 = R.frame_options(h)
-    th = R.outline_thickness(h)
+    opts2 = h._frame_options()
+    th = h._outline_thickness()
     key = RG.render_key(h.state, opts2, True, 160, 128, None, th)
     moved = h.state.replace(pos=h.state.pos + 1.0)
     assert RG.render_key(moved, opts2, True, 160, 128, None, th) == key
@@ -347,7 +361,7 @@ def test_budget_boost_builds_a_new_key_and_the_cache_is_bounded():
     h._frames = None
     h.draw(viewport=VIEW)                    # the peak hint has settled
     before = h._render_graphs.captures
-    h._render_k_boost = [2.0, 1.0]
+    h._render_budget.k_boost = [2.0, 1.0]
     h._frames = None
     h.draw(viewport=VIEW)
     assert h._render_graphs.captures == before + 1
@@ -377,9 +391,9 @@ def test_overflow_reads_and_recaptures_as_the_eager_draw():
         h.draw(viewport=(0, 0, 256, 256), check_overflow=True)
         reads[name] = R.host_reads
     _assert_same_draw(he, hg, "overflow")
-    assert max(hg._render_k_boost) > 1.0
-    assert hg._render_k_boost == he._render_k_boost
-    assert int(hg._render_audit[:, 0].sum()) == 0
+    assert max(hg._render_budget.k_boost) > 1.0
+    assert hg._render_budget.k_boost == he._render_budget.k_boost
+    assert int(hg._render_budget.audit[:, 0].sum()) == 0
     # stats + audit, then stats + audit of the boosted re-render
     assert reads == {"eager": 4, "graph": 4}
     assert hg._render_graphs.captures == 2

@@ -142,8 +142,10 @@ def clump_draws():
     hd = _take_jax_state(hj, _port())
     out = dict(jax=(frame_j, list(hj._render_k_boost),
                     list(hj._render_peak_density)),
-               dense=(hd.draw(viewport=VIEW).numpy(), hd._render_k_boost,
-                      hd._render_peak_density, hd._render_audit.numpy()))
+               dense=(hd.draw(viewport=VIEW).numpy(),
+                      hd._render_budget.k_boost,
+                      hd._render_budget.peak_density,
+                      hd._render_budget.audit.numpy()))
     for route in ("eager", "graphs"):
         hs = T.SpatialHandler.from_handler(_take_jax_state(hj, _port()))
         if route == "graphs":
@@ -151,9 +153,9 @@ def clump_draws():
                                         capture=False)
         reads = trender.host_reads
         frame = hs.draw(viewport=VIEW).numpy()
-        out[route] = (frame, hs._inner._render_k_boost,
-                      hs._inner._render_peak_density,
-                      hs._inner._render_audit.numpy(),
+        out[route] = (frame, hs._inner._render_budget.k_boost,
+                      hs._inner._render_budget.peak_density,
+                      hs._inner._render_budget.audit.numpy(),
                       trender.host_reads - reads, hs)
     return out
 
@@ -170,7 +172,7 @@ def test_spatial_draw_boosts_until_nothing_drops(clump_draws, capfd):
     reads = trender.host_reads
     again = hs.draw(viewport=VIEW).numpy()
     assert trender.host_reads - reads == 2
-    assert hs._inner._render_k_boost == boost
+    assert hs._inner._render_budget.k_boost == boost
     assert "render budget overflow" not in capfd.readouterr().out
     np.testing.assert_array_equal(again, frame)
 
@@ -234,10 +236,11 @@ def test_spatial_draw_skips_rerenders_on_a_capped_heap(heap_jax, route):
         assert trender.rerenders == rerenders
         assert trender.rerenders_skipped == 3 - rerenders
         assert trender.host_reads == 2 + 2 * rerenders
-        assert hs._inner._render_k_boost == hj._render_k_boost
-        assert hs._inner._render_peak_density == hj._render_peak_density
-        assert hs._frame_options()[0].tile_capacity == 256
-        assert int(hs._inner._render_audit[0, 0]) > 0   # over the cap
+        assert hs._inner._render_budget.k_boost == hj._render_k_boost
+        assert (hs._inner._render_budget.peak_density
+                == hj._render_peak_density)
+        assert hs._inner._frame_options(hs.stats)[0].tile_capacity == 256
+        assert int(hs._inner._render_budget.audit[0, 0]) > 0   # over the cap
     np.testing.assert_array_equal(frames[1], frames[0])
     np.testing.assert_allclose(frames[0], frame_j, rtol=FRAME_RTOL,
                                atol=FRAME_ATOL)
@@ -260,12 +263,12 @@ def test_post_mode_reaches_the_spatial_draw():
 def test_peak_density_and_boost_reach_the_spatial_options():
     dense = _port(SPREAD)
     hs = T.SpatialHandler.from_handler(_port(SPREAD))
-    plain = hs._frame_options()
+    plain = hs._inner._frame_options(hs.stats)
     for h in (dense, hs._inner):
-        h._render_peak_density = [0.25, None]
-        h._render_k_boost = [1.0, 3.0]
-    want = trender.frame_options(dense)
-    got = hs._frame_options()
+        h._render_budget.peak_density = [0.25, None]
+        h._render_budget.k_boost = [1.0, 3.0]
+    want = dense._frame_options()
+    got = hs._inner._frame_options(hs.stats)
     assert got == want
     assert [o.tile_capacity for o in got] != [o.tile_capacity for o in plain]
     hs.draw(viewport=SPREAD_VIEW)

@@ -100,7 +100,7 @@ def run(tmp_path_factory):
     for args in torch_ranks.CLUMP:
         h1.add(*args)
     clump_1x1 = (h1.draw(viewport=torch_ranks.CLUMP_VIEW).numpy(),
-                 h1._inner._render_audit.numpy())
+                 h1._inner._render_budget.audit.numpy())
     flows = dict(jax=_flow_single(hj), single=_flow_single(ht))
     port = ranks.result()
     # the JAX package's step of the ranks' redistributed clump

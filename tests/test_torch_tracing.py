@@ -237,11 +237,11 @@ def test_overflow_counts_rerenders_and_drops(white, rerenders, skipped):
     assert R.rerenders_skipped == skipped
     assert R.host_reads == 2 + 2 * rerenders
     assert R.dropped > 0
-    dirty = int(h._render_audit[:, 0].sum()) > 0
+    dirty = int(h._render_budget.audit[:, 0].sum()) > 0
     assert dirty == (skipped > 0)
     if dirty:                                 # three attempts in all
         assert R.rerenders + R.rerenders_skipped == 3
-        assert [o.tile_capacity for o in R.frame_options(h)][0] == 256
+        assert [o.tile_capacity for o in h._frame_options()][0] == 256
 
 
 def test_a_clean_scene_rerenders_nothing():

@@ -503,8 +503,8 @@ def handler_program(inputs, res):
         hc.add(*args)
     res["clump_frame"] = hc.draw(viewport=CLUMP_VIEW).numpy()
     res["clump_boosts"] = _gathered(hc.mesh, torch.tensor(
-        hc._inner._render_k_boost, dtype=torch.float64))
-    res["clump_render_audit"] = hc._inner._render_audit.numpy()
+        hc._inner._render_budget.k_boost, dtype=torch.float64))
+    res["clump_render_audit"] = hc._inner._render_budget.audit.numpy()
     res["clump_cells"] = np.asarray([cell_size_f32(c) for c in (white, yolk)])
     _save_state(res, "clump_in", hc._sp_state, hc.mesh)
     hc.update(1 / 60)
@@ -635,6 +635,7 @@ def spatial_graph_program(inputs, res):
                                                background=(0.1, 0.1, 0.1,
                                                            1.0)).numpy()
         res[f"handler_{route}_info"] = np.asarray(h.last_migration_info)
-        res[f"handler_{route}_render_audit"] = h._inner._render_audit.numpy()
+        res[f"handler_{route}_render_audit"] = \
+            h._inner._render_budget.audit.numpy()
         _save_state(res, f"handler_{route}", h.state, h.mesh)
         _save_stats(res, f"handler_{route}", h.stats)

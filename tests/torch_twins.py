@@ -144,8 +144,8 @@ def carry(hj, ht) -> None:
         for w in hj._wide_or_init())
     ht._elapsed = hj._elapsed
     ht._interpolation_alpha = hj.interpolation_alpha
-    ht._render_k_boost = list(hj._render_k_boost)
-    ht._render_peak_density = list(hj._render_peak_density)
+    ht._render_budget.k_boost = list(hj._render_k_boost)
+    ht._render_budget.peak_density = list(hj._render_peak_density)
     ht._frames = None
 
 
